@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port (``csrc/``), each with its plain
+PyTorch twin and a launch counter (``build.LAUNCHES``)."""
+from repro_torch.kernels.ema_scan import ema_scan_plain, ema_scan_rows
+from repro_torch.kernels.ops import ema_scan, spike_hist
+from repro_torch.kernels.spike_hist import (spike_hist_batch,
+                                            spike_hist_batch_plain)
+
+__all__ = ["ema_scan", "ema_scan_plain", "ema_scan_rows", "spike_hist",
+           "spike_hist_batch", "spike_hist_batch_plain"]

@@ -104,3 +104,9 @@ jax.config.update("jax_enable_x64", False)
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.key(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (repro_torch kernels on the "
+        "card); skipped on hosts without CUDA")
