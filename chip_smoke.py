@@ -52,8 +52,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM data-sheet peaks (the on-chip-measurement guide's table; fp64
-# outside the tensor cores from the same data sheet)
+# H100 SXM data-sheet peaks (HBM3 bandwidth; fp64 and fp32 outside the
+# tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f64": 34e12, "f32": 67e12}
 
