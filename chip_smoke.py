@@ -27,18 +27,39 @@ What it does, in order (every phase fails the run if it fails):
      ``count_classifier_calls``, and the bench's ground-truth budget check
      with every trace EMA-filtered on the card (``spikes.ema_filter``).  The
      decision counts must equal ``results/fleet_scale.json`` and every
-     kernel must have launched during this phase.
+     kernel must have launched during this phase;
+  6. LM kernel phase — ``flash_attention`` (bfloat16 causal at glm4-9b's
+     heads: b=4 x s=1024, the serving path's ragged s=1000 and s=2048, a
+     cached-prefill sq < skv case, and float32) and ``rmsnorm`` (bfloat16 at
+     (4096, 4096), the prefill rows (4000, 4096) and the decode rows
+     (4, 4096); float32) against their plain versions on the card; times
+     each kernel, its plain version and the one PyTorch call that computes
+     the same function (``scaled_dot_product_attention``, ``rms_norm``) at
+     the serving path's shapes;
+  7. LM card-vs-host phase — the reduced glm4-9b (2 layers) with the same
+     seeded weights on the card (kernels) and on the CPU (plain versions):
+     prefill logits within 1e-4 with float32 parameters and within rtol
+     2e-2 + atol 5e-2 with bfloat16 ones; teacher-forced decode logits and
+     the caches (bfloat16 for both, as in the reference) within the latter;
+  8. serving path — full-width glm4-9b (40 layers, 9.4 B bfloat16
+     parameters, the port's seeded init) answers two requests through
+     ``ServeEngine.generate``: 4 x 1000-token prompts and 1 x 2048, 32 new
+     tokens each.  Tokens must be in range, every step's logits finite, and
+     the kernels must have launched exactly as the model dictates (40 flash
+     launches per prefill, 81 rmsnorm launches per forward).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
-fleet drive under ``torch.profiler`` (device busy share, top operators);
-``--out DIR`` writes the measurements (``chip_smoke.json``) and the trace
-tables (``trace_summary.txt``) into DIR.
+fleet drive and one more serving request under ``torch.profiler`` (device
+busy share, top operators); ``--out DIR`` writes the measurements
+(``chip_smoke.json``) and the trace tables (``trace_summary.txt``,
+``trace_serve.txt``) into DIR.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -53,15 +74,26 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM data-sheet peaks (HBM3 bandwidth; fp64 and fp32 outside the
-# tensor cores)
+# tensor cores; bf16 dense on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f64": 34e12, "f32": 67e12}
+PEAK_OPS = {"f64": 34e12, "f32": 67e12, "bf16_tensor": 989e12}
 
 BINS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
 FLEET = {"tpu-v5e": 32, "tpu-v5p": 16, "tpu-v6e": 16}
 GATES = dict(min_confidence=0.2, min_fraction=0.1, min_spike_samples=50)
 EMA_F32_TOL = 1e-5          # x max|x|: f32 rounding of an alpha=0.5 filter
 SUSTAIN_WINDOW = 50
+
+GLM = "glm4-9b"
+# tests/test_kernels.py's tolerances (bf16 rounding of the output, f32
+# rounding of a softmax / mean of squares in another order)
+KERNEL_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+              torch.float32: dict(rtol=3e-5, atol=3e-5)}
+# tests/test_torch_models.py's tolerances for a whole model's logits/caches
+LM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=5e-2),
+          torch.float32: dict(rtol=1e-4, atol=1e-4)}
+REQUESTS = ((4, 1000), (1, 2048))          # (batch, prompt tokens)
+NEW_TOKENS = 32
 
 
 def log(msg: str) -> None:
@@ -354,7 +386,7 @@ def main_path(dev, want: dict):
     violations, peak, ema_n = ground_truth(run, dev)
     torch.cuda.synchronize()
     t_truth = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    launches = {k: build.LAUNCHES[k] for k in ("spike_hist", "ema_scan")}
     res, final = run["result"], run["final"]
     got = {"decisions": len(res.decisions),
            "early_decisions": res.early_decisions,
@@ -416,6 +448,294 @@ def trace_phase(lib, dev, card: str, out: str | None) -> None:
                     f"{by_dev}\n\n{by_cpu}\n")
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: the dense-LM serving path
+# ---------------------------------------------------------------------------
+def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> float:
+    """max |got - want|; raises unless |got - want| <= atol + rtol |want|."""
+    got, want = got.float(), want.float().to(got.device)
+    err = (got - want).abs()
+    if not bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all()):
+        raise AssertionError(f"{what}: max|err| {float(err.max()):.3e} beyond"
+                             f" rtol {tol['rtol']} + atol {tol['atol']}")
+    return float(err.max())
+
+
+def attn_inputs(dev, b, sq, skv, dtype, seed):
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[GLM]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, sq, cfg.num_heads, cfg.head_dim),
+                          (b, skv, cfg.num_kv_heads, cfg.head_dim),
+                          (b, skv, cfg.num_kv_heads, cfg.head_dim))]
+
+
+def attn_work(b, sq, skv, H, KV, dh, elem) -> tuple[float, float]:
+    """(flops, bytes) of causal attention with sq <= skv: 4*dh flops per
+    visible (query, key) pair and head; q, k, v read once, o written once."""
+    pairs = sq * (skv - sq) + sq * (sq + 1) // 2
+    return 4.0 * dh * pairs * b * H, \
+        float(elem * (2 * b * sq * H * dh + 2 * b * skv * KV * dh))
+
+
+def lm_kernel_phase(dev, flush, card: str) -> dict:
+    """Both LM kernels against their plain versions, then timings of the
+    kernel, the plain version and the library call at the serving path's
+    shapes (launches made here do not count)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import (build, flash_attention,
+                                     flash_attention_plain, rmsnorm,
+                                     rmsnorm_plain)
+    cfg = ARCHS[GLM]
+    H, KV, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    before = dict(build.LAUNCHES)
+    fa_err, rn_err = 0.0, 0.0
+    for b, sq, skv, dtype in ((4, 1024, 1024, torch.bfloat16),
+                              (4, 1000, 1000, torch.bfloat16),
+                              (1, 2048, 2048, torch.bfloat16),
+                              (2, 100, 1000, torch.bfloat16),
+                              (1, 1000, 1000, torch.float32)):
+        q, k, v = attn_inputs(dev, b, sq, skv, dtype, sq + skv)
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = close(got, flash_attention_plain(q, k, v, causal=True),
+                    KERNEL_TOL[dtype], f"flash_attention b={b} sq={sq} "
+                    f"skv={skv} {dtype}")
+        fa_err = max(fa_err, err)
+        log(f"flash_attention check b={b} sq={sq} skv={skv} H={H} KV={KV} "
+            f"dh={dh} {dtype}: max|err| {err:.3e} vs plain")
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n, dtype in ((4096, torch.bfloat16), (4000, torch.bfloat16),
+                     (4, torch.bfloat16), (4096, torch.float32)):
+        x = (torch.randn((n, d), generator=g, device=dev) * 3).to(dtype)
+        sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+        got = rmsnorm(x, sc, cfg.norm_eps)
+        torch.cuda.synchronize()
+        err = close(got, rmsnorm_plain(x, sc, cfg.norm_eps),
+                    KERNEL_TOL[dtype], f"rmsnorm ({n}, {d}) {dtype}")
+        rn_err = max(rn_err, err)
+        log(f"rmsnorm check ({n}, {d}) {dtype}: max|err| {err:.3e} vs plain")
+
+    # timings at the first request's shapes: prefill attention of 4 x 1000
+    # tokens, the prefill norm over 4,000 rows and the decode norm over 4
+    b, s = REQUESTS[0]
+    q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    close(lib, flash_attention_plain(q, k, v, causal=True),
+          KERNEL_TOL[torch.bfloat16], "scaled_dot_product_attention")
+    fa = dict(ms=cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush),
+              plain_ms=cuda_time_ms(lambda: flash_attention_plain(q, k, v),
+                                    5, flush),
+              library_ms=cuda_time_ms(
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True),
+                  20, flush))
+    flops, nbytes = attn_work(b, s, s, H, KV, dh, 2)
+    fa.update(err=fa_err, flops=flops, bytes=nbytes, shape=[b, s, H, KV, dh],
+              bound_ms=max(flops / PEAK_OPS["bf16_tensor"],
+                           nbytes / HBM_BYTES_PER_S) * 1e3)
+    fa["bound_by"] = "operations" if flops / PEAK_OPS["bf16_tensor"] > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    q2, k2, v2 = attn_inputs(dev, 4, 1024, 1024, torch.bfloat16, 8)
+    fa["ms_1024"] = cuda_time_ms(lambda: flash_attention(q2, k2, v2), 20,
+                                 flush)
+    log(f"flash_attention bf16 b={b} s={s} H={H} KV={KV} dh={dh} causal "
+        f"[{card}]: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms,"
+        f" scaled_dot_product_attention {fa['library_ms']:.4f} ms, bound "
+        f"{fa['bound_ms']:.4f} ms ({flops:.4e} flop, {nbytes:.4e} B; "
+        f"{fa['bound_by']}); at s=1024 the kernel takes {fa['ms_1024']:.4f} "
+        f"ms")
+
+    rows = b * s
+    x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    xd = x[:b].contiguous()
+    eps = cfg.norm_eps
+    rn = dict(ms=cuda_time_ms(lambda: rmsnorm(x, sc, eps), 50, flush),
+              plain_ms=cuda_time_ms(lambda: rmsnorm_plain(x, sc, eps), 20,
+                                    flush),
+              library_ms=cuda_time_ms(
+                  lambda: F.rms_norm(x, (d,), weight=sc, eps=eps), 50, flush),
+              decode_ms=cuda_time_ms(lambda: rmsnorm(xd, sc, eps), 50, flush),
+              decode_library_ms=cuda_time_ms(
+                  lambda: F.rms_norm(xd, (d,), weight=sc, eps=eps), 50,
+                  flush))
+    close(F.rms_norm(x, (d,), weight=sc, eps=eps), rmsnorm_plain(x, sc, eps),
+          KERNEL_TOL[torch.bfloat16], "rms_norm")
+    nbytes = 2.0 * (2 * rows * d + d)
+    flops = 4.0 * rows * d            # square, add; two multiplies
+    rn.update(err=rn_err, bytes=nbytes, flops=flops, shape=[rows, d],
+              bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                           flops / PEAK_OPS["f32"]) * 1e3,
+              bound_by="bytes")
+    log(f"rmsnorm bf16 ({rows}, {d}) [{card}]: kernel {rn['ms']:.4f} ms, "
+        f"plain {rn['plain_ms']:.4f} ms, rms_norm {rn['library_ms']:.4f} ms,"
+        f" bound {rn['bound_ms']:.4f} ms ({nbytes:.4e} B); decode rows "
+        f"({b}, {d}): kernel {rn['decode_ms']:.4f} ms, rms_norm "
+        f"{rn['decode_library_ms']:.4f} ms")
+    build.LAUNCHES.update(before)          # check/timing launches do not count
+    return {"flash_attention": fa, "rmsnorm": rn}
+
+
+def lm_card_vs_host_phase(dev) -> None:
+    """Reduced glm4-9b with the same weights: kernels on the card against
+    the plain versions on the CPU, prefill and teacher-forced decode."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[GLM].reduced(num_layers=2)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 100))
+    for dtype in (torch.float32, torch.bfloat16):
+        host = ServeEngine(cfg, max_len=120, device="cpu", dtype=dtype)
+        host.init_params(0)
+        card = ServeEngine(cfg, max_len=120, device=dev, dtype=dtype)
+        card.model.load_state_dict(host.model.state_dict())
+        tol = LM_TOL[dtype]
+        # the host first: its logits, caches and greedy tokens
+        lh, ch = host.model.prefill({"tokens": tokens})
+        ch = host._pad_caches(ch, 2)
+        host_logits, fed = [lh], []
+        for i in range(8):
+            fed.append(torch.argmax(host_logits[-1], dim=-1))
+            lh, ch = host.model.decode_step(ch, fed[-1], 100 + i)
+            host_logits.append(lh)
+        # then the card, fed the host's tokens
+        before = dict(build.LAUNCHES)
+        lc, cc = card.model.prefill({"tokens": tokens})
+        cc = card._pad_caches(cc, 2)
+        card_logits = [lc]
+        for i in range(8):
+            lc, cc = card.model.decode_step(cc, fed[i].to(dev), 100 + i)
+            card_logits.append(lc)
+        if build.LAUNCHES["flash_attention"] - before["flash_attention"] \
+                != 2 or build.LAUNCHES["rmsnorm"] - before["rmsnorm"] \
+                != 5 * 9:
+            raise AssertionError("the reduced LM on the card did not run "
+                                 "its kernels")
+        # the decode caches and decode softmax weights are bf16 for either
+        # parameter dtype, as in the reference: one bf16 rounding that
+        # falls differently moves the logits by more than 1e-4
+        errs = [close(card_logits[0], host_logits[0], tol,
+                      f"prefill logits {dtype}")]
+        bf16 = LM_TOL[torch.bfloat16]
+        errs += [close(c, h, bf16, f"decode logits {dtype} step {i}")
+                 for i, (c, h) in enumerate(zip(card_logits[1:],
+                                                host_logits[1:]))]
+        for key in ("k", "v"):
+            errs.append(close(cc["l0_attn"][key], ch["l0_attn"][key], bf16,
+                              f"cache {key} {dtype}"))
+        build.LAUNCHES.update(before)
+        log(f"LM card vs host: reduced {GLM} (2 layers) {dtype}, 2 x 100 "
+            f"prompt: prefill logits max|err| {errs[0]:.3e} (tolerance rtol "
+            f"{tol['rtol']} + atol {tol['atol']}); 8 teacher-forced decode "
+            f"steps and bf16 caches max|err| {max(errs[1:]):.3e} (rtol "
+            f"{bf16['rtol']} + atol {bf16['atol']})")
+
+
+def serve_phase(dev, card: str, trace_out: str | None,
+                trace: bool) -> dict:
+    """Full-width glm4-9b answers REQUESTS through ServeEngine.generate;
+    the launch counts are reset just before and read just after."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[GLM]
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, max_len=max(s for _, s in REQUESTS)
+                         + NEW_TOKENS + 4, device=dev)
+    engine.init_params(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+               for b, s in REQUESTS]
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    results = []
+    for tokens in prompts:
+        before = dataclasses.replace(engine.stats)
+        t0 = time.perf_counter()
+        out = engine.generate({"tokens": tokens}, NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b, s = tokens.shape
+        if out.shape != (b, NEW_TOKENS) or out.min() < 0 or \
+                out.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {b} x {s}: tokens {out.shape} "
+                                 f"out of range [{out.min()}, {out.max()}]")
+        first = engine.stats.first_token_s - before.first_token_s
+        rest = engine.stats.next_tokens_s - before.next_tokens_s
+        results.append(dict(batch=b, prompt=s, wall_s=wall,
+                            first_token_ms=first * 1e3,
+                            decode_ms_per_step=rest / (NEW_TOKENS - 1) * 1e3,
+                            tokens_per_s=b * NEW_TOKENS / (first + rest),
+                            first_tokens=out[:, :4].tolist()))
+    launches = {k: build.LAUNCHES[k] for k in ("flash_attention", "rmsnorm")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_attention": cfg.num_layers * len(REQUESTS),
+            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + NEW_TOKENS)
+            * len(REQUESTS)}
+    if launches != want:
+        raise AssertionError(f"serving path launches {launches}, the model "
+                             f"dictates {want}")
+    log(f"serving path [{card}]: {GLM} full width, {n_params} parameters "
+        f"(bf16), seeded init {t_init:.3f} s; launches {json.dumps(launches)}"
+        f"; peak memory {peak / 2**30:.3f} GiB")
+    for r in results:
+        log(f"  request {r['batch']} x {r['prompt']} -> {NEW_TOKENS} tokens "
+            f"[{card}]: first token {r['first_token_ms']:.3f} ms, decode "
+            f"{r['decode_ms_per_step']:.3f} ms/step, {r['tokens_per_s']:.2f} "
+            f"tokens/s, wall {r['wall_s']:.3f} s")
+    if trace:
+        trace_serve(engine, prompts[0], card, trace_out)
+    return dict(requests=results, launches=launches, peak_bytes=peak,
+                n_params=n_params, init_s=t_init)
+
+
+def trace_serve(engine, tokens, card: str, out: str | None) -> None:
+    """One more request under ``torch.profiler``: device busy share and
+    device time by kernel (table in ``out/trace_serve.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate({"tokens": tokens}, NEW_TOKENS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = [e for e in ka
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    shares = {}
+    for e in kernels:
+        name = e.key.lower()
+        group = ("flash_attention" if "fa_bf16" in name else
+                 "rmsnorm" if "rmsnorm" in name else
+                 "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass",
+                                                    "gemv", "splitk")) else
+                 "other")
+        shares[group] = shares.get(group, 0.0) + e.self_device_time_total
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%})"
+                      for k, v in sorted(shares.items(), key=lambda x: -x[1]))
+    log(f"trace serve [{card}]: request {tokens.shape[0]} x "
+        f"{tokens.shape[1]} -> {NEW_TOKENS} tokens in {elapsed:.3f} s under "
+        f"the profiler, device busy {device_us / 1e6:.3f} s = "
+        f"{device_us / 1e6 / elapsed:.2%}; by kernel: {parts}")
+    if out is not None:
+        with open(os.path.join(out, "trace_serve.txt"), "w") as f:
+            f.write(f"{card}\n{elapsed:.3f} s traced, device busy "
+                    f"{device_us / 1e6:.3f} s\n{parts}\n\n"
+                    f"{ka.table(sort_by='self_device_time_total', row_limit=25)}"
+                    f"\n")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -437,7 +757,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
-        f"(both sources in parallel, nvcc sm_90a) [{card}]")
+        f"(every source in parallel, nvcc sm_90a) [{card}]")
     for key, report in build.BUILD_INFO.items():
         if key.endswith("_ptxas"):      # registers / smem / spills per kernel
             for line in str(report).splitlines():
@@ -446,9 +766,13 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     if args.out is not None:
         os.makedirs(args.out, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
 
     kp = kernel_phase(dev, flush)
+    lp = lm_kernel_phase(dev, flush, card)
     card_vs_host_phase(dev)
+    lm_card_vs_host_phase(dev)
     with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
         want = json.load(f)
     lib, mp = main_path(dev, want)
@@ -457,6 +781,8 @@ def main() -> int:
         f"per-row loop {mp['row_loop_s']:.3f} s, packing "
         f"{mp['repack_s']:.3f} s), {mp['jobs_per_s']:.1f} jobs/s, ground "
         f"truth {mp['truth_s']:.3f} s")
+    sp = serve_phase(dev, card, args.out, args.trace)
+    torch.cuda.empty_cache()
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -485,6 +811,17 @@ def main() -> int:
          "plain_ms": t_ema_plain, "bound_ms": ema_bound,
          "bound_by": "bytes", "library_ms": None},
     ]
+    for name, replaces in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
+            ("rmsnorm", "src/repro/kernels/rmsnorm.py:18")):
+        r = lp[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": sp["launches"][name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -495,8 +832,8 @@ def main() -> int:
         trace_phase(lib, dev, card, args.out)
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "kernels": kernels, "main_path": mp},
-                      f, indent=1)
+            json.dump({"card": card, "kernels": kernels, "main_path": mp,
+                       "lm_kernels": lp, "serve": sp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,15 @@
 """Hand-written CUDA kernels of the port (``csrc/``), each with its plain
 PyTorch twin and a launch counter (``build.LAUNCHES``)."""
 from repro_torch.kernels.ema_scan import ema_scan_plain, ema_scan_rows
-from repro_torch.kernels.ops import ema_scan, spike_hist
+from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ops import (ema_scan, flash_attention, rmsnorm,
+                                     spike_hist)
+from repro_torch.kernels.rmsnorm import rmsnorm_plain, rmsnorm_rows
 from repro_torch.kernels.spike_hist import (spike_hist_batch,
                                             spike_hist_batch_plain)
 
-__all__ = ["ema_scan", "ema_scan_plain", "ema_scan_rows", "spike_hist",
-           "spike_hist_batch", "spike_hist_batch_plain"]
+__all__ = ["ema_scan", "ema_scan_plain", "ema_scan_rows", "flash_attention",
+           "flash_attention_bshd", "flash_attention_plain", "rmsnorm",
+           "rmsnorm_plain", "rmsnorm_rows", "spike_hist", "spike_hist_batch",
+           "spike_hist_batch_plain"]

@@ -22,7 +22,7 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spike_hist", "ema_scan")
+SOURCES = ("spike_hist", "ema_scan", "flash_attention", "rmsnorm")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -42,6 +42,15 @@ _SIGNATURES = {
     },
     "ema_scan": {
         "ema_scan_f32": (_P, _P, _I64, _I64, _F, _F, _P),
+    },
+    "flash_attention": {
+        f"flash_attention_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 *(_I64,) * 12, _I, _P)
+        for t in ("bf16", "f32")
+    },
+    "rmsnorm": {
+        f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _P)
+        for x in ("f32", "bf16") for s in ("f32", "bf16")
     },
 }
 

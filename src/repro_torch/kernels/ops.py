@@ -1,14 +1,22 @@
 """Public wrappers with the reference ``repro.kernels.ops`` signatures.
 
-Both take torch tensors and run where the tensor lies: the CUDA kernel for a
-tensor on the card, the plain PyTorch version for a tensor on the CPU.
+Each takes torch tensors and runs where the tensors lie: the CUDA kernel for
+tensors on the card, the plain PyTorch version for tensors on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ema_scan import ema_scan_rows
+from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.rmsnorm import rmsnorm_rows
 from repro_torch.kernels.spike_hist import spike_hist_batch
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (b, sq, H, dh); k/v: (b, skv, KV, dh) -> (b, sq, H, dh)."""
+    return flash_attention_bshd(q, k, v, causal=causal)
 
 
 def spike_hist(power: torch.Tensor, tdp: float, n_bins: int = 15,
@@ -34,3 +42,10 @@ def ema_scan(power: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
     """Power samples (W) -> EMA-filtered float32 samples (the paper's
     alpha = 0.5 filter)."""
     return ema_scan_rows(power.to(torch.float32).contiguous(), alpha=alpha)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim of ``x`` (any leading dims)."""
+    shape = x.shape
+    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps).reshape(shape)

@@ -12,8 +12,9 @@ import torch
 
 from repro_torch.core import spikes
 from repro_torch.kernels import (build, ema_scan_plain, ema_scan_rows,
-                                 spike_hist, spike_hist_batch,
-                                 spike_hist_batch_plain)
+                                 flash_attention, flash_attention_plain,
+                                 rmsnorm, rmsnorm_plain, spike_hist,
+                                 spike_hist_batch, spike_hist_batch_plain)
 from repro_torch.pipeline import BatchProfileEngine, ProfileBuilder
 from repro_torch.telemetry import TelemetryChunk, TraceMeta
 
@@ -124,3 +125,101 @@ def test_engine_and_builder_on_card_bitwise_equal_host(cuda):
         assert torch.equal(ca.power_trace.cpu(), cb.power_trace)
         for c in BINS:
             assert torch.equal(ca.spike_vec(c).cpu(), cb.spike_vec(c))
+
+
+# tests/test_kernels.py's tolerances: bf16 rounding of the output, float32
+# rounding of a softmax or a mean of squares in another order
+TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+       torch.float32: dict(rtol=3e-5, atol=3e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", [
+    (2, 128, 128, 8, 2, 64, True),       # GQA 4:1, whole blocks
+    (1, 1000, 1000, 32, 2, 128, True),   # ragged tail, glm4-9b heads
+    (2, 37, 300, 4, 1, 32, True),        # sq < skv: bottom-right causal
+    (1, 1, 77, 8, 2, 128, True),         # one query row
+    (2, 64, 200, 8, 8, 128, False),      # bidirectional, ragged keys
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_close_to_plain(cuda, b, sq, skv, H, KV, dh, causal,
+                                        dtype):
+    rng = np.random.default_rng(sq + skv + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda, dtype) for s in
+               ((b, sq, H, dh), (b, skv, KV, dh), (b, skv, KV, dh)))
+    before = build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_through_strides(cuda):
+    """q, k, v as head slices of one packed (b, s, H + 2 KV, dh) tensor."""
+    b, s, H, KV, dh = 2, 130, 8, 2, 64
+    qkv = torch.randn((b, s, H + 2 * KV, dh), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0)
+                      ).to(torch.bfloat16)
+    q, k, v = qkv.split([H, KV, KV], dim=2)
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    x = torch.zeros((1, 8, 4, 66), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(x[..., :64], x[:, :, :2, :64], x[:, :, :2, :64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4096, 4096), (4, 4096), (100, 384),
+                                 (7, 100), (3, 1)])
+@pytest.mark.parametrize("dtype,sdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_rmsnorm_close_to_plain(cuda, n, d, dtype, sdtype):
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.standard_normal((n, d), np.float32) * 3
+                         ).to(cuda, dtype)
+    sc = torch.from_numpy(rng.standard_normal(d, np.float32)).to(cuda,
+                                                                 sdtype)
+    before = build.LAUNCHES["rmsnorm"]
+    got = rmsnorm(x, sc, 1e-5)
+    assert build.LAUNCHES["rmsnorm"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, sc).float(),
+                               **TOL[dtype])
+    # a row view that is not 16-byte aligned takes the scalar loads
+    if n > 1 and d % 8:
+        torch.testing.assert_close(rmsnorm(x[1:], sc).float(),
+                                   rmsnorm_plain(x[1:], sc).float(),
+                                   **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_reduced_lm_on_card_matches_host(cuda):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    cfg = ARCHS["glm4-9b"].reduced(num_layers=2)
+    host = build_model(cfg, kind="prefill", device="cpu",
+                       dtype=torch.float32)
+    host.init_params(torch.Generator().manual_seed(0))
+    card = build_model(cfg, kind="prefill", device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70))
+    before = dict(build.LAUNCHES)
+    got, _ = card.prefill({"tokens": tokens})
+    assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 5
+    want, _ = host.prefill({"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

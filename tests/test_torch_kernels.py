@@ -15,11 +15,14 @@ import jax.numpy as jnp
 
 from repro.core import spikes as ref_spikes
 from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_kernels
 from repro.kernels.ema_scan import ema_scan_pallas
 from repro.kernels.spike_hist import spike_hist_batch_pallas
 from repro_torch.core import spikes
 from repro_torch.kernels import (build, ema_scan, ema_scan_plain,
-                                 ema_scan_rows, spike_hist, spike_hist_batch,
+                                 ema_scan_rows, flash_attention,
+                                 flash_attention_plain, rmsnorm,
+                                 rmsnorm_plain, spike_hist, spike_hist_batch,
                                  spike_hist_batch_plain)
 
 BINS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
@@ -211,3 +214,120 @@ def test_cuda_request_without_a_card_raises():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         spikes.ema_filter(np.ones(10))
+
+
+# ---------------------------------------------------------------------------
+# flash attention and RMSNorm (the serving path's kernels)
+# ---------------------------------------------------------------------------
+DTYPES = [(np.float32, torch.float32, jnp.float32),
+          ("bfloat16", torch.bfloat16, jnp.bfloat16)]
+
+
+def _tol(tdtype):
+    """tests/test_kernels.py's tolerances: bf16 rounding of the output, or
+    float32 rounding of a softmax / mean of squares."""
+    return dict(rtol=2e-2, atol=2e-2) if tdtype == torch.bfloat16 \
+        else dict(rtol=3e-5, atol=3e-5)
+
+
+def _pair(a: np.ndarray, tdtype, jdtype):
+    """The same values as a torch tensor and a jnp array of one dtype (the
+    bf16 rounding done once, in torch, and carried over bit for bit)."""
+    t = torch.from_numpy(a).to(tdtype)
+    j = jnp.asarray(t.to(torch.float32).numpy()).astype(jdtype)
+    return t, j
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x.to(torch.float32) if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", [
+    (1, 128, 128, 4, 4, 64, True),      # MHA causal
+    (2, 128, 128, 8, 2, 64, True),      # GQA 4:1
+    (2, 64, 256, 8, 8, 128, False),     # cross-ish, bidirectional
+    (1, 256, 256, 16, 2, 128, True),    # MQA-ish wide
+])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_plain_flash_attention_matches_pallas_interpret(b, sq, skv, H, KV,
+                                                        dh, causal, dtypes):
+    _, tdtype, jdtype = dtypes
+    rng = np.random.default_rng(b * sq + H)
+    q, qj = _pair(rng.standard_normal((b, sq, H, dh), np.float32), tdtype,
+                  jdtype)
+    k, kj = _pair(rng.standard_normal((b, skv, KV, dh), np.float32), tdtype,
+                  jdtype)
+    v, vj = _pair(rng.standard_normal((b, skv, KV, dh), np.float32), tdtype,
+                  jdtype)
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == tdtype and got.shape == (b, sq, H, dh)
+    want = ref_ops.flash_attention(qj, kj, vj, causal=causal, block_q=64,
+                                   block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(tdtype))
+
+
+@pytest.mark.parametrize("sq,skv,H,KV", [(64, 128, 8, 2), (1, 77, 4, 1),
+                                         (30, 100, 6, 3)])
+def test_plain_flash_attention_matches_ref_bottom_right_causal(sq, skv, H,
+                                                               KV):
+    """sq < skv: the mask is ref.py's bottom-right alignment (the cached
+    prefill and decode mask), not the Pallas kernel's top-left one."""
+    rng = np.random.default_rng(sq + skv)
+    arrays = [rng.standard_normal(s, np.float32) for s in
+              ((2, sq, H, 32), (2, skv, KV, 32), (2, skv, KV, 32))]
+    got = flash_attention_plain(*map(torch.from_numpy, arrays), causal=True)
+    want = ref_kernels.flash_attention_ref(*map(jnp.asarray, arrays),
+                                           causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
+                               atol=3e-5)
+
+
+def test_flash_attention_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 40, 4, 32), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 40, 2, 32), np.float32))
+    before = dict(build.LAUNCHES)
+    assert torch.equal(flash_attention(q, k, k), flash_attention_plain(q, k, k))
+    assert build.LAUNCHES == before      # no kernel launch on the CPU
+
+
+@pytest.mark.parametrize("args,err", [
+    (((1, 8, 4, 32), (1, 8, 3, 32), (1, 8, 3, 32)), ValueError),  # 4 % 3
+    (((1, 8, 4, 32), (1, 4, 2, 32), (1, 4, 2, 32)), ValueError),  # sq > skv
+    (((1, 8, 4, 32), (1, 8, 2, 16), (1, 8, 2, 16)), ValueError),  # dh
+    (((8, 4, 32), (1, 8, 2, 32), (1, 8, 2, 32)), ValueError),     # rank
+])
+def test_flash_attention_rejects_what_it_does_not_take(args, err):
+    with pytest.raises(err):
+        flash_attention(*(torch.zeros(s) for s in args), causal=True)
+    with pytest.raises(TypeError):
+        flash_attention(torch.zeros((1, 8, 4, 32)),
+                        torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16),
+                        torch.zeros((1, 8, 2, 32)))
+
+
+@pytest.mark.parametrize("n,d", [(8, 128), (64, 512), (100, 384)])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_plain_rmsnorm_matches_pallas_interpret(n, d, dtypes):
+    _, tdtype, jdtype = dtypes
+    rng = np.random.default_rng(n + d)
+    x, xj = _pair(rng.standard_normal((n, d), np.float32), tdtype, jdtype)
+    sc = rng.standard_normal(d).astype(np.float32)
+    got = rmsnorm(x, torch.from_numpy(sc))
+    assert got.dtype == tdtype
+    want = ref_ops.rmsnorm(xj, jnp.asarray(sc))
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(tdtype))
+    # leading dims are flattened, as ops.rmsnorm does
+    x3 = x.reshape(2, n // 2, d)
+    assert torch.equal(rmsnorm(x3, torch.from_numpy(sc)).reshape(n, d), got)
+
+
+def test_rmsnorm_wrapper_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        rmsnorm(torch.zeros((4, 8)), torch.ones(7))
+    with pytest.raises(TypeError):
+        rmsnorm(torch.zeros((4, 8), dtype=torch.float64), torch.ones(8))
+    x = torch.ones((3, 8), dtype=torch.bfloat16)
+    assert torch.equal(rmsnorm(x, torch.ones(8, dtype=torch.bfloat16)),
+                       rmsnorm_plain(x, torch.ones(8)))
