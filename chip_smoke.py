@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-What it does, in order (every phase fails the run if it fails):
+What it does (every phase fails the run if it fails), in this order save
+that phases 9 and 10 run right after phases 6 and 7:
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -46,15 +47,32 @@ What it does, in order (every phase fails the run if it fails):
      ``ServeEngine.generate``: 4 x 1000-token prompts and 1 x 2048, 32 new
      tokens each.  Tokens must be in range, every step's logits finite, and
      the kernels must have launched exactly as the model dictates (40 flash
-     launches per prefill, 81 rmsnorm launches per forward).
+     launches per prefill, 81 rmsnorm launches per forward, no scan);
+  9. SSM kernel phase — ``ssm_scan`` against its plain version on the card
+     (y and h_last): bf16 and float32 at the prefill shape (4, 1024, 8192,
+     16), the decode shape (4, 1, 8192, 16) with h0, a ragged case and
+     ``tests/test_kernels.py``'s shapes, within that file's tolerances; the
+     state advanced in place and the skip term left out as the model calls
+     it; times of the kernel and the plain version, and the bound, at the
+     serving path's prefill and decode shapes;
+ 10. Mamba card-vs-host phase — the reduced falcon-mamba-7b (2 layers) with
+     the same seeded weights on the card and on the CPU, float32 and
+     bfloat16 parameters: prefill logits, 8 teacher-forced decode steps and
+     the state and conv caches within 1e-4 (float32) or rtol 2e-2 + atol
+     5e-2 (bfloat16);
+ 11. Mamba serving path — full-width falcon-mamba-7b (64 layers, 7.3 B
+     bfloat16 parameters, the port's seeded init; the glm4-9b engine is
+     released first) answers 4 x 1024 and 1 x 2048 prompts, 32 new tokens
+     each: tokens in range, logits finite, exactly 64 scan and 65 rmsnorm
+     launches per forward (33 forwards a request) and no flash launch.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
-fleet drive and one more serving request under ``torch.profiler`` (device
-busy share, top operators); ``--out DIR`` writes the measurements
-(``chip_smoke.json``) and the trace tables (``trace_summary.txt``,
-``trace_serve.txt``) into DIR.
+fleet drive and one more request of each served model under
+``torch.profiler`` (device busy share, top operators); ``--out DIR`` writes
+the measurements (``chip_smoke.json``) and the trace tables
+(``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
 from __future__ import annotations
 
@@ -74,9 +92,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM data-sheet peaks (HBM3 bandwidth; fp64 and fp32 outside the
-# tensor cores; bf16 dense on the tensor cores)
+# tensor cores; bf16 dense on the tensor cores); exp on the special-function
+# units: 16 a clock per SM (CUDA guide, compute capability 9.0) x 132 SMs x
+# the 1,980 MHz boost clock
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f64": 34e12, "f32": 67e12, "bf16_tensor": 989e12}
+PEAK_OPS = {"f64": 34e12, "f32": 67e12, "bf16_tensor": 989e12,
+            "sfu_exp": 16 * 132 * 1.98e9}
 
 BINS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
 FLEET = {"tpu-v5e": 32, "tpu-v5p": 16, "tpu-v6e": 16}
@@ -94,6 +115,14 @@ LM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=5e-2),
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
 REQUESTS = ((4, 1000), (1, 2048))          # (batch, prompt tokens)
 NEW_TOKENS = 32
+
+MAMBA = "falcon-mamba-7b"
+MAMBA_REQUESTS = ((4, 1024), (1, 2048))    # multiples of 128, as the
+                                           # reference's prefill needs
+# tests/test_kernels.py's ssm_scan tolerances: bf16 rounding of the output,
+# float32 sums over the states in another order
+SSM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=2e-4, atol=2e-4)}
 
 
 def log(msg: str) -> None:
@@ -637,16 +666,205 @@ def lm_card_vs_host_phase(dev) -> None:
             f"{bf16['rtol']} + atol {bf16['atol']})")
 
 
-def serve_phase(dev, card: str, trace_out: str | None,
-                trace: bool) -> dict:
-    """Full-width glm4-9b answers REQUESTS through ServeEngine.generate;
-    the launch counts are reset just before and read just after."""
+# ---------------------------------------------------------------------------
+# phases 9-11: the Mamba serving path
+# ---------------------------------------------------------------------------
+def scan_inputs(dev, b, s, di, ds, xdtype, dtdtype, seed, h0=False):
+    """tests/test_kernels.py's distributions for ssm_scan on the card:
+    x, dt (b, s, di) in their dtypes, A (di, ds), B, C (b, s, ds), D (di,)
+    float32, and a float32 h0 when asked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = (n(b, s, di) * 0.5).to(xdtype)
+    dt = torch.nn.functional.softplus(n(b, s, di) * 0.2 - 1).to(dtdtype)
+    args = [x, dt, -torch.exp(n(di, ds) * 0.3), n(b, s, ds) * 0.5,
+            n(b, s, ds) * 0.5, 1 + 0.1 * n(di)]
+    return args, (n(b, di, ds) if h0 else None)
+
+
+def scan_work(b, s, di, ds, x_bytes, dt_bytes, skip: bool,
+              h0: bool) -> dict:
+    """Bytes, exps and other float32 operations of one scan: x, dt, B, C,
+    A (and D, h0) read once, y and h_last written once; per (t, channel,
+    state) one exp and six float32 operations (dt*A, decay*h, dtx*B, add,
+    C*h, add), per (t, channel) dt*x (and the skip term's multiply-add)."""
+    nbytes = (b * s * di * (2 * x_bytes + dt_bytes) + 2 * b * s * ds * 4
+              + di * ds * 4 + b * di * ds * 4 * (2 if h0 else 1)
+              + (di * 4 if skip else 0))
+    exps = b * s * di * ds
+    flops = 6 * exps + b * s * di * (3 if skip else 1)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": max(exps / PEAK_OPS["sfu_exp"],
+                               flops / PEAK_OPS["f32"])}
+    bound_by = max(times, key=times.get)
+    return dict(bytes=nbytes, exps=exps, flops=flops, bound_by=bound_by,
+                bound_ms=times[bound_by] * 1e3)
+
+
+def ssm_kernel_phase(dev, flush, card: str) -> dict:
+    """ssm_scan against its plain version on the card (y and h_last), then
+    the kernel's and the plain version's times and the bound at the serving
+    path's shapes (launches made here do not count)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build, ssm_scan, ssm_scan_plain
+    cfg = ARCHS[MAMBA]
+    di, ds = cfg.d_inner, cfg.ssm_state
+    bf16, f32 = torch.bfloat16, torch.float32
+    before = dict(build.LAUNCHES)
+    err = 0.0
+    cases = [(4, 1024, di, ds, bf16, f32, False),   # the model's prefill
+             (4, 1024, di, ds, f32, f32, False),
+             (4, 1, di, ds, f32, f32, True),        # the model's decode
+             (3, 77, 1000, ds, bf16, f32, True),    # ragged s and di
+             (1, 64, 128, 8, f32, f32, False),      # tests/test_kernels.py
+             (2, 128, 256, 16, f32, f32, False),
+             (1, 96, 384, 16, f32, f32, False),
+             (1, 64, 128, 8, bf16, bf16, False),
+             (2, 128, 256, 16, bf16, bf16, False),
+             (1, 96, 384, 16, bf16, bf16, False)]
+    for i, (b, s, d_i, d_s, xdt, dtdt, with_h0) in enumerate(cases):
+        args, h0 = scan_inputs(dev, b, s, d_i, d_s, xdt, dtdt, 20 + i,
+                               with_h0)
+        y, h = ssm_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        y_p, h_p = ssm_scan_plain(*args, h0=h0)
+        what = f"ssm_scan ({b}, {s}, {d_i}, {d_s}) x {xdt} dt {dtdt}" + \
+            (" with h0" if with_h0 else "")
+        e_y = close(y, y_p, SSM_TOL[xdt], f"{what}: y")
+        e_h = close(h, h_p, SSM_TOL[f32], f"{what}: h_last")
+        err = max(err, e_y, e_h)
+        log(f"{what}: max|err| y {e_y:.3e}, h_last {e_h:.3e} vs plain")
+    # the skip term left out and the state advanced in place, as the model
+    # calls the kernel in prefill and decode
+    args, h0 = scan_inputs(dev, 4, 1, di, ds, f32, f32, 40, True)
+    y_d, h_d = ssm_scan(*args, h0=h0)
+    state = h0.clone()
+    y_i, _ = ssm_scan(*args, h0=state, h_out=state)
+    y_0, _ = ssm_scan(*args[:5], None, h0=h0)
+    torch.cuda.synchronize()
+    if not (torch.equal(state, h_d) and torch.equal(y_i, y_d)):
+        raise AssertionError("ssm_scan with h_out = h0 differs")
+    close(y_0 + args[5] * args[0], y_d, SSM_TOL[f32], "ssm_scan without D")
+
+    # timings at the serving path's shapes: prefill as the model calls it
+    # (x bf16, dt float32, no skip term), and one decode step
+    out = {"err": err}
+    for key, (b, s) in (("prefill", MAMBA_REQUESTS[0]),
+                        ("prefill_b1", MAMBA_REQUESTS[1])):
+        args, _ = scan_inputs(dev, b, s, di, ds, bf16, f32, 50)
+        args[5] = None
+        work = scan_work(b, s, di, ds, 2, 4, skip=False, h0=False)
+        out[key] = dict(
+            shape=[b, s, di, ds],
+            ms=cuda_time_ms(lambda: ssm_scan(*args), 20, flush),
+            plain_ms=cuda_time_ms(lambda: ssm_scan_plain(*args), 3, flush),
+            **work)
+    args, h0 = scan_inputs(dev, 4, 1, di, ds, f32, f32, 51, True)
+    out["decode"] = dict(
+        shape=[4, 1, di, ds],
+        ms=cuda_time_ms(lambda: ssm_scan(*args, h0=h0, h_out=h0), 50,
+                        flush),
+        plain_ms=cuda_time_ms(lambda: ssm_scan_plain(*args, h0=h0), 20,
+                              flush),
+        **scan_work(4, 1, di, ds, 4, 4, skip=True, h0=True))
+    build.LAUNCHES.update(before)          # check/timing launches do not count
+    for key in ("prefill", "prefill_b1", "decode"):
+        r = out[key]
+        log(f"ssm_scan {key} {tuple(r['shape'])} [{card}]: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.4e} B, "
+            f"{r['exps']:.4e} exp, {r['flops']:.4e} flop)")
+    return out
+
+
+def mamba_card_vs_host_phase(dev) -> None:
+    """Reduced falcon-mamba-7b with the same weights: the kernels on the
+    card against the plain versions on the CPU, prefill, teacher-forced
+    decode and both caches."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import build
     from repro_torch.serve import ServeEngine
-    cfg = ARCHS[GLM]
+    cfg = ARCHS[MAMBA].reduced(num_layers=2)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 100))
+    for dtype in (torch.float32, torch.bfloat16):
+        host = ServeEngine(cfg, max_len=120, device="cpu", dtype=dtype)
+        host.init_params(0)
+        card = ServeEngine(cfg, max_len=120, device=dev, dtype=dtype)
+        card.model.load_state_dict(host.model.state_dict())
+        tol = LM_TOL[dtype]
+        lh, ch = host.model.prefill({"tokens": tokens})
+        ch = host._pad_caches(ch, 2)
+        host_logits, fed = [lh], []
+        for i in range(8):
+            fed.append(torch.argmax(host_logits[-1], dim=-1))
+            lh, ch = host.model.decode_step(ch, fed[-1], 100 + i)
+            host_logits.append(lh)
+        before = dict(build.LAUNCHES)
+        lc, cc = card.model.prefill({"tokens": tokens})
+        cc = card._pad_caches(cc, 2)
+        card_logits = [lc]
+        for i in range(8):
+            lc, cc = card.model.decode_step(cc, fed[i].to(dev), 100 + i)
+            card_logits.append(lc)
+        got = {k: build.LAUNCHES[k] - before[k]
+               for k in ("ssm_scan", "rmsnorm", "flash_attention")}
+        if got != {"ssm_scan": 2 * 9, "rmsnorm": 3 * 9,
+                   "flash_attention": 0}:
+            raise AssertionError(f"the reduced {MAMBA} on the card launched "
+                                 f"{got}")
+        # no bf16 cache with float32 parameters here (the state is float32
+        # and the conv window takes x's dtype), so decode is held to the
+        # parameters' tolerance too
+        errs = [close(c, h, tol, f"{MAMBA} logits {dtype} step {i}")
+                for i, (c, h) in enumerate(zip(card_logits, host_logits))]
+        for key in ("state", "conv"):
+            if cc["l0_mamba"][key].dtype != ch["l0_mamba"][key].dtype:
+                raise AssertionError(f"cache {key}: "
+                                     f"{cc['l0_mamba'][key].dtype} on the "
+                                     f"card, {ch['l0_mamba'][key].dtype} "
+                                     f"on the host")
+            errs.append(close(cc["l0_mamba"][key], ch["l0_mamba"][key], tol,
+                              f"{MAMBA} cache {key} {dtype}"))
+        build.LAUNCHES.update(before)
+        log(f"Mamba card vs host: reduced {MAMBA} (2 layers) {dtype}, 2 x "
+            f"100 prompt: prefill logits max|err| {errs[0]:.3e}, 8 "
+            f"teacher-forced decode steps {max(errs[1:9]):.3e}, state and "
+            f"conv caches {max(errs[9:]):.3e} (tolerance rtol {tol['rtol']}"
+            f" + atol {tol['atol']})")
+
+
+
+def glm_launches(cfg, n_requests: int) -> dict:
+    """What glm4-9b dictates: one flash launch per layer and prefill, one
+    rmsnorm per norm (two a layer and the final one) and forward."""
+    return {"flash_attention": cfg.num_layers * n_requests,
+            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + NEW_TOKENS)
+            * n_requests, "ssm_scan": 0}
+
+
+def mamba_launches(cfg, n_requests: int) -> dict:
+    """What falcon-mamba-7b dictates: one scan and one rmsnorm per layer
+    and forward (prefill and every decode step), the final rmsnorm, no
+    attention."""
+    forwards = (1 + NEW_TOKENS) * n_requests
+    return {"ssm_scan": cfg.num_layers * forwards,
+            "rmsnorm": (cfg.num_layers + 1) * forwards,
+            "flash_attention": 0}
+
+
+def serve_phase(dev, card: str, arch: str, requests, dictates,
+                trace_out: str | None, trace: bool) -> dict:
+    """Full-width ``arch`` answers ``requests`` through
+    ServeEngine.generate; the launch counts are reset just before and read
+    just after, and must equal ``dictates(cfg, len(requests))``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[arch]
     t0 = time.perf_counter()
-    engine = ServeEngine(cfg, max_len=max(s for _, s in REQUESTS)
+    engine = ServeEngine(cfg, max_len=max(s for _, s in requests)
                          + NEW_TOKENS + 4, device=dev)
     engine.init_params(0)
     torch.cuda.synchronize()
@@ -654,7 +872,7 @@ def serve_phase(dev, card: str, trace_out: str | None,
     n_params = sum(p.numel() for p in engine.model.parameters())
     rng = np.random.default_rng(12)
     prompts = [rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-               for b, s in REQUESTS]
+               for b, s in requests]
     torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     results = []
@@ -676,15 +894,13 @@ def serve_phase(dev, card: str, trace_out: str | None,
                             decode_ms_per_step=rest / (NEW_TOKENS - 1) * 1e3,
                             tokens_per_s=b * NEW_TOKENS / (first + rest),
                             first_tokens=out[:, :4].tolist()))
-    launches = {k: build.LAUNCHES[k] for k in ("flash_attention", "rmsnorm")}
+    want = dictates(cfg, len(requests))
+    launches = {k: build.LAUNCHES[k] for k in want}
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention": cfg.num_layers * len(REQUESTS),
-            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + NEW_TOKENS)
-            * len(REQUESTS)}
     if launches != want:
-        raise AssertionError(f"serving path launches {launches}, the model "
-                             f"dictates {want}")
-    log(f"serving path [{card}]: {GLM} full width, {n_params} parameters "
+        raise AssertionError(f"{arch} serving path launches {launches}, the "
+                             f"model dictates {want}")
+    log(f"serving path [{card}]: {arch} full width, {n_params} parameters "
         f"(bf16), seeded init {t_init:.3f} s; launches {json.dumps(launches)}"
         f"; peak memory {peak / 2**30:.3f} GiB")
     for r in results:
@@ -700,7 +916,7 @@ def serve_phase(dev, card: str, trace_out: str | None,
 
 def trace_serve(engine, tokens, card: str, out: str | None) -> None:
     """One more request under ``torch.profiler``: device busy share and
-    device time by kernel (table in ``out/trace_serve.txt``)."""
+    device time by kernel (table in ``out/trace_serve_<arch>.txt``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -718,18 +934,21 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
         name = e.key.lower()
         group = ("flash_attention" if "fa_bf16" in name else
                  "rmsnorm" if "rmsnorm" in name else
+                 "ssm_scan" if "ssm_scan" in name else
                  "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass",
-                                                    "gemv", "splitk")) else
+                                                    "gemv", "splitk",
+                                                    "nvjet")) else
                  "other")
         shares[group] = shares.get(group, 0.0) + e.self_device_time_total
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%})"
                       for k, v in sorted(shares.items(), key=lambda x: -x[1]))
-    log(f"trace serve [{card}]: request {tokens.shape[0]} x "
-        f"{tokens.shape[1]} -> {NEW_TOKENS} tokens in {elapsed:.3f} s under "
-        f"the profiler, device busy {device_us / 1e6:.3f} s = "
+    log(f"trace serve {engine.cfg.name} [{card}]: request "
+        f"{tokens.shape[0]} x {tokens.shape[1]} -> {NEW_TOKENS} tokens in "
+        f"{elapsed:.3f} s under the profiler, device busy {device_us / 1e6:.3f} s = "
         f"{device_us / 1e6 / elapsed:.2%}; by kernel: {parts}")
     if out is not None:
-        with open(os.path.join(out, "trace_serve.txt"), "w") as f:
+        with open(os.path.join(out, f"trace_serve_{engine.cfg.name}.txt"),
+                  "w") as f:
             f.write(f"{card}\n{elapsed:.3f} s traced, device busy "
                     f"{device_us / 1e6:.3f} s\n{parts}\n\n"
                     f"{ka.table(sort_by='self_device_time_total', row_limit=25)}"
@@ -739,7 +958,8 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
-                    help="one more fleet drive under torch.profiler")
+                    help="one more fleet drive and one more request of each "
+                         "served model under torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json / trace_summary.txt")
     args = ap.parse_args()
@@ -771,8 +991,10 @@ def main() -> int:
 
     kp = kernel_phase(dev, flush)
     lp = lm_kernel_phase(dev, flush, card)
+    ssp = ssm_kernel_phase(dev, flush, card)
     card_vs_host_phase(dev)
     lm_card_vs_host_phase(dev)
+    mamba_card_vs_host_phase(dev)
     with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
         want = json.load(f)
     lib, mp = main_path(dev, want)
@@ -781,7 +1003,11 @@ def main() -> int:
         f"per-row loop {mp['row_loop_s']:.3f} s, packing "
         f"{mp['repack_s']:.3f} s), {mp['jobs_per_s']:.1f} jobs/s, ground "
         f"truth {mp['truth_s']:.3f} s")
-    sp = serve_phase(dev, card, args.out, args.trace)
+    sp = serve_phase(dev, card, GLM, REQUESTS, glm_launches, args.out,
+                     args.trace)
+    torch.cuda.empty_cache()        # the glm4-9b engine is gone: release it
+    msp = serve_phase(dev, card, MAMBA, MAMBA_REQUESTS, mamba_launches,
+                      args.out, args.trace)
     torch.cuda.empty_cache()
 
     # kernel records: bounds from this run's inputs
@@ -822,6 +1048,15 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    pre = ssp["prefill"]              # the first request's prefill scan
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:51",
+        "launches": msp["launches"]["ssm_scan"], "max_abs_err": ssp["err"],
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None})
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -833,7 +1068,8 @@ def main() -> int:
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,
-                       "lm_kernels": lp, "serve": sp}, f, indent=1)
+                       "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
+                       "serve_mamba": msp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,7 +22,8 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spike_hist", "ema_scan", "flash_attention", "rmsnorm")
+SOURCES = ("spike_hist", "ema_scan", "flash_attention", "rmsnorm",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -51,6 +52,10 @@ _SIGNATURES = {
     "rmsnorm": {
         f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _P)
         for x in ("f32", "bf16") for s in ("f32", "bf16")
+    },
+    "ssm_scan": {
+        f"ssm_scan_{x}_{d}": (*(_P,) * 9, _I, _I, _I, _I, _P)
+        for x in ("f32", "bf16") for d in ("f32", "bf16")
     },
 }
 

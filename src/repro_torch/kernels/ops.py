@@ -11,12 +11,24 @@ from repro_torch.kernels.ema_scan import ema_scan_rows
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
 from repro_torch.kernels.spike_hist import spike_hist_batch
+from repro_torch.kernels.ssm_scan import ssm_scan_bsd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (b, sq, H, dh); k/v: (b, skv, KV, dh) -> (b, sq, H, dh)."""
     return flash_attention_bshd(q, k, v, causal=causal)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor | None, *,
+             h0: torch.Tensor | None = None,
+             h_out: torch.Tensor | None = None):
+    """x, dt: (b, s, di); A: (di, ds); B, C: (b, s, ds); D: (di,) ->
+    (y (b, s, di) in x's dtype, h_last (b, di, ds) float32), as the
+    reference's ``ref.ssm_scan_ref``.  ``D=None`` leaves out the skip term;
+    ``h0`` is the starting state and ``h_out`` receives h_last in place."""
+    return ssm_scan_bsd(x, dt, A, B, C, D, h0, h_out)
 
 
 def spike_hist(power: torch.Tensor, tdp: float, n_bins: int = 15,

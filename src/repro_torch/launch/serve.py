@@ -1,11 +1,13 @@
 """Serving launcher: batched prefill + decode with the ServeEngine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --smoke --device cpu --prompt-len 16 --tokens 8
 
 The full configuration runs on the card by default, with the port's seeded
-init (no checkpoint); ``--smoke`` takes the reduced configuration.
+init (no checkpoint); ``--smoke`` takes the reduced configuration.  The
+dense and ssm families are ported.
 """
 from __future__ import annotations
 

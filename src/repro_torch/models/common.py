@@ -43,7 +43,8 @@ ONE_DEVICE = Topo()
 class ParamDef:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]       # logical axis per dim (metadata)
-    init: str = "normal"               # normal | zeros | ones
+    # normal | zeros | ones | mamba_a | mamba_dt
+    init: str = "normal"
     scale: float | None = None         # None -> 1/sqrt(fan_in)
     dtype: str = "bfloat16"
 
@@ -98,12 +99,24 @@ class ParamStore:
 def init_param_(t: torch.Tensor, d: ParamDef,
                 generator: torch.Generator) -> torch.Tensor:
     """Fill ``t`` in place as the reference's ``_init_param`` draws ``d``:
-    normal * (scale or 1/sqrt(fan_in)) in float32, zeros or ones; cast to
-    ``t``'s dtype.  (The Mamba inits come with the SSM family.)"""
+    normal * (scale or 1/sqrt(fan_in)) in float32, zeros, ones, or the
+    Mamba inits (``mamba_a``: log(1..d_state) along the last dim;
+    ``mamba_dt``: the inverse softplus of a log-uniform dt in [1e-3, 1e-1]);
+    cast to ``t``'s dtype."""
     if d.init == "zeros":
         return t.zero_()
     if d.init == "ones":
         return t.fill_(1.0)
+    if d.init == "mamba_a":
+        n = t.shape[-1]
+        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=t.device))
+        return t.copy_(a.expand(t.shape))
+    if d.init == "mamba_dt":
+        u = torch.rand(t.shape, generator=generator, dtype=torch.float32,
+                       device=t.device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return t.copy_(dt + torch.log(-torch.expm1(-dt)))
     if d.init != "normal":
         raise ValueError(f"unknown init {d.init!r}")
     scale = d.scale if d.scale is not None \

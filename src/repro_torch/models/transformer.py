@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense family.
+"""Decoder-only LM for the dense and ssm families.
 
 The reference scans a repeating *period* of sublayers over stacked
 parameters; the port keeps the period (``build_period``) and unrolls the
@@ -11,9 +11,10 @@ Entry points:
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference;
   * ``decode_step(caches, tokens, t)``: one new token per sequence; writes
-    its k and v into the caches in place and returns ``(logits, caches)``.
+    its k and v (or a Mamba layer's state and conv window) into the caches
+    in place and returns ``(logits, caches)``.
 
-Other families (moe, ssm, hybrid, vlm) and MLA raise ``NotImplementedError``
+Other families (moe, hybrid, vlm) and MLA raise ``NotImplementedError``
 naming their ROADMAP item; training (``loss``) is not ported yet.
 """
 from __future__ import annotations
@@ -26,14 +27,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ONE_DEVICE, ParamStore, Topo, init_param_
 from repro_torch.models.layers import Embedding, Mlp, Norm
+from repro_torch.models.ssm import MambaBlock
 
-_LATER = {
-    "ssm": "falcon-mamba-7b serving with MambaBlock and ssm_scan",
-    "hybrid": "falcon-mamba-7b serving with MambaBlock and ssm_scan",
-    "moe": "MoE, MLA, VLM and enc-dec serving",
-    "vlm": "MoE, MLA, VLM and enc-dec serving",
-    "audio": "MoE, MLA, VLM and enc-dec serving",
-}
+# the ROADMAP item of every family still to port (item 3c); jamba's hybrid
+# family has Mamba layers but needs MoE too
+_LATER = "MoE, MLA, VLM and enc-dec serving"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -59,13 +57,12 @@ def _attn_layout(cfg: ModelConfig, topo: Topo, kind: str) -> str:
 
 def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                  dtype=None) -> tuple[list[SubLayer], int]:
-    """Sublayers of one period + number of periods (dense family)."""
-    if cfg.family != "dense":
-        raise _not_ported(f"the {cfg.family!r} family",
-                          _LATER.get(cfg.family, "MoE, MLA, VLM and enc-dec "
-                                                 "serving"))
+    """Sublayers of one period + number of periods (dense and ssm
+    families)."""
+    if cfg.family not in ("dense", "ssm"):
+        raise _not_ported(f"the {cfg.family!r} family", _LATER)
     if cfg.use_mla:
-        raise _not_ported("MLA attention", "MoE, MLA, VLM and enc-dec serving")
+        raise _not_ported("MLA attention", _LATER)
     layout = _attn_layout(cfg, topo, kind)
     if cfg.layers_per_period and cfg.num_layers % cfg.layers_per_period == 0:
         period_len = cfg.layers_per_period
@@ -78,6 +75,14 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
 
     subs: list[SubLayer] = []
     for j in range(period_len):
+        if cfg.family == "ssm":
+            n = f"l{j}_mamba"
+            subs.append(SubLayer(n, "mamba", norm(n), MambaBlock(
+                f"{n}/core", cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                cfg.ssm_conv, cfg.dt_rank,
+                layout=layout if kind == "decode" else "megatron",
+                scan_impl=cfg.ssm_scan_impl, device=device, dtype=dtype)))
+            continue
         n = f"l{j}_attn"
         subs.append(SubLayer(n, "attn", norm(n), Attention(
             f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -150,6 +155,9 @@ class LM(nn.Module):
             if kind == "attn":
                 out, (k, v) = sub.core(x, positions, return_kv=True)
                 kvs[name] = {"k": k, "v": v}
+            elif kind == "mamba":
+                out, (state, conv) = sub.core(x, return_state=True)
+                kvs[name] = {"state": state, "conv": conv}
             else:
                 out = sub.core(x)
             h = h + out
@@ -158,7 +166,9 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict):
         """batch {"tokens": (b, s)} -> (logits (b, padded_vocab) float32,
-        caches {sublayer: {"k", "v": (n_periods, b, s, KV, dh)}})."""
+        caches {sublayer: {"k", "v": (n_periods, b, s, KV, dh)} or
+        {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
+        di)}})."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         h = self.embed.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
@@ -169,8 +179,8 @@ class LM(nn.Module):
         h = self.final_norm(h)
         logits = self.embed.logits(h[:, -1])
         caches = {name: {key: torch.stack([kv[name][key] for kv in per_layer])
-                         for key in ("k", "v")}
-                  for name, kind in self.period_kinds if kind == "attn"}
+                         for key in entry}
+                  for name, entry in per_layer[0].items()}
         return logits, caches
 
     @torch.no_grad()
@@ -179,6 +189,14 @@ class LM(nn.Module):
         caches updated in place)."""
         h = self.embed.embed(torch.as_tensor(tokens,
                                              device=self.device).long())
+        for name, kind in self.period_kinds:
+            if kind == "mamba":
+                # the reference's decode concatenates its bfloat16 conv
+                # cache with the new x, so from the first step on the cache
+                # has the promoted dtype (float32 with float32 parameters)
+                conv = caches[name]["conv"]
+                caches[name]["conv"] = conv.to(
+                    torch.promote_types(conv.dtype, h.dtype))
         for i, layer in enumerate(self.layers):
             for name, kind in self.period_kinds:
                 sub = layer[name]
@@ -186,6 +204,9 @@ class LM(nn.Module):
                 if kind == "attn":
                     out, _ = sub.core.decode(x, t, caches[name]["k"][i],
                                              caches[name]["v"][i])
+                elif kind == "mamba":
+                    out, _ = sub.core.decode(x, t, caches[name]["state"][i],
+                                             caches[name]["conv"][i])
                 else:
                     out = sub.core(x)
                 h = h + out
@@ -193,9 +214,20 @@ class LM(nn.Module):
         return self.embed.logits(h), caches
 
     def cache_shape_structs(self, batch: int, seq: int) -> dict:
-        """(shape, dtype) of every decode cache, stacked over periods;
-        bfloat16 as in the reference's ``cache_shape_structs``."""
-        cfg = self.cfg
-        kvd = (self.n_periods, batch, seq, cfg.num_kv_heads, cfg.head_dim)
-        return {name: {"k": (kvd, torch.bfloat16), "v": (kvd, torch.bfloat16)}
-                for name, kind in self.period_kinds if kind == "attn"}
+        """(shape, dtype) of every decode cache, stacked over periods, as in
+        the reference's ``cache_shape_structs``: k and v bfloat16, a Mamba
+        layer's state float32 and its conv window bfloat16."""
+        cfg, n = self.cfg, self.n_periods
+        kvd = (n, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+        out = {}
+        for name, kind in self.period_kinds:
+            if kind == "attn":
+                out[name] = {"k": (kvd, torch.bfloat16),
+                             "v": (kvd, torch.bfloat16)}
+            elif kind == "mamba":
+                out[name] = {
+                    "state": ((n, batch, cfg.d_inner, cfg.ssm_state),
+                              torch.float32),
+                    "conv": ((n, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                             torch.bfloat16)}
+        return out

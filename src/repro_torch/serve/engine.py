@@ -3,8 +3,10 @@
 The reference's engine holds a ``prefill`` model and a ``decode`` model
 that share parameter values and differ only in how they shard them.  On one
 card the two layouts name the same tensors, so the port's engine holds one
-``LM`` (its parameters live on ``device``) and runs both steps on it; the
-decode caches are bfloat16, padded to ``max_len`` and updated in place.
+``LM`` (its parameters live on ``device``) and runs both steps on it.  The
+decode caches take the reference's dtypes (k and v bfloat16, padded along
+the sequence to ``max_len``; a Mamba layer's state float32 and conv window
+bfloat16) and are updated in place.
 """
 from __future__ import annotations
 
@@ -53,7 +55,10 @@ class ServeEngine:
             for key, (shape, dtype) in entry.items():
                 c = caches[name][key]
                 buf = torch.zeros(shape, dtype=dtype, device=c.device)
-                buf[:, :, :c.shape[2]] = c
+                if key in ("k", "v"):       # (n, b, seq, KV, dh)
+                    buf[:, :, :c.shape[2]] = c
+                else:                       # Mamba state and conv window
+                    buf.copy_(c)
                 out[name][key] = buf
         return out
 

@@ -14,7 +14,8 @@ from repro_torch.core import spikes
 from repro_torch.kernels import (build, ema_scan_plain, ema_scan_rows,
                                  flash_attention, flash_attention_plain,
                                  rmsnorm, rmsnorm_plain, spike_hist,
-                                 spike_hist_batch, spike_hist_batch_plain)
+                                 spike_hist_batch, spike_hist_batch_plain,
+                                 ssm_scan, ssm_scan_plain)
 from repro_torch.pipeline import BatchProfileEngine, ProfileBuilder
 from repro_torch.telemetry import TelemetryChunk, TraceMeta
 
@@ -223,3 +224,108 @@ def test_reduced_lm_on_card_matches_host(cuda):
     assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 5
     want, _ = host.prefill({"tokens": tokens})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# tests/test_kernels.py's ssm_scan tolerances: bf16 rounding of the output,
+# float32 sums over the states in another order and expf's last bit
+SSM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=2e-4, atol=2e-4)}
+
+
+def _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def f(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+    return dict(
+        x=f(rng.standard_normal((b, s, di)) * 0.5, xdtype),
+        dt=f(np.log1p(np.exp(rng.standard_normal((b, s, di)) * 0.2 - 1)),
+             dtdtype),
+        A=f(-np.exp(rng.standard_normal((di, ds)) * 0.3)),
+        B=f(rng.standard_normal((b, s, ds)) * 0.5),
+        C=f(rng.standard_normal((b, s, ds)) * 0.5),
+        D=f(1 + 0.1 * rng.standard_normal(di)),
+        h0=f(rng.standard_normal((b, di, ds))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,ds", [
+    (1, 64, 128, 8), (2, 128, 256, 16), (1, 96, 384, 16),   # test_kernels
+    (3, 77, 1000, 16),                                      # ragged s, di
+    (2, 1, 8192, 16),                                       # decode step
+    (1, 40, 100, 3), (1, 33, 64, 37), (1, 20, 48, 128),     # odd ds
+])
+@pytest.mark.parametrize("xdtype,dtdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_ssm_scan_close_to_plain(cuda, b, s, di, ds, xdtype, dtdtype):
+    t = _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, s + di + ds)
+    args = [t[k] for k in ("x", "dt", "A", "B", "C", "D")]
+    for h0 in (None, t["h0"]):
+        before = build.LAUNCHES["ssm_scan"]
+        y, h = ssm_scan(*args, h0=h0)
+        assert build.LAUNCHES["ssm_scan"] == before + 1
+        torch.cuda.synchronize()
+        y_p, h_p = ssm_scan_plain(*args, h0=h0)
+        assert y.dtype == xdtype and h.dtype == torch.float32
+        torch.testing.assert_close(y.float(), y_p.float(), **SSM_TOL[xdtype])
+        torch.testing.assert_close(h, h_p, **SSM_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssm_scan_state_in_place_and_without_skip(cuda):
+    t = _scan_inputs(cuda, 2, 50, 300, 16, torch.float32, torch.float32, 9)
+    args = [t[k] for k in ("x", "dt", "A", "B", "C")]
+    y_d, h_d = ssm_scan(*args, t["D"], h0=t["h0"])
+    state = t["h0"].clone()
+    y_i, h_i = ssm_scan(*args, t["D"], h0=state, h_out=state)
+    assert h_i is state
+    assert torch.equal(state, h_d) and torch.equal(y_i, y_d)
+    y_0, _ = ssm_scan(*args, None, h0=t["h0"])
+    torch.testing.assert_close(y_0 + t["D"] * t["x"], y_d, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_rejects_what_the_kernel_does_not_take(cuda):
+    t = _scan_inputs(cuda, 1, 8, 16, 4, torch.float32, torch.float32, 1)
+    x = t["x"].repeat(1, 1, 2)[:, :, ::2]           # (1, 8, 16), strided
+    assert not x.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(x, t["dt"], t["A"], t["B"], t["C"], t["D"])
+    with pytest.raises(ValueError, match="one device"):
+        ssm_scan(t["x"], t["dt"], t["A"].cpu(), t["B"], t["C"], t["D"])
+
+
+@pytest.mark.cuda
+def test_reduced_mamba_on_card_matches_host(cuda):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    cfg = ARCHS["falcon-mamba-7b"].reduced(num_layers=2)
+    host = build_model(cfg, kind="prefill", device="cpu",
+                       dtype=torch.float32)
+    host.init_params(torch.Generator().manual_seed(0))
+    card = build_model(cfg, kind="prefill", device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70))
+    before = dict(build.LAUNCHES)
+    got, caches = card.prefill({"tokens": tokens})
+    assert build.LAUNCHES["ssm_scan"] == before["ssm_scan"] + 2
+    assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 3
+    assert build.LAUNCHES["flash_attention"] == before["flash_attention"]
+    want, caches_h = host.prefill({"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(caches["l0_mamba"]["state"].cpu(),
+                               caches_h["l0_mamba"]["state"], rtol=1e-4,
+                               atol=1e-4)
+    # two decode steps on the caches as prefill left them (float32 here)
+    for t in (70, 71):
+        nxt = torch.argmax(want, dim=-1)
+        got, caches = card.decode_step(caches, nxt.to(cuda), t)
+        want, caches_h = host.decode_step(caches_h, nxt, t)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert build.LAUNCHES["ssm_scan"] == before["ssm_scan"] + 6
+    for key in ("state", "conv"):
+        torch.testing.assert_close(caches["l0_mamba"][key].cpu(),
+                                   caches_h["l0_mamba"][key], rtol=1e-4,
+                                   atol=1e-4)

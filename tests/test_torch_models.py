@@ -47,13 +47,25 @@ BF16_TOL = dict(rtol=2e-2, atol=5e-2)
 def reference_tree(ref_model, seed: int, dtype) -> dict:
     """numpy parameters in the layout of ``ref_model.init_params``: weights
     normal / sqrt(fan_in) (the per-layer fan-in), the embedding table
-    normal, biases normal * 0.1, norm scales 1 + normal * 0.1."""
+    normal, biases normal * 0.1, norm scales 1 + normal * 0.1.  A Mamba
+    layer's A_log, dt_bias and D are drawn around their inits, so the scan
+    keeps its memory: A_log = log(1..ds) + normal * 0.1, dt_bias the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1], D = 1 + normal * 0.1."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, st):
         name = jax.tree_util.keystr(path)
         shape = st.shape
-        if any(f"'{b}'" in name for b in ("bq", "bk", "bv", "bo", "bias")):
+        if "'A_log'" in name:
+            a = np.log(np.arange(1, shape[-1] + 1)) \
+                + rng.normal(0.0, 0.1, shape)
+        elif "'dt_bias'" in name:
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shape))
+            a = dt + np.log(-np.expm1(-dt))
+        elif "'D'" in name:
+            a = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif any(f"'{b}'" in name
+                 for b in ("bq", "bk", "bv", "bo", "bias", "conv_b")):
             a = rng.normal(0.0, 0.1, shape)
         elif "'scale'" in name:
             a = 1.0 + rng.normal(0.0, 0.1, shape)
@@ -178,9 +190,9 @@ def test_lm_init_is_seeded_and_zero_biases_one_scales():
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-moe-3b-a800m",
-                                  "deepseek-v2-236b", "llama-3.2-vision-11b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "llama-3.2-vision-11b", "whisper-medium"])
 def test_not_ported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ARCHS[arch].reduced(), kind="prefill", device="cpu")
