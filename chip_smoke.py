@@ -29,14 +29,19 @@ that phases 9 and 10 run right after phases 6 and 7:
      with every trace EMA-filtered on the card (``spikes.ema_filter``).  The
      decision counts must equal ``results/fleet_scale.json`` and every
      kernel must have launched during this phase;
-  6. LM kernel phase — ``flash_attention`` (bfloat16 causal at glm4-9b's
-     heads: b=4 x s=1024, the serving path's ragged s=1000 and s=2048, a
-     cached-prefill sq < skv case, and float32) and ``rmsnorm`` (bfloat16 at
+  6. LM kernel phase — prints the flash library's ptxas report (registers,
+     shared memory, spills) and the count of HGMMA (warpgroup MMA)
+     instructions in its SASS (``cuobjdump -sass``), and fails if there is
+     none; ``flash_attention`` (bfloat16 causal at glm4-9b's heads: b=4 x
+     s=1024, the serving path's ragged s=1000 and s=2048, a cached-prefill
+     sq < skv case, float32, head_dim 64 and 32, and q, k, v read through
+     the strides of a packed QKV tensor) and ``rmsnorm`` (bfloat16 at
      (4096, 4096), the prefill rows (4000, 4096) and the decode rows
      (4, 4096); float32) against their plain versions on the card; times
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
-     the serving path's shapes;
+     the serving path's shapes (flash at (4, 1000), (4, 1024) and (1, 2048),
+     each with its bound);
   7. LM card-vs-host phase — the reduced glm4-9b (2 layers) with the same
      seeded weights on the card (kernels) and on the CPU (plain versions):
      prefill logits within 1e-4 with float32 parameters and within rtol
@@ -70,7 +75,9 @@ The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
 fleet drive and one more request of each served model under
-``torch.profiler`` (device busy share, top operators); ``--out DIR`` writes
+``torch.profiler`` (device busy share, top operators, ``spike_hist``'s
+device time in the fleet drive); ``--lm-kernels-only`` builds the kernels and runs phase 6
+alone, without a result line (for work on a kernel); ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -225,6 +232,13 @@ def kernel_phase(dev, flush) -> dict:
         f" vs plain f32, {err_f64:.3e} vs f64 (tolerance {tol:.3e})")
     before = dict(build.LAUNCHES)
     # timings at the fleet path's shapes, L2 flushed before every call
+    t_hist1 = cuda_time_ms(lambda: spike_hist_batch(r32, (0.1,), (15,)), 30,
+                           flush)            # jobs = 1 (ops.spike_hist)
+    hist1_bytes = r32.numel() * 4 + 15 * 4
+    hist1_bound = max(hist1_bytes / HBM_BYTES_PER_S,
+                      r32.numel() * 2 / PEAK_OPS["f32"]) * 1e3
+    log(f"spike_hist f32 jobs=1 (1, {r32.shape[1]}), 15 bins: kernel "
+        f"{t_hist1:.4f} ms, bound {hist1_bound:.6f} ms ({hist1_bytes} B)")
     t_hist = cuda_time_ms(lambda: spike_hist_batch(rt, BINS, nb), 30, flush)
     t_hist_warm = cuda_time_ms(lambda: spike_hist_batch(rt, BINS, nb), 30)
     t_hist_plain = cuda_time_ms(
@@ -232,7 +246,8 @@ def kernel_phase(dev, flush) -> dict:
     build.LAUNCHES.update(before)          # timing launches do not count
     n_spike = int((rt >= 0.5).sum())
     return {"spike_hist": dict(err=err64, ms=t_hist, plain_ms=t_hist_plain,
-                               warm_ms=t_hist_warm,
+                               warm_ms=t_hist_warm, jobs1_ms=t_hist1,
+                               jobs1_bound_ms=hist1_bound,
                                shape=list(rt.shape), n_spike=n_spike,
                                numel=rt.numel()),
             "ema_scan": dict(err=err_plain, err_f64=err_f64)}
@@ -449,7 +464,7 @@ def main_path(dev, want: dict):
                 repack_s=run["fleet"].repack_s)
 
 
-def trace_phase(lib, dev, card: str, out: str | None) -> None:
+def trace_phase(lib, dev, card: str, out: str | None) -> dict:
     """The fleet drive once more under ``torch.profiler``: the card's busy
     share of admit + run, and the operators that take the most device and
     host time (tables written to ``out/trace_summary.txt``)."""
@@ -468,13 +483,21 @@ def trace_phase(lib, dev, card: str, out: str | None) -> None:
     log(f"trace [{card}]: admit+run {run['elapsed']:.3f} s under the "
         f"profiler, device busy {device_us / 1e6:.3f} s = {busy:.2%} "
         f"(idle {1 - busy:.2%})")
+    hist = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spike_hist" in e.key]
+    hist_us = sum(e.self_device_time_total for e in hist)
+    hist_n = sum(e.count for e in hist)
+    log(f"trace [{card}]: spike_hist in admit+run: {hist_us / 1e3:.3f} ms of "
+        f"device time over {hist_n} launches")
     if out is not None:
         by_dev = ka.table(sort_by="self_device_time_total", row_limit=15)
         by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=15)
         with open(os.path.join(out, "trace_summary.txt"), "w") as f:
             f.write(f"{card}\nadmit+run {run['elapsed']:.3f} s traced, "
-                    f"device busy {device_us / 1e6:.3f} s ({busy:.3%})\n\n"
+                    f"device busy {device_us / 1e6:.3f} s ({busy:.3%}); "
+                    f"spike_hist {hist_us:.1f} us over {hist_n} launches\n\n"
                     f"{by_dev}\n\n{by_cpu}\n")
+    return dict(spike_hist_device_us=hist_us, spike_hist_launches=hist_n)
 
 
 # ---------------------------------------------------------------------------
@@ -490,22 +513,47 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> float:
     return float(err.max())
 
 
-def attn_inputs(dev, b, sq, skv, dtype, seed):
+def attn_inputs(dev, b, sq, skv, dtype, seed, H=None, KV=None, dh=None):
+    """q, k, v of normal values; glm4-9b's heads unless given."""
     from repro_torch.configs import ARCHS
     cfg = ARCHS[GLM]
+    H, KV, dh = (H or cfg.num_heads, KV or cfg.num_kv_heads,
+                 dh or cfg.head_dim)
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev).to(dtype)
-            for shape in ((b, sq, cfg.num_heads, cfg.head_dim),
-                          (b, skv, cfg.num_kv_heads, cfg.head_dim),
-                          (b, skv, cfg.num_kv_heads, cfg.head_dim))]
+            for shape in ((b, sq, H, dh), (b, skv, KV, dh), (b, skv, KV, dh))]
 
 
-def attn_work(b, sq, skv, H, KV, dh, elem) -> tuple[float, float]:
-    """(flops, bytes) of causal attention with sq <= skv: 4*dh flops per
-    visible (query, key) pair and head; q, k, v read once, o written once."""
-    pairs = sq * (skv - sq) + sq * (sq + 1) // 2
-    return 4.0 * dh * pairs * b * H, \
-        float(elem * (2 * b * sq * H * dh + 2 * b * skv * KV * dh))
+def packed_attn_inputs(dev, b, s, H, KV, dh, seed):
+    """q, k, v as head slices of one packed (b, s, H + 2 KV, dh) tensor, as
+    a fused QKV projection leaves them: strided, not contiguous."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, H + 2 * KV, dh), generator=g, device=dev)
+    return list(qkv.to(torch.bfloat16).split([H, KV, KV], dim=2))
+
+
+def flash_build_report() -> dict:
+    """ptxas's registers / shared memory / spills for the flash library and
+    the count of HGMMA (warpgroup MMA) instructions in its SASS."""
+    from repro_torch.kernels import build
+    ptxas = [ln.strip() for ln in
+             str(build.BUILD_INFO.get("flash_attention_ptxas", ""))
+             .splitlines()
+             if any(w in ln for w in ("Used", "spill", "Compiling entry",
+                                      "arning", "Performance"))]
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           build.build_all()["flash_attention"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    by_kernel, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif "HGMMA" in ln and name is not None:
+            by_kernel[name] = by_kernel.get(name, 0) + 1
+    return dict(ptxas=ptxas, hgmma=sum(by_kernel.values()),
+                hgmma_by_kernel=by_kernel)
 
 
 def lm_kernel_phase(dev, flush, card: str) -> dict:
@@ -514,27 +562,47 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
     shapes (launches made here do not count)."""
     import torch.nn.functional as F
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import (build, flash_attention,
+    from repro_torch.kernels import (attn_work, build, flash_attention,
                                      flash_attention_plain, rmsnorm,
                                      rmsnorm_plain)
     cfg = ARCHS[GLM]
     H, KV, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    report = flash_build_report()
+    for ln in report["ptxas"]:
+        log(f"  flash_attention ptxas: {ln}")
+    log(f"  flash_attention SASS: {report['hgmma']} HGMMA instructions "
+        f"{json.dumps(report['hgmma_by_kernel'])}")
+    if report["hgmma"] == 0:
+        raise AssertionError("the flash_attention library has no HGMMA "
+                             "(wgmma) instruction")
     before = dict(build.LAUNCHES)
     fa_err, rn_err = 0.0, 0.0
-    for b, sq, skv, dtype in ((4, 1024, 1024, torch.bfloat16),
-                              (4, 1000, 1000, torch.bfloat16),
-                              (1, 2048, 2048, torch.bfloat16),
-                              (2, 100, 1000, torch.bfloat16),
-                              (1, 1000, 1000, torch.float32)):
-        q, k, v = attn_inputs(dev, b, sq, skv, dtype, sq + skv)
+    # glm4-9b's heads at the serving shapes, a cached-prefill sq < skv case,
+    # float32; then every other head_dim the kernel is built for, and q, k,
+    # v read through the strides of a packed QKV tensor
+    cases = [((4, 1024, 1024, torch.bfloat16), {}),
+             ((4, 1000, 1000, torch.bfloat16), {}),
+             ((1, 2048, 2048, torch.bfloat16), {}),
+             ((2, 100, 1000, torch.bfloat16), {}),
+             ((1, 1000, 1000, torch.float32), {}),
+             ((2, 300, 300, torch.bfloat16), dict(H=16, KV=4, dh=64)),
+             ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
+             ((2, 1000, 1000, torch.bfloat16), dict(packed=True))]
+    for (b, sq, skv, dtype), kw in cases:
+        if kw.get("packed"):
+            q, k, v = packed_attn_inputs(dev, b, sq, H, KV, dh, sq + 1)
+        else:
+            q, k, v = attn_inputs(dev, b, sq, skv, dtype, sq + skv, **kw)
         got = flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
+        what = (f"flash_attention b={b} sq={sq} skv={skv} H={q.shape[2]} "
+                f"KV={k.shape[2]} dh={q.shape[3]} {dtype}"
+                f"{' packed qkv strides' if kw.get('packed') else ''}")
         err = close(got, flash_attention_plain(q, k, v, causal=True),
-                    KERNEL_TOL[dtype], f"flash_attention b={b} sq={sq} "
-                    f"skv={skv} {dtype}")
+                    KERNEL_TOL[dtype], what)
         fa_err = max(fa_err, err)
-        log(f"flash_attention check b={b} sq={sq} skv={skv} H={H} KV={KV} "
-            f"dh={dh} {dtype}: max|err| {err:.3e} vs plain")
+        log(f"{what}: max|err| {err:.3e} vs plain")
+
     g = torch.Generator(device=dev).manual_seed(5)
     for n, dtype in ((4096, torch.bfloat16), (4000, torch.bfloat16),
                      (4, torch.bfloat16), (4096, torch.float32)):
@@ -547,38 +615,50 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         rn_err = max(rn_err, err)
         log(f"rmsnorm check ({n}, {d}) {dtype}: max|err| {err:.3e} vs plain")
 
-    # timings at the first request's shapes: prefill attention of 4 x 1000
-    # tokens, the prefill norm over 4,000 rows and the decode norm over 4
-    b, s = REQUESTS[0]
-    q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True).transpose(1, 2)
-    close(lib, flash_attention_plain(q, k, v, causal=True),
-          KERNEL_TOL[torch.bfloat16], "scaled_dot_product_attention")
-    fa = dict(ms=cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush),
-              plain_ms=cuda_time_ms(lambda: flash_attention_plain(q, k, v),
-                                    5, flush),
-              library_ms=cuda_time_ms(
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True, enable_gqa=True),
-                  20, flush))
-    flops, nbytes = attn_work(b, s, s, H, KV, dh, 2)
-    fa.update(err=fa_err, flops=flops, bytes=nbytes, shape=[b, s, H, KV, dh],
-              bound_ms=max(flops / PEAK_OPS["bf16_tensor"],
-                           nbytes / HBM_BYTES_PER_S) * 1e3)
-    fa["bound_by"] = "operations" if flops / PEAK_OPS["bf16_tensor"] > \
-        nbytes / HBM_BYTES_PER_S else "bytes"
-    q2, k2, v2 = attn_inputs(dev, 4, 1024, 1024, torch.bfloat16, 8)
-    fa["ms_1024"] = cuda_time_ms(lambda: flash_attention(q2, k2, v2), 20,
-                                 flush)
-    log(f"flash_attention bf16 b={b} s={s} H={H} KV={KV} dh={dh} causal "
-        f"[{card}]: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms,"
-        f" scaled_dot_product_attention {fa['library_ms']:.4f} ms, bound "
-        f"{fa['bound_ms']:.4f} ms ({flops:.4e} flop, {nbytes:.4e} B; "
-        f"{fa['bound_by']}); at s=1024 the kernel takes {fa['ms_1024']:.4f} "
-        f"ms")
+    # timings at the serving path's prefill shapes: the kernel, the plain
+    # version (first shape only) and scaled_dot_product_attention; a first
+    # timing is thrown away (the first in a process reads high)
+    q, k, v = attn_inputs(dev, 4, 1000, 1000, torch.bfloat16, 6)
+    cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush)
+    shapes = []
+    for b, s in ((4, 1000), (4, 1024), (1, 2048)):
+        q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7 + s)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        close(lib, flash_attention_plain(q, k, v, causal=True),
+              KERNEL_TOL[torch.bfloat16], "scaled_dot_product_attention")
+        flops, nbytes = attn_work(b, s, s, H, KV, dh, 2)
+        t_ops = flops / PEAK_OPS["bf16_tensor"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        r = dict(b=b, s=s, flops=flops, bytes=nbytes,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops > t_bytes else "bytes",
+                 ms=cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush),
+                 library_ms=cuda_time_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=True),
+                     20, flush))
+        if not shapes:
+            r["plain_ms"] = cuda_time_ms(
+                lambda: flash_attention_plain(q, k, v), 5, flush)
+        r["tflops"] = flops / r["ms"] * 1e-9
+        log(f"flash_attention bf16 b={b} s={s} H={H} KV={KV} dh={dh} causal "
+            f"[{card}]: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound), "
+            f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({flops:.4e} flop, {nbytes:.4e} B; "
+            f"{r['bound_by']})"
+            + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""))
+        shapes.append(r)
+    first = shapes[0]
+    fa = dict(err=fa_err, shape=[first["b"], first["s"], H, KV, dh],
+              shapes=shapes, build=report,
+              **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "flops", "bytes", "bound_ms",
+                                       "bound_by")})
 
+    b, s = REQUESTS[0]        # the prefill norm over 4,000 rows, decode over 4
     rows = b * s
     x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
     sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
@@ -962,6 +1042,10 @@ def main() -> int:
                          "served model under torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json / trace_summary.txt")
+    ap.add_argument("--lm-kernels-only", action="store_true",
+                    help="build the kernels and run phase 6 alone (checks, "
+                         "timings, the flash library's ptxas and SASS "
+                         "report); prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -989,6 +1073,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.lm_kernels_only:
+        lp = lm_kernel_phase(dev, flush, card)
+        if args.out is not None:
+            with open(os.path.join(args.out, "lm_kernels.json"), "w") as f:
+                json.dump({"card": card, "lm_kernels": lp}, f, indent=1)
+        log("phase 6 alone (--lm-kernels-only): no result line")
+        return 0
     kp = kernel_phase(dev, flush)
     lp = lm_kernel_phase(dev, flush, card)
     ssp = ssm_kernel_phase(dev, flush, card)
@@ -1048,6 +1139,10 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels[2]["shapes"] = [            # flash at every timed prefill shape
+        {k: r[k] for k in ("b", "s", "ms", "library_ms", "bound_ms",
+                           "bound_by")}
+        for r in lp["flash_attention"]["shapes"]]
     pre = ssp["prefill"]              # the first request's prefill scan
     kernels.append({
         "name": "ssm_scan", "route": "cuda",
@@ -1063,11 +1158,12 @@ def main() -> int:
         f"({hist_bytes} B)")
     log(f"ema_scan f32 n={ema_n} [{card}]: kernel {t_ema:.4f} ms, plain "
         f"{t_ema_plain:.4f} ms, bound {ema_bound:.6f} ms")
-    if args.trace:
-        trace_phase(lib, dev, card, args.out)
+    fleet_trace = trace_phase(lib, dev, card, args.out) if args.trace \
+        else None
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,
+                       "fleet_trace": fleet_trace,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

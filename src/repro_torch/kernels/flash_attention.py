@@ -15,6 +15,8 @@ without a key and is refused.
 ``flash_attention_plain`` is the exact-softmax twin of
 ``ref.flash_attention_ref`` in plain PyTorch.  The wrapper takes it for a
 CPU tensor only; for a CUDA tensor it launches the kernel or raises.
+``attn_work`` counts the work of one call (the visible (query, key) pairs
+the mask keeps), from which a bound on the card's time follows.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)          # the kernel's instantiations
+BLOCK_Q = 128                      # query rows of one bf16 work item
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -49,6 +52,21 @@ def _check(q, k, v, causal: bool) -> None:
     if causal and sq > k.shape[1]:
         raise ValueError(f"causal attention needs sq <= skv (bottom-right "
                          f"alignment), got sq={sq}, skv={k.shape[1]}")
+
+
+def attn_work(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
+              elem: int, causal: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of one call: 4*dh flops (two products) per visible
+    (query, key) pair and head, with the bottom-right causal mask of
+    ``flash_attention_plain``; q, k, v read once and o written once, at
+    ``elem`` bytes an element."""
+    if causal and sq > skv:
+        raise ValueError(f"causal attention needs sq <= skv, got sq={sq}, "
+                         f"skv={skv}")
+    # row i sees keys j <= i + (skv - sq): skv - sq + i + 1 of them
+    pairs = sq * (skv - sq) + sq * (sq + 1) // 2 if causal else sq * skv
+    return 4.0 * dh * pairs * b * H, \
+        float(elem * (2 * b * sq * H * dh + 2 * b * skv * KV * dh))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,7 +112,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name} needs dh contiguous, "
                              f"16-byte aligned rows (strides "
                              f"{t.stride()})")
-    if max(b, H) > 65535 or max(sq, skv) > 2**31 - 1:
+    if max(b, H) > 65535 or b * H * -(-sq // BLOCK_Q) > 2**31 - 1 \
+            or skv > 2**31 - 1:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} exceeds the kernel's grid")
     out = torch.empty((b, sq, H, dh), dtype=q.dtype, device=q.device)

@@ -134,6 +134,13 @@ TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
        torch.float32: dict(rtol=3e-5, atol=3e-5)}
 
 
+def _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype):
+    rng = np.random.default_rng(sq + skv + H)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to(cuda, dtype) for s in
+            ((b, sq, H, dh), (b, skv, KV, dh), (b, skv, KV, dh))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", [
     (2, 128, 128, 8, 2, 64, True),       # GQA 4:1, whole blocks
@@ -141,20 +148,41 @@ TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
     (2, 37, 300, 4, 1, 32, True),        # sq < skv: bottom-right causal
     (1, 1, 77, 8, 2, 128, True),         # one query row
     (2, 64, 200, 8, 8, 128, False),      # bidirectional, ragged keys
+    # around the 128-row query blocks and 128-key tiles
+    (1, 1, 1, 4, 1, 32, True),
+    (2, 127, 127, 8, 8, 64, True),
+    (1, 128, 128, 8, 1, 128, False),
+    (2, 129, 129, 4, 2, 128, True),
+    (1, 128, 129, 2, 2, 32, True),
+    (3, 127, 128, 8, 2, 64, True),
+    (1, 127, 1000, 8, 2, 64, True),
+    (1, 129, 2048, 16, 8, 128, True),
+    (1, 1, 2048, 8, 1, 64, True),
+    (2, 1000, 1000, 8, 2, 32, False),
+    (1, 1000, 2048, 4, 1, 128, False),
+    (1, 2048, 2048, 16, 2, 128, True),
+    (1, 2048, 2048, 8, 8, 32, True),
+    (2, 129, 1000, 8, 1, 128, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_close_to_plain(cuda, b, sq, skv, H, KV, dh, causal,
                                         dtype):
-    rng = np.random.default_rng(sq + skv + H)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
-               .to(cuda, dtype) for s in
-               ((b, sq, H, dh), (b, skv, KV, dh), (b, skv, KV, dh)))
+    q, k, v = _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype)
     before = build.LAUNCHES["flash_attention"]
     got = flash_attention(q, k, v, causal=causal)
     assert build.LAUNCHES["flash_attention"] == before + 1
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_is_deterministic(cuda, dtype):
+    """No atomics and no order that varies: two calls give equal bits."""
+    q, k, v = _attn_inputs(cuda, 4, 1000, 1000, 32, 2, 128, dtype)
+    first = flash_attention(q, k, v, causal=True)
+    assert torch.equal(flash_attention(q, k, v, causal=True), first)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ from repro.kernels import ref as ref_kernels
 from repro.kernels.ema_scan import ema_scan_pallas
 from repro.kernels.spike_hist import spike_hist_batch_pallas
 from repro_torch.core import spikes
-from repro_torch.kernels import (build, ema_scan, ema_scan_plain,
+from repro_torch.kernels import (attn_work, build, ema_scan, ema_scan_plain,
                                  ema_scan_rows, flash_attention,
                                  flash_attention_plain, rmsnorm,
                                  rmsnorm_plain, spike_hist, spike_hist_batch,
@@ -290,6 +290,32 @@ def test_flash_attention_wrapper_on_cpu_is_the_plain_version():
     before = dict(build.LAUNCHES)
     assert torch.equal(flash_attention(q, k, k), flash_attention_plain(q, k, k))
     assert build.LAUNCHES == before      # no kernel launch on the CPU
+
+
+@pytest.mark.parametrize("sq,skv,causal", [
+    (100, 100, True),       # sq == skv
+    (37, 300, True),        # sq < skv: bottom-right alignment
+    (129, 131, True),       # ragged against 128-row blocks and tiles
+    (1, 77, True),          # one query row
+    (50, 70, False),        # bidirectional
+])
+def test_attn_work_counts_the_pairs_the_plain_mask_keeps(sq, skv, causal):
+    """Equal scores and v = the identity: row i of the output is
+    1 / n_i on each key the plain version's mask keeps, 0 elsewhere, so its
+    nonzero count is the number of visible (query, key) pairs."""
+    H, KV = 4, 2
+    q = torch.zeros((2, sq, H, skv))
+    k = torch.zeros((2, skv, KV, skv))
+    v = torch.eye(skv).reshape(1, skv, 1, skv).expand(2, skv, KV, skv)
+    kept = int((flash_attention_plain(q, k, v, causal=causal) > 0).sum())
+    flops, nbytes = attn_work(2, sq, skv, H, KV, 128, 2, causal=causal)
+    assert flops == 4.0 * 128 * kept            # kept counts b and H too
+    assert nbytes == 2.0 * (2 * 2 * sq * H * 128 + 2 * 2 * skv * KV * 128)
+
+
+def test_attn_work_refuses_causal_sq_above_skv():
+    with pytest.raises(ValueError, match="sq <= skv"):
+        attn_work(1, 10, 5, 4, 2, 64, 2)
 
 
 @pytest.mark.parametrize("args,err", [
