@@ -53,13 +53,18 @@ that phases 9 and 10 run right after phases 6 and 7:
      tokens each.  Tokens must be in range, every step's logits finite, and
      the kernels must have launched exactly as the model dictates (40 flash
      launches per prefill, 81 rmsnorm launches per forward, no scan);
-  9. SSM kernel phase — ``ssm_scan`` against its plain version on the card
-     (y and h_last): bf16 and float32 at the prefill shape (4, 1024, 8192,
-     16), the decode shape (4, 1, 8192, 16) with h0, a ragged case and
+  9. SSM kernel phase — prints ``ssm_scan``'s ptxas report and, per
+     kernel, its SASS mix (``MUFU.EX2``, ``FFMA``, ``FMUL``, ``LDS``,
+     ``SHFL``, ``BAR`` from ``cuobjdump -sass``; fails without an
+     ``MUFU.EX2``); ``ssm_scan`` against its plain version on the card
+     (y and h_last): bf16 and float32 at the prefill shapes (4, 1024, 8192,
+     16) and (1, 2048, 8192, 16), the decode shape (4, 1, 8192, 16) with
+     h0, 5-step tail blocks (s = 1029, at b = 4 and 2), a ragged case and
      ``tests/test_kernels.py``'s shapes, within that file's tolerances; the
-     state advanced in place and the skip term left out as the model calls
-     it; times of the kernel and the plain version, and the bound, at the
-     serving path's prefill and decode shapes;
+     state advanced in place (h_out = h0, at (4, 1), (1, 1) and (2, 100))
+     and the skip term left out as the model calls it; times of the kernel
+     and the plain version, and the bound, at the serving path's prefill
+     and decode shapes;
  10. Mamba card-vs-host phase — the reduced falcon-mamba-7b (2 layers) with
      the same seeded weights on the card and on the CPU, float32 and
      bfloat16 parameters: prefill logits, 8 teacher-forced decode steps and
@@ -76,8 +81,9 @@ The line before the last is the per-kernel JSON record; the last line is
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
 fleet drive and one more request of each served model under
 ``torch.profiler`` (device busy share, top operators, ``spike_hist``'s
-device time in the fleet drive); ``--lm-kernels-only`` builds the kernels and runs phase 6
-alone, without a result line (for work on a kernel); ``--out DIR`` writes
+device time in the fleet drive); ``--lm-kernels-only`` and
+``--ssm-kernel-only`` build the kernels and run phase 6 or phase 9 alone,
+without a result line (for work on a kernel); ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -87,6 +93,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -532,28 +539,43 @@ def packed_attn_inputs(dev, b, s, H, KV, dh, seed):
     return list(qkv.to(torch.bfloat16).split([H, KV, KV], dim=2))
 
 
-def flash_build_report() -> dict:
-    """ptxas's registers / shared memory / spills for the flash library and
-    the count of HGMMA (warpgroup MMA) instructions in its SASS."""
+def build_report(source: str, ops: tuple[str, ...]) -> dict:
+    """ptxas's registers / shared memory / spills for the library built
+    from ``source`` and, per kernel, the count of each opcode in ``ops`` in
+    its SASS (``cuobjdump -sass``; an opcode counts with any suffix, so
+    LDS counts every width but not LDSM)."""
     from repro_torch.kernels import build
     ptxas = [ln.strip() for ln in
-             str(build.BUILD_INFO.get("flash_attention_ptxas", ""))
-             .splitlines()
+             str(build.BUILD_INFO.get(f"{source}_ptxas", "")).splitlines()
              if any(w in ln for w in ("Used", "spill", "Compiling entry",
                                       "arning", "Performance"))]
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           build.build_all()["flash_attention"]],
+    bindir = os.path.dirname(build._nvcc())
+    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
+                           build.build_all()[source]],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     by_kernel, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-        elif "HGMMA" in ln and name is not None:
-            by_kernel[name] = by_kernel.get(name, 0) + 1
-    return dict(ptxas=ptxas, hgmma=sum(by_kernel.values()),
-                hgmma_by_kernel=by_kernel)
+            by_kernel[name] = dict.fromkeys(ops, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     ln)
+        if m is None or name is None:
+            continue
+        for key in ops:
+            if m.group(1) == key or m.group(1).startswith(key + "."):
+                by_kernel[name][key] += 1
+    filt = os.path.join(bindir, "cu++filt")
+    if os.path.exists(filt) and by_kernel:
+        names = list(by_kernel)
+        plain = subprocess.run([filt, *names], capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(plain) == len(names):
+            by_kernel = {p.strip(): by_kernel[n]
+                         for n, p in zip(names, plain)}
+    return dict(ptxas=ptxas, sass=by_kernel)
 
 
 def lm_kernel_phase(dev, flush, card: str) -> dict:
@@ -567,7 +589,10 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                                      rmsnorm_plain)
     cfg = ARCHS[GLM]
     H, KV, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    report = flash_build_report()
+    report = build_report("flash_attention", ("HGMMA",))
+    report["hgmma_by_kernel"] = {k: c["HGMMA"]
+                                 for k, c in report.pop("sass").items()}
+    report["hgmma"] = sum(report["hgmma_by_kernel"].values())
     for ln in report["ptxas"]:
         log(f"  flash_attention ptxas: {ln}")
     log(f"  flash_attention SASS: {report['hgmma']} HGMMA instructions "
@@ -764,39 +789,48 @@ def scan_inputs(dev, b, s, di, ds, xdtype, dtdtype, seed, h0=False):
     return args, (n(b, di, ds) if h0 else None)
 
 
-def scan_work(b, s, di, ds, x_bytes, dt_bytes, skip: bool,
-              h0: bool) -> dict:
-    """Bytes, exps and other float32 operations of one scan: x, dt, B, C,
-    A (and D, h0) read once, y and h_last written once; per (t, channel,
-    state) one exp and six float32 operations (dt*A, decay*h, dtx*B, add,
-    C*h, add), per (t, channel) dt*x (and the skip term's multiply-add)."""
-    nbytes = (b * s * di * (2 * x_bytes + dt_bytes) + 2 * b * s * ds * 4
-              + di * ds * 4 + b * di * ds * 4 * (2 if h0 else 1)
-              + (di * 4 if skip else 0))
-    exps = b * s * di * ds
-    flops = 6 * exps + b * s * di * (3 if skip else 1)
-    times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": max(exps / PEAK_OPS["sfu_exp"],
-                               flops / PEAK_OPS["f32"])}
+def scan_bound(work: dict) -> dict:
+    """The least time of one scan from ``kernels.scan_work``'s counts: its
+    bytes over the memory rate or its exps over the special-function
+    units' rate and its other float32 operations over the float32 rate,
+    whichever is larger."""
+    times = {"bytes": work["bytes"] / HBM_BYTES_PER_S,
+             "operations": max(work["exps"] / PEAK_OPS["sfu_exp"],
+                               work["flops"] / PEAK_OPS["f32"])}
     bound_by = max(times, key=times.get)
-    return dict(bytes=nbytes, exps=exps, flops=flops, bound_by=bound_by,
-                bound_ms=times[bound_by] * 1e3)
+    return dict(work, bound_by=bound_by, bound_ms=times[bound_by] * 1e3)
+
+
+SASS_OPS = ("MUFU.EX2", "FFMA", "FMUL", "LDS", "SHFL", "BAR")
 
 
 def ssm_kernel_phase(dev, flush, card: str) -> dict:
-    """ssm_scan against its plain version on the card (y and h_last), then
-    the kernel's and the plain version's times and the bound at the serving
-    path's shapes (launches made here do not count)."""
+    """ssm_scan's ptxas report and SASS mix, the kernel against its plain
+    version on the card (y and h_last), then the kernel's and the plain
+    version's times and the bound at the serving path's shapes (launches
+    made here do not count)."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import build, ssm_scan, ssm_scan_plain
+    from repro_torch.kernels import build, scan_work, ssm_scan, ssm_scan_plain
     cfg = ARCHS[MAMBA]
     di, ds = cfg.d_inner, cfg.ssm_state
     bf16, f32 = torch.bfloat16, torch.float32
+    report = build_report("ssm_scan", SASS_OPS)
+    for ln in report["ptxas"]:
+        log(f"  ssm_scan ptxas: {ln}")
+    for name, counts in report["sass"].items():
+        log(f"  ssm_scan SASS {name}: {json.dumps(counts)}")
+    if not any(c["MUFU.EX2"] for c in report["sass"].values()):
+        raise AssertionError("the ssm_scan library has no MUFU.EX2")
     before = dict(build.LAUNCHES)
     err = 0.0
     cases = [(4, 1024, di, ds, bf16, f32, False),   # the model's prefill
              (4, 1024, di, ds, f32, f32, False),
+             (1, 2048, di, ds, bf16, f32, False),   # batch 1
+             (1, 2048, di, ds, f32, f32, False),
              (4, 1, di, ds, f32, f32, True),        # the model's decode
+             (4, 1029, di, ds, bf16, f32, True),    # a 5-step tail block
+             (2, 1029, 1024, ds, bf16, bf16, True),  # (eight and four
+             (2, 1029, 1024, ds, f32, f32, False),   # states a thread)
              (3, 77, 1000, ds, bf16, f32, True),    # ragged s and di
              (1, 64, 128, 8, f32, f32, False),      # tests/test_kernels.py
              (2, 128, 256, 16, f32, f32, False),
@@ -818,24 +852,39 @@ def ssm_kernel_phase(dev, flush, card: str) -> dict:
         log(f"{what}: max|err| y {e_y:.3e}, h_last {e_h:.3e} vs plain")
     # the skip term left out and the state advanced in place, as the model
     # calls the kernel in prefill and decode
-    args, h0 = scan_inputs(dev, 4, 1, di, ds, f32, f32, 40, True)
-    y_d, h_d = ssm_scan(*args, h0=h0)
-    state = h0.clone()
-    y_i, _ = ssm_scan(*args, h0=state, h_out=state)
-    y_0, _ = ssm_scan(*args[:5], None, h0=h0)
-    torch.cuda.synchronize()
-    if not (torch.equal(state, h_d) and torch.equal(y_i, y_d)):
-        raise AssertionError("ssm_scan with h_out = h0 differs")
-    close(y_0 + args[5] * args[0], y_d, SSM_TOL[f32], "ssm_scan without D")
+    for b, s, seed in ((4, 1, 40), (1, 1, 41), (2, 100, 42)):
+        args, h0 = scan_inputs(dev, b, s, di, ds, f32, f32, seed, True)
+        y_d, h_d = ssm_scan(*args, h0=h0)
+        state = h0.clone()
+        y_i, _ = ssm_scan(*args, h0=state, h_out=state)
+        y_0, _ = ssm_scan(*args[:5], None, h0=h0)
+        torch.cuda.synchronize()
+        if not (torch.equal(state, h_d) and torch.equal(y_i, y_d)):
+            raise AssertionError(f"ssm_scan ({b}, {s}) with h_out = h0 "
+                                 f"differs")
+        close(y_0 + args[5] * args[0], y_d, SSM_TOL[f32],
+              f"ssm_scan ({b}, {s}) without D")
+        y_p, h_p = ssm_scan_plain(*args, h0=h0)
+        err = max(err, close(y_i, y_p, SSM_TOL[f32],
+                             f"ssm_scan ({b}, {s}) in place: y"),
+                  close(state, h_p, SSM_TOL[f32],
+                        f"ssm_scan ({b}, {s}) in place: h_last"))
+        log(f"ssm_scan ({b}, {s}, {di}, {ds}) with h_out = h0: equal to a "
+            f"fresh h_out, within tolerance of plain; without D within "
+            f"tolerance")
 
     # timings at the serving path's shapes: prefill as the model calls it
-    # (x bf16, dt float32, no skip term), and one decode step
-    out = {"err": err}
+    # (x bf16, dt float32, no skip term), and one decode step; a first
+    # timing is thrown away (the first in a process reads high)
+    out = {"err": err, "build": report}
     for key, (b, s) in (("prefill", MAMBA_REQUESTS[0]),
                         ("prefill_b1", MAMBA_REQUESTS[1])):
         args, _ = scan_inputs(dev, b, s, di, ds, bf16, f32, 50)
         args[5] = None
-        work = scan_work(b, s, di, ds, 2, 4, skip=False, h0=False)
+        if key == "prefill":
+            cuda_time_ms(lambda: ssm_scan(*args), 20, flush)
+        work = scan_bound(scan_work(b, s, di, ds, 2, 4, skip=False,
+                                    h0=False))
         out[key] = dict(
             shape=[b, s, di, ds],
             ms=cuda_time_ms(lambda: ssm_scan(*args), 20, flush),
@@ -848,14 +897,15 @@ def ssm_kernel_phase(dev, flush, card: str) -> dict:
                         flush),
         plain_ms=cuda_time_ms(lambda: ssm_scan_plain(*args, h0=h0), 20,
                               flush),
-        **scan_work(4, 1, di, ds, 4, 4, skip=True, h0=True))
+        **scan_bound(scan_work(4, 1, di, ds, 4, 4, skip=True, h0=True)))
     build.LAUNCHES.update(before)          # check/timing launches do not count
     for key in ("prefill", "prefill_b1", "decode"):
         r = out[key]
         log(f"ssm_scan {key} {tuple(r['shape'])} [{card}]: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.4e} B, "
-            f"{r['exps']:.4e} exp, {r['flops']:.4e} flop)")
+            f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the bound),"
+            f" plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bytes']:.4e} B, {r['exps']:.4e} exp, "
+            f"{r['flops']:.4e} flop)")
     return out
 
 
@@ -1014,6 +1064,7 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
         name = e.key.lower()
         group = ("flash_attention" if "fa_bf16" in name else
                  "rmsnorm" if "rmsnorm" in name else
+                 "ssm_scan decode" if "ssm_scan_step" in name else
                  "ssm_scan" if "ssm_scan" in name else
                  "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass",
                                                     "gemv", "splitk",
@@ -1042,6 +1093,10 @@ def main() -> int:
                          "served model under torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json / trace_summary.txt")
+    ap.add_argument("--ssm-kernel-only", action="store_true",
+                    help="build the kernels and run phase 9 alone (checks, "
+                         "timings, ssm_scan's ptxas and SASS report); "
+                         "prints no result line")
     ap.add_argument("--lm-kernels-only", action="store_true",
                     help="build the kernels and run phase 6 alone (checks, "
                          "timings, the flash library's ptxas and SASS "
@@ -1079,6 +1134,13 @@ def main() -> int:
             with open(os.path.join(args.out, "lm_kernels.json"), "w") as f:
                 json.dump({"card": card, "lm_kernels": lp}, f, indent=1)
         log("phase 6 alone (--lm-kernels-only): no result line")
+        return 0
+    if args.ssm_kernel_only:
+        ssp = ssm_kernel_phase(dev, flush, card)
+        if args.out is not None:
+            with open(os.path.join(args.out, "ssm_kernel.json"), "w") as f:
+                json.dump({"card": card, "ssm_kernel": ssp}, f, indent=1)
+        log("phase 9 alone (--ssm-kernel-only): no result line")
         return 0
     kp = kernel_phase(dev, flush)
     lp = lm_kernel_phase(dev, flush, card)

@@ -9,10 +9,11 @@ from repro_torch.kernels.ops import (ema_scan, flash_attention, rmsnorm,
 from repro_torch.kernels.rmsnorm import rmsnorm_plain, rmsnorm_rows
 from repro_torch.kernels.spike_hist import (spike_hist_batch,
                                             spike_hist_batch_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan_bsd, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (scan_work, ssm_scan_bsd,
+                                          ssm_scan_plain)
 
-__all__ = ["attn_work", "ema_scan", "ema_scan_plain", "ema_scan_rows", "flash_attention",
-           "flash_attention_bshd", "flash_attention_plain", "rmsnorm",
-           "rmsnorm_plain", "rmsnorm_rows", "spike_hist", "spike_hist_batch",
-           "spike_hist_batch_plain", "ssm_scan", "ssm_scan_bsd",
-           "ssm_scan_plain"]
+__all__ = ["attn_work", "ema_scan", "ema_scan_plain", "ema_scan_rows",
+           "flash_attention", "flash_attention_bshd", "flash_attention_plain",
+           "rmsnorm", "rmsnorm_plain", "rmsnorm_rows", "scan_work",
+           "spike_hist", "spike_hist_batch", "spike_hist_batch_plain",
+           "ssm_scan", "ssm_scan_bsd", "ssm_scan_plain"]

@@ -14,7 +14,8 @@ contiguous; it may be h0 itself) receives h_last in place.  Any s and di;
 
 ``ssm_scan_plain`` is the same function in plain PyTorch, the twin of the
 reference's ``ref.ssm_scan_ref``.  The wrapper takes it for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.
+only; for CUDA tensors it launches the kernel or raises.  ``scan_work``
+counts the bytes, exps and other float32 operations of one call.
 """
 from __future__ import annotations
 
@@ -24,6 +25,21 @@ from repro_torch.kernels import build
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_STATE = 128                   # 32 lanes of 4 states in the kernel
+
+
+def scan_work(b: int, s: int, di: int, ds: int, x_bytes: int,
+              dt_bytes: int, skip: bool, h0: bool) -> dict:
+    """Bytes, exps and other float32 operations of one call: x, dt, B, C,
+    A (and D, h0) read once, y and h_last written once, at ``x_bytes`` and
+    ``dt_bytes`` an element of x (and y) and dt; per (step, channel, state)
+    one exp and six float32 operations (dt*A, decay*h, dtx*B, add, C*h,
+    add), per (step, channel) dt*x (and the skip term's multiply-add)."""
+    nbytes = (b * s * di * (2 * x_bytes + dt_bytes) + 2 * b * s * ds * 4
+              + di * ds * 4 + b * di * ds * 4 * (2 if h0 else 1)
+              + (di * 4 if skip else 0))
+    exps = b * s * di * ds
+    flops = 6 * exps + b * s * di * (3 if skip else 1)
+    return dict(bytes=nbytes, exps=exps, flops=flops)
 
 
 def _check(x, dt, A, B, C, D, h0, h_out) -> None:

@@ -255,9 +255,15 @@ def test_reduced_lm_on_card_matches_host(cuda):
 
 
 # tests/test_kernels.py's ssm_scan tolerances: bf16 rounding of the output,
-# float32 sums over the states in another order and expf's last bit
+# float32 sums over the states in another order, the kernel's decay from
+# ex2.approx (a few ulp) and its state update and y sum as FMAs (one
+# rounding where the plain version has two)
 SSM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
            torch.float32: dict(rtol=2e-4, atol=2e-4)}
+SCAN_DTYPES = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16)]
 
 
 def _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, seed):
@@ -282,10 +288,13 @@ def _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, seed):
     (3, 77, 1000, 16),                                      # ragged s, di
     (2, 1, 8192, 16),                                       # decode step
     (1, 40, 100, 3), (1, 33, 64, 37), (1, 20, 48, 128),     # odd ds
+    (4, 15, 8192, 16), (4, 16, 8192, 16), (4, 17, 8192, 16),  # eight
+    (4, 1029, 8192, 16),            # states a thread, 16-step blocks, tail
+    (2, 31, 1024, 16), (2, 32, 1024, 16), (2, 33, 1024, 16),  # four
+    (2, 1029, 1024, 16),            # states a thread, 32-step blocks, tail
+    (1, 2048, 8192, 16),                                    # batch 1
 ])
-@pytest.mark.parametrize("xdtype,dtdtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("xdtype,dtdtype", SCAN_DTYPES)
 def test_ssm_scan_close_to_plain(cuda, b, s, di, ds, xdtype, dtdtype):
     t = _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, s + di + ds)
     args = [t[k] for k in ("x", "dt", "A", "B", "C", "D")]
@@ -298,6 +307,23 @@ def test_ssm_scan_close_to_plain(cuda, b, s, di, ds, xdtype, dtdtype):
         assert y.dtype == xdtype and h.dtype == torch.float32
         torch.testing.assert_close(y.float(), y_p.float(), **SSM_TOL[xdtype])
         torch.testing.assert_close(h, h_p, **SSM_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(2, 1), (2, 17), (2, 100), (4, 100)])
+@pytest.mark.parametrize("xdtype,dtdtype", SCAN_DTYPES)
+def test_ssm_scan_in_place_matches_plain(cuda, b, s, xdtype, dtdtype):
+    """h_out = h0 over several steps and blocks, against the plain version
+    from the state as it was."""
+    t = _scan_inputs(cuda, b, s, 8192, 16, xdtype, dtdtype, s)
+    args = [t[k] for k in ("x", "dt", "A", "B", "C", "D")]
+    y_p, h_p = ssm_scan_plain(*args, h0=t["h0"])
+    state = t["h0"].clone()
+    y, h = ssm_scan(*args, h0=state, h_out=state)
+    torch.cuda.synchronize()
+    assert h is state
+    torch.testing.assert_close(y.float(), y_p.float(), **SSM_TOL[xdtype])
+    torch.testing.assert_close(state, h_p, **SSM_TOL[torch.float32])
 
 
 @pytest.mark.cuda

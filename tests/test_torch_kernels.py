@@ -22,8 +22,9 @@ from repro_torch.core import spikes
 from repro_torch.kernels import (attn_work, build, ema_scan, ema_scan_plain,
                                  ema_scan_rows, flash_attention,
                                  flash_attention_plain, rmsnorm,
-                                 rmsnorm_plain, spike_hist, spike_hist_batch,
-                                 spike_hist_batch_plain)
+                                 rmsnorm_plain, scan_work, spike_hist,
+                                 spike_hist_batch, spike_hist_batch_plain,
+                                 ssm_scan_plain)
 
 BINS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
 NBINS = tuple(ref_spikes.num_bins(c) for c in BINS)
@@ -316,6 +317,31 @@ def test_attn_work_counts_the_pairs_the_plain_mask_keeps(sq, skv, causal):
 def test_attn_work_refuses_causal_sq_above_skv():
     with pytest.raises(ValueError, match="sq <= skv"):
         attn_work(1, 10, 5, 4, 2, 64, 2)
+
+
+@pytest.mark.parametrize("b,s,di,ds,xdtype,dtdtype,skip,with_h0", [
+    (2, 33, 48, 16, torch.bfloat16, torch.float32, False, False),
+    (1, 1, 64, 8, torch.float32, torch.bfloat16, True, True),
+])
+def test_scan_work_counts_the_plain_versions_tensors(b, s, di, ds, xdtype,
+                                                     dtdtype, skip, with_h0):
+    """bytes = the inputs' and outputs' nbytes as the plain version takes
+    and returns them; exps = one per (step, channel, state)."""
+    rng = np.random.default_rng(s)
+
+    def f(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    ins = [f(b, s, di, dtype=xdtype), f(b, s, di, dtype=dtdtype),
+           -torch.exp(f(di, ds)), f(b, s, ds), f(b, s, ds),
+           f(di) if skip else None, f(b, di, ds) if with_h0 else None]
+    y, h = ssm_scan_plain(*ins)
+    work = scan_work(b, s, di, ds, xdtype.itemsize, dtdtype.itemsize,
+                     skip=skip, h0=with_h0)
+    assert work["bytes"] == sum(t.nbytes for t in (*ins, y, h)
+                                if t is not None)
+    assert work["exps"] == b * s * di * ds
+    assert work["flops"] == 6 * b * s * di * ds + b * s * di * (3 if skip
+                                                                 else 1)
 
 
 @pytest.mark.parametrize("args,err", [
