@@ -15,7 +15,11 @@ that phases 9 and 10 run right after phases 6 and 7:
      of every bin edge (counts exactly equal), in float32 at jobs = 1
      (exactly equal); ``ema_scan`` against its plain float32 version and
      against the float64 prefix doubling (tolerances below); and times the
-     kernels, their plain versions and the bound of each;
+     kernels, their plain versions and the bound of each, a builder commit
+     ((1, 256) float64 with ``divisor=`` and ``out=``, equal to the divide,
+     bin, cast and add it replaced) and a diagnostic build of the
+     histogram kernel with its divides replaced by multiplies (marked WRONG
+     where its counts differ; never used by the port);
   4. card-vs-host phase — a small fleet (the micro zoo, 300 jobs) through the
      port on the card and on the CPU: reference-library traces, the
      engine's histograms and EMA state must be bitwise equal, and so must
@@ -41,7 +45,11 @@ that phases 9 and 10 run right after phases 6 and 7:
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
      the serving path's shapes (flash at (4, 1000), (4, 1024) and (1, 2048),
-     each with its bound);
+     each with its bound); rmsnorm at the decode rows with and without
+     programmatic dependent launch (pdl), the decode chain (81 pairs of a
+     residual add and a norm, as one glm4-9b forward, for the kernel with
+     and without pdl, ``rms_norm`` and the adds alone) and the host
+     microseconds per ``ops.rmsnorm`` call;
   7. LM card-vs-host phase — the reduced glm4-9b (2 layers) with the same
      seeded weights on the card (kernels) and on the CPU (plain versions):
      prefill logits within 1e-4 with float32 parameters and within rtol
@@ -81,8 +89,9 @@ The line before the last is the per-kernel JSON record; the last line is
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
 fleet drive and one more request of each served model under
 ``torch.profiler`` (device busy share, top operators, ``spike_hist``'s
-device time in the fleet drive); ``--lm-kernels-only`` and
-``--ssm-kernel-only`` build the kernels and run phase 6 or phase 9 alone,
+device time in the fleet drive, device ops per builder commit);
+``--fleet-kernels-only``, ``--lm-kernels-only`` and ``--ssm-kernel-only``
+build the kernels and run phase 3, 6 or 9 alone,
 without a result line (for work on a kernel); ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
@@ -175,6 +184,27 @@ def cuda_time_ms(fn, iters: int, flush: torch.Tensor | None = None) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def chain_time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of one call of ``fn`` (a chain of many launches)
+    between two events, the L2 flushed before it; before each call the
+    card spins for ~20 ms, so that the host has enqueued the whole chain
+    before the card reaches it."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -250,14 +280,142 @@ def kernel_phase(dev, flush) -> dict:
     t_hist_warm = cuda_time_ms(lambda: spike_hist_batch(rt, BINS, nb), 30)
     t_hist_plain = cuda_time_ms(
         lambda: spike_hist_batch_plain(rt, BINS, nb), 10, flush)
+    commit = builder_commit(dev, flush, r[0] * 197.0, 197.0, nb)
+    diag = divide_diagnostic(rt, nb, flush, t_hist)
     build.LAUNCHES.update(before)          # timing launches do not count
     n_spike = int((rt >= 0.5).sum())
     return {"spike_hist": dict(err=err64, ms=t_hist, plain_ms=t_hist_plain,
                                warm_ms=t_hist_warm, jobs1_ms=t_hist1,
                                jobs1_bound_ms=hist1_bound,
                                shape=list(rt.shape), n_spike=n_spike,
-                               numel=rt.numel()),
+                               numel=rt.numel(), commit=commit,
+                               divide_as_multiply=diag),
             "ema_scan": dict(err=err_plain, err_f64=err_f64)}
+
+
+def builder_commit(dev, flush, power: np.ndarray, tdp: float, nb) -> dict:
+    """One ``ProfileBuilder._commit`` of 256 float64 samples of power: the
+    fused launch (divide by the TDP, bin, add into the float64 histograms)
+    against the composition it replaced (divide, bin, cast, add), equal
+    histograms required; times and the bound."""
+    from repro_torch.core import spikes
+    from repro_torch.kernels import spike_hist_batch
+    arr = torch.from_numpy(power).to(dev)
+    tdp_t = spikes.scalar(tdp, arr)
+    hist = torch.zeros(sum(nb), dtype=torch.float64, device=dev)
+    steps = torch.zeros_like(hist)
+
+    def fused():
+        spike_hist_batch(arr[None, :], BINS, nb, lo=spikes.SPIKE_LO,
+                         divisor=tdp_t, out=hist[None, :])
+
+    def composed():
+        steps.add_(spike_hist_batch(arr[None, :] / tdp_t, BINS, nb,
+                                    lo=spikes.SPIKE_LO)[0]
+                   .to(torch.float64))
+    fused()
+    composed()
+    torch.cuda.synchronize()
+    if not torch.equal(hist, steps):
+        raise AssertionError("the fused builder commit differs from divide, "
+                             "bin, cast and add")
+    n = arr.numel()
+    nbytes = n * 8 + 8 + 2 * sum(nb) * 8      # samples, TDP, histograms r+w
+    n_spike = int((arr / tdp_t >= spikes.SPIKE_LO).sum())
+    ops = 2 * n + n_spike * (1 + 2 * len(BINS))
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["f64"]) * 1e3
+    out = dict(shape=[1, n], ms=cuda_time_ms(fused, 50, flush),
+               composed_ms=cuda_time_ms(composed, 50, flush),
+               bound_ms=bound, bytes=nbytes, ops=ops)
+    log(f"spike_hist builder commit (1, {n}) f64, divisor + out: fused "
+        f"{out['ms']:.4f} ms, divide/bin/cast/add {out['composed_ms']:.4f} "
+        f"ms, bound {bound:.6f} ms ({nbytes} B)")
+    return out
+
+
+# the diagnostic variant of csrc/spike_hist.cu: each bin size's divide
+# replaced by a multiply with its reciprocal (WRONG at the bin edges: it is
+# there to time what the float64 divides cost, never shipped)
+DIVIDE_AS_MULTIPLY = [
+    ("s_size[threadIdx.x] = static_cast<T>(a.sizes[threadIdx.x]);",
+     "s_size[threadIdx.x] = static_cast<T>(1.0 / a.sizes[threadIdx.x]);"),
+    ("const T q = shifted / s_size[b];", "const T q = shifted * s_size[b];"),
+    ("sz[b] = static_cast<T>(a.sizes[b]);",
+     "sz[b] = static_cast<T>(1.0 / a.sizes[b]);"),
+    ("q = shifted / sz[b];", "q = shifted * sz[b];")]
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """name -> loaded library of ``csrc/<source>.cu`` with that name's text
+    substitutions (``[[old, new], ...]``), each built with the port's nvcc
+    flags into ``<build dir>/variants``, all at once; prints each build's
+    registers (ptxas).  Raises if a substitution does not apply or a build
+    fails."""
+    import ctypes
+    from repro_torch.kernels import build
+    with open(os.path.join(build.CSRC, f"{source}.cu")) as f:
+        src = f.read()
+    out = os.path.join(build.build_dir(), "variants")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise ValueError(f"variant {name}: {old!r} not in "
+                                 f"{source}.cu")
+            text = text.replace(old, new)
+        cu = os.path.join(out, f"{source}_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = cu[:-3] + ".so"
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} does not build:\n{text}")
+        regs = sorted({ln.split("Used")[1].split(",")[0].strip()
+                       for ln in text.splitlines() if "Used" in ln})
+        log(f"{source} variant {name}: built, {', '.join(regs)}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in build._SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def divide_diagnostic(rt, nb, flush, t_base: float) -> dict:
+    """The divide-as-multiply variant through the same wrapper at the
+    engine's shape: its time beside the shipped kernel's (and again after
+    it, in turns), and whether its counts still equal the plain version's."""
+    from repro_torch.kernels import build, spike_hist_batch
+    from repro_torch.kernels import spike_hist_batch_plain
+    lib = build_variants("spike_hist", {
+        "divide_as_multiply": DIVIDE_AS_MULTIPLY})["divide_as_multiply"]
+    shipped = build.library("spike_hist")
+
+    def run():
+        return spike_hist_batch(rt, BINS, nb)
+    build._libs["spike_hist"] = lib
+    try:
+        exact = torch.equal(run(), spike_hist_batch_plain(rt, BINS, nb))
+        t_var = cuda_time_ms(run, 30, flush)
+    finally:
+        build._libs["spike_hist"] = shipped
+    t_again = cuda_time_ms(run, 30, flush)
+    log(f"spike_hist divide as multiply (diagnostic"
+        f"{'' if exact else ', WRONG'}): {t_var:.4f} ms against the "
+        f"shipped kernel's {t_base:.4f} / {t_again:.4f} ms (before / after)")
+    return dict(ms=t_var, base_ms=[t_base, t_again], exact=exact)
 
 
 def time_ema(dev, flush, n: int) -> tuple[float, float, float]:
@@ -507,6 +665,36 @@ def trace_phase(lib, dev, card: str, out: str | None) -> dict:
     return dict(spike_hist_device_us=hist_us, spike_hist_launches=hist_n)
 
 
+def builder_commit_ops(dev, card: str, n: int = 20) -> dict:
+    """Device operations (kernels, memsets, copies) per
+    ``ProfileBuilder._commit`` of 256 samples, counted by ``torch.profiler``
+    over ``n`` commits of one builder on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.pipeline import ProfileBuilder
+    from repro_torch.telemetry import TraceMeta
+    meta = TraceMeta(name="commit", domain="t", sample_dt=1e-3,
+                     n_samples=256 * (n + 1), exec_time=1.0, app_sm_util=0.5,
+                     app_dram_util=0.5)
+    builder = ProfileBuilder(meta, 197.0, device=dev)
+    arrs = [torch.from_numpy(np.random.default_rng(i).uniform(0, 400, 256))
+            .to(dev) for i in range(n + 1)]
+    builder._commit(arrs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for arr in arrs[1:]:
+            builder._commit(arr)
+        torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    per = sum(ops.values()) / n
+    log(f"trace [{card}]: device ops per builder commit {per:g} "
+        f"({json.dumps(ops)} over {n} commits)")
+    if per != 1:
+        raise AssertionError(f"a builder commit ran {per} device ops, not 1")
+    return dict(per_commit=per, ops=ops, commits=n)
+
+
 # ---------------------------------------------------------------------------
 # phases 6-8: the dense-LM serving path
 # ---------------------------------------------------------------------------
@@ -701,6 +889,11 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                   flush))
     close(F.rms_norm(x, (d,), weight=sc, eps=eps), rmsnorm_plain(x, sc, eps),
           KERNEL_TOL[torch.bfloat16], "rms_norm")
+    x1 = x[:1].contiguous()
+    rn.update(one_row_ms=cuda_time_ms(lambda: rmsnorm(x1, sc, eps), 50, flush),
+              one_row_library_ms=cuda_time_ms(
+                  lambda: F.rms_norm(x1, (d,), weight=sc, eps=eps), 50, flush),
+              decode=rmsnorm_decode(dev, flush, card, d, eps))
     nbytes = 2.0 * (2 * rows * d + d)
     flops = 4.0 * rows * d            # square, add; two multiplies
     rn.update(err=rn_err, bytes=nbytes, flops=flops, shape=[rows, d],
@@ -711,9 +904,94 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         f"plain {rn['plain_ms']:.4f} ms, rms_norm {rn['library_ms']:.4f} ms,"
         f" bound {rn['bound_ms']:.4f} ms ({nbytes:.4e} B); decode rows "
         f"({b}, {d}): kernel {rn['decode_ms']:.4f} ms, rms_norm "
-        f"{rn['decode_library_ms']:.4f} ms")
+        f"{rn['decode_library_ms']:.4f} ms; one row (1, {d}): kernel "
+        f"{rn['one_row_ms']:.4f} ms, rms_norm {rn['one_row_library_ms']:.4f}"
+        f" ms")
     build.LAUNCHES.update(before)          # check/timing launches do not count
     return {"flash_attention": fa, "rmsnorm": rn}
+
+
+DECODE_PAIRS = 81                # rmsnorm launches in one glm4-9b forward
+
+
+def rmsnorm_decode(dev, flush, card: str, d: int, eps: float) -> dict:
+    """rmsnorm at the decode rows: one flushed launch at (4, d) and (1, d),
+    with and without programmatic dependent launch (pdl); the decode chain
+    (DECODE_PAIRS pairs of a residual add h = h + y and y = rmsnorm(h,
+    scale_l), one event pair around the chain, L2 flushed before it) for the
+    kernel with and without pdl, for ``F.rms_norm`` and for the adds alone;
+    and the host microseconds per ``ops.rmsnorm`` call as ``Norm`` makes
+    it (pdl)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm, rmsnorm_plain, rmsnorm_rows
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(8)
+    h0 = torch.randn((4, d), generator=g, device=dev).to(bf16)
+    scales = [(1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(bf16)
+              for _ in range(DECODE_PAIRS)]
+    out = {"single": {}, "chain_ms_per_pair": {}}
+    for n in (4, 1):
+        x = h0[:n].contiguous()
+        want = rmsnorm_plain(x, scales[0], eps)
+        for pdl in (False, True):
+            key = f"{n}x{d}{' pdl' if pdl else ''}"
+            close(rmsnorm_rows(x, scales[0], eps, pdl=pdl), want,
+                  KERNEL_TOL[bf16], f"rmsnorm {key}")
+            out["single"][key] = cuda_time_ms(
+                lambda: rmsnorm_rows(x, scales[0], eps, pdl=pdl), 50, flush)
+
+    def chain(norm):
+        def run():
+            h, y = h0, h0
+            for sc in scales:
+                h = h + y
+                y = norm(h, sc)
+            return y
+        return run
+    norms = {"kernel": lambda h, sc: rmsnorm_rows(h, sc, eps),
+             "kernel pdl": lambda h, sc: rmsnorm_rows(h, sc, eps, pdl=True),
+             "rms_norm": lambda h, sc: F.rms_norm(h, (d,), weight=sc,
+                                                  eps=eps),
+             "adds alone": lambda h, sc: h0}
+    plain = chain(lambda h, sc: rmsnorm_plain(h, sc, eps))()
+    ends = {}
+    for name, norm in norms.items():
+        ends[name] = chain(norm)()
+        out["chain_ms_per_pair"][name] = chain_time_ms(
+            chain(norm), 10, flush) / DECODE_PAIRS
+    for name in ("kernel", "kernel pdl"):
+        close(ends[name], plain, LM_TOL[bf16], f"rmsnorm decode chain {name}")
+    if not torch.equal(ends["kernel"], ends["kernel pdl"]):
+        raise AssertionError("the decode chain differs with programmatic "
+                             "dependent launch")
+    # host time per call, the card kept busy so that the queue never blocks
+    host = {}
+    x = h0
+    for name, fn in (("ops.rmsnorm", lambda: rmsnorm(x, scales[0], eps,
+                                                     pdl=True)),
+                     ("rms_norm", lambda: F.rms_norm(x, (d,),
+                                                     weight=scales[0],
+                                                     eps=eps))):
+        spent = 0.0
+        for _ in range(4):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            spent += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        host[name] = spent / 2000 * 1e6
+    out["host_us_per_call"] = host
+    log(f"rmsnorm single launches (ms) [{card}]: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["single"].items()))
+    log(f"rmsnorm decode chain, {DECODE_PAIRS} pairs of add + norm on (4, "
+        f"{d}) bf16, ms per pair [{card}]: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    out["chain_ms_per_pair"].items()))
+    log(f"rmsnorm host us per call at (4, {d}), 2000 calls [{card}]: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    return out
 
 
 def lm_card_vs_host_phase(dev) -> None:
@@ -1097,6 +1375,10 @@ def main() -> int:
                     help="build the kernels and run phase 9 alone (checks, "
                          "timings, ssm_scan's ptxas and SASS report); "
                          "prints no result line")
+    ap.add_argument("--fleet-kernels-only", action="store_true",
+                    help="build the kernels and run phase 3 alone (checks, "
+                         "timings, the builder commit and its device ops, "
+                         "the divide diagnostic); prints no result line")
     ap.add_argument("--lm-kernels-only", action="store_true",
                     help="build the kernels and run phase 6 alone (checks, "
                          "timings, the flash library's ptxas and SASS "
@@ -1128,6 +1410,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.fleet_kernels_only:
+        kp = kernel_phase(dev, flush)
+        kp["builder_commit_ops"] = builder_commit_ops(dev, card)
+        if args.out is not None:
+            with open(os.path.join(args.out, "fleet_kernels.json"), "w") as f:
+                json.dump({"card": card, "fleet_kernels": kp}, f, indent=1)
+        log("phase 3 alone (--fleet-kernels-only): no result line")
+        return 0
     if args.lm_kernels_only:
         lp = lm_kernel_phase(dev, flush, card)
         if args.out is not None:
@@ -1143,6 +1433,9 @@ def main() -> int:
         log("phase 9 alone (--ssm-kernel-only): no result line")
         return 0
     kp = kernel_phase(dev, flush)
+    # the first profiler session of the process: a later one (after the
+    # serving traces) recorded no device activity for these small launches
+    commit_ops = builder_commit_ops(dev, card) if args.trace else None
     lp = lm_kernel_phase(dev, flush, card)
     ssp = ssm_kernel_phase(dev, flush, card)
     card_vs_host_phase(dev)
@@ -1220,8 +1513,8 @@ def main() -> int:
         f"({hist_bytes} B)")
     log(f"ema_scan f32 n={ema_n} [{card}]: kernel {t_ema:.4f} ms, plain "
         f"{t_ema_plain:.4f} ms, bound {ema_bound:.6f} ms")
-    fleet_trace = trace_phase(lib, dev, card, args.out) if args.trace \
-        else None
+    fleet_trace = dict(trace_phase(lib, dev, card, args.out),
+                       builder_commit=commit_ops) if args.trace else None
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,

@@ -38,8 +38,9 @@ _P, _I, _I64, _D, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_double, ctypes.c_float)
 _SIGNATURES = {
     "spike_hist": {
-        "spike_hist_f64": (_P, _I64, _I64, _P, _P, _I, _D, _P, _I, _I, _P),
-        "spike_hist_f32": (_P, _I64, _I64, _P, _P, _I, _D, _P, _I, _I, _P),
+        f"spike_hist_{t}": (_P, _I64, _I64, _P, _P, _P, _P, _I, _I, _D, _P,
+                            _I, _P, _I, _P, _I64, _I, _I, _I, _I, _P)
+        for t in ("f64", "f32")
     },
     "ema_scan": {
         "ema_scan_f32": (_P, _P, _I64, _I64, _F, _F, _P),
@@ -50,7 +51,7 @@ _SIGNATURES = {
         for t in ("bf16", "f32")
     },
     "rmsnorm": {
-        f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _P)
+        f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)
         for x in ("f32", "bf16") for s in ("f32", "bf16")
     },
     "ssm_scan": {

@@ -44,7 +44,7 @@
 // One __syncthreads() per block, none per step.
 //
 // States a thread, measured on an H100 (chip_smoke.py phase 9 and
-// tools/ssm_scan_variants.py): the kernel is bound by its instruction
+// tools/kernel_variants.py): the kernel is bound by its instruction
 // count, not by the SFU (with the exp replaced by an FFMA it ran no
 // faster), so fewer instructions a (step, state) beat more warps.  Eight
 // states a thread (LANES = 2, 128 threads, 16-step blocks) spread the

@@ -56,8 +56,10 @@ def ema_scan(power: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
     return ema_scan_rows(power.to(torch.float32).contiguous(), alpha=alpha)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last dim of ``x`` (any leading dims)."""
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+            pdl: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim of ``x`` (any leading dims).  ``pdl``: see
+    ``rmsnorm_rows``; only for a ``scale`` no kernel just before writes."""
     shape = x.shape
-    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps).reshape(shape)
+    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps,
+                        pdl=pdl).reshape(shape)

@@ -436,8 +436,8 @@ class BatchProfileEngine:
         # pass 1: histogram contribution of the newly committed spans
         cols = torch.arange(F, device=self.device)
         commit_mask = (cols >= start[:, None]) & (cols < commit_end[:, None])
-        r = filt / self._tdp[idx][:, None]
-        self._scatter_hist(idx, torch.where(commit_mask, r, -torch.inf))
+        self._scatter_hist(idx, torch.where(commit_mask, filt, -torch.inf),
+                           divisor=self._tdp[idx])
         # pass 2: old-tail pieces promoted by a fresh busy sample, plus the
         # ragged per-row trace bookkeeping (one host read of the row flags)
         t0 = perf_counter()
@@ -502,16 +502,18 @@ class BatchProfileEngine:
         block.view(-1)[self._idx(pos)] = vals
         return list(order), block
 
-    def _scatter_hist(self, idx: torch.Tensor, block: torch.Tensor) -> None:
+    def _scatter_hist(self, idx: torch.Tensor, block: torch.Tensor,
+                      hist: torch.Tensor | None = None,
+                      divisor: torch.Tensor | None = None) -> None:
         """Add the counts of a ``-inf``-padded relative-power block (one row
-        per slot of ``idx``, slots distinct) to every tracked histogram —
-        one spike-histogram launch for all bin sizes."""
-        counts = self._counts(block)
-        self._hist_all[idx] += counts
-
-    def _counts(self, block: torch.Tensor) -> torch.Tensor:
-        return spike_hist_batch(block.contiguous(), self.bin_sizes,
-                                self._n_bins, lo=spikes.SPIKE_LO).to(_F64)
+        per slot of ``idx``; of power when ``divisor`` holds each row's TDP)
+        to the rows ``idx`` of every tracked histogram of ``hist`` (default
+        ``_hist_all``) — one spike-histogram launch for all bin sizes, which
+        also adds the counts in."""
+        spike_hist_batch(block.contiguous(), self.bin_sizes, self._n_bins,
+                         lo=spikes.SPIKE_LO, divisor=divisor,
+                         out=self._hist_all if hist is None else hist,
+                         rows=idx)
 
     # -- incremental queries ---------------------------------------------
     def _check_bin(self, bin_size) -> float:
@@ -614,7 +616,7 @@ class BatchProfileEngine:
         if extra_pieces:
             keys, block = self._rel_block(extra_rows, extra_pieces,
                                           extra_slots)
-            H[self._idx(keys)] += self._counts(block)
+            self._scatter_hist(self._idx(keys), block, hist=H)
         mats: dict[float, torch.Tensor] = {}
         for c, lo, hi in zip(self.bin_sizes, self._offsets,
                              self._offsets[1:]):

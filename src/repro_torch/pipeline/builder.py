@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import spikes
 from repro_torch.core.classify import FreqPoint, WorkloadProfile
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.spike_hist import spike_hist_batch
 from repro_torch.telemetry.simulator import TelemetryChunk, TraceMeta
 
 DEFAULT_BIN_SIZES = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
@@ -292,9 +293,11 @@ class ProfileBuilder:
             return
         self._committed.append(arr)
         self._n_committed += len(arr)
-        # every tracked histogram in one spike-histogram launch (jobs = 1)
-        self._hist_all += spikes.spike_counts(arr / self._tdp_t,
-                                              self.bin_sizes)
+        # every tracked histogram in one spike-histogram launch (jobs = 1),
+        # which also divides by the TDP and adds into _hist_all
+        spike_hist_batch(arr.contiguous()[None, :], self.bin_sizes,
+                         self._n_bins, lo=spikes.SPIKE_LO,
+                         divisor=self._tdp_t, out=self._hist_all[None, :])
 
     # -- incremental queries --------------------------------------------
     @property

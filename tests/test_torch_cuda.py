@@ -37,22 +37,85 @@ def _edges() -> np.ndarray:
                            np.nextafter(e, -np.inf), e + 1e-12, e - 1e-12])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,cols", [(300, 256), (1, 5000), (7, 3)])
-def test_spike_hist_equals_plain(cuda, rows, cols):
-    rng = np.random.default_rng(rows)
+def _hist_block(rows, cols, seed):
+    """Uniform relative power with every bin edge and its neighbours one ulp
+    and 1e-12 away at the start, and a tenth of the samples -inf."""
+    rng = np.random.default_rng(seed)
     r = rng.uniform(0.0, 2.5, (rows, cols))
     flat = r.reshape(-1)
     edges = _edges()[:flat.size]
     flat[:len(edges)] = edges
     r[rng.random(r.shape) < 0.1] = -np.inf
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 300, 10_000])
+@pytest.mark.parametrize("cols", [1, 3, 31, 32, 33, 256, 257, 5000])
+def test_spike_hist_equals_plain(cuda, rows, cols):
+    r = _hist_block(rows, cols, rows + cols)
     for dtype in (torch.float64, torch.float32):
         t = torch.from_numpy(r).to(cuda, dtype)
         before = build.LAUNCHES["spike_hist"]
         got = spike_hist_batch(t, BINS, NBINS)
         assert build.LAUNCHES["spike_hist"] == before + 1
-        assert torch.equal(got.cpu(),
-                           spike_hist_batch_plain(t.cpu(), BINS, NBINS))
+        # the plain version on the host for small blocks, on the card else
+        small = t.numel() <= 1 << 20
+        want = spike_hist_batch_plain(t.cpu() if small else t, BINS, NBINS)
+        assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 100_000), (3, 70_001),
+                                       (1, 4000)])
+def test_spike_hist_split_row_equals_plain(cuda, rows, cols):
+    """One long trace over several CTAs (the partial counts meet in
+    atomics), and the single-trace shape of ops.spike_hist."""
+    from repro_torch.kernels.spike_hist import _hist_layout
+    r = _hist_block(rows, cols, cols)
+    assert (_hist_layout(rows, cols, sum(NBINS))[1] > 1) == (cols > 4096)
+    for dtype in (torch.float64, torch.float32):
+        t = torch.from_numpy(r).to(cuda, dtype)
+        want = spike_hist_batch_plain(t.cpu(), BINS, NBINS)
+        assert torch.equal(spike_hist_batch(t, BINS, NBINS).cpu(), want)
+        out = torch.ones((rows, sum(NBINS)), dtype=torch.float64,
+                         device=cuda)
+        spike_hist_batch(t, BINS, NBINS, out=out)
+        assert torch.equal(out.cpu(), want.to(torch.float64) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 256), (7, 33), (300, 256),
+                                       (2, 5000)])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_spike_hist_out_rows_divisor_equals_plain(cuda, rows, cols, per_row):
+    """Accumulate into out[rows[i]] (repeated indices add up) the counts of
+    r / divisor, exactly as the plain version (index_add_ of the counts of
+    torch.div)."""
+    rng = np.random.default_rng(rows * cols)
+    tdp = rng.uniform(100.0, 300.0, rows if per_row else ())
+    p = _hist_block(rows, cols, cols) * (tdp[:, None] if per_row else tdp)
+    idx = rng.integers(0, max(rows // 2, 1), rows)
+    idx[-1] = idx[0]                                   # a repeated row
+    base = rng.integers(0, 50, (max(rows // 2, 1), sum(NBINS))).astype(float)
+    for dtype in (torch.float64, torch.float32):
+        t = torch.from_numpy(p).to(cuda, dtype)
+        div = torch.tensor(tdp, dtype=dtype, device=cuda)
+        rows_t = torch.from_numpy(idx).to(cuda)
+        out = torch.from_numpy(base).to(cuda)
+        before = build.LAUNCHES["spike_hist"]
+        got = spike_hist_batch(t, BINS, NBINS, out=out, rows=rows_t,
+                               divisor=div)
+        assert got is out and build.LAUNCHES["spike_hist"] == before + 1
+        want = spike_hist_batch_plain(t.cpu(), BINS, NBINS,
+                                      out=torch.from_numpy(base),
+                                      rows=rows_t.cpu(), divisor=div.cpu())
+        assert torch.equal(out.cpu(), want)
+        two_step = torch.from_numpy(base).index_add_(
+            0, rows_t.cpu(), spike_hist_batch_plain(
+                t.cpu() / (div.cpu()[:, None] if per_row else div.cpu()),
+                BINS, NBINS).to(torch.float64))
+        assert torch.equal(want, two_step)
 
 
 @pytest.mark.cuda
@@ -212,7 +275,8 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(4096, 4096), (4, 4096), (100, 384),
-                                 (7, 100), (3, 1)])
+                                 (7, 100), (3, 1), (1, 4096), (4000, 4096),
+                                 (2048, 4096), (5, 8192), (3, 20000)])
 @pytest.mark.parametrize("dtype,sdtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
@@ -233,6 +297,81 @@ def test_rmsnorm_close_to_plain(cuda, n, d, dtype, sdtype):
         torch.testing.assert_close(rmsnorm(x[1:], sc).float(),
                                    rmsnorm_plain(x[1:], sc).float(),
                                    **TOL[dtype])
+    # rows that start one element past a 16-byte boundary
+    flat = torch.empty(n * d + 1, dtype=dtype, device=cuda)
+    xm = flat[1:].view(n, d)
+    xm.copy_(x)
+    torch.testing.assert_close(rmsnorm(xm, sc).float(),
+                               rmsnorm_plain(x, sc).float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 4096), (4, 4096), (300, 4096),
+                                 (7, 1000), (3, 2048), (2, 8192)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_pdl_close_to_plain(cuda, n, d, dtype):
+    """Launched with programmatic dependent launch, as Norm launches it, the
+    kernel gives what it gives without."""
+    from repro_torch.kernels import rmsnorm_rows
+    rng = np.random.default_rng(n * d)
+    x = torch.from_numpy(rng.standard_normal((n, d), np.float32) * 3
+                         ).to(cuda, dtype)
+    sc = torch.from_numpy(rng.standard_normal(d, np.float32)).to(cuda, dtype)
+    want = rmsnorm_plain(x, sc).float()
+    plain_launch = rmsnorm_rows(x, sc, 1e-5)
+    torch.testing.assert_close(plain_launch.float(), want, **TOL[dtype])
+    assert torch.equal(rmsnorm_rows(x, sc, 1e-5, pdl=True), plain_launch)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_scale_written_just_before(cuda):
+    """A scale that the kernel just before the norm writes (a cast, a scale
+    computed on the fly) is read after that kernel: the default launch has
+    no programmatic dependence."""
+    from repro_torch.kernels import rmsnorm_rows
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn((4, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    src = torch.randn(4096, generator=g, device=cuda)
+    for i in range(20):
+        big = torch.randn((1 << 22,), generator=g, device=cuda)
+        sc = torch.empty(4096, dtype=torch.bfloat16, device=cuda)
+        big.mul_(2.0)                     # keep the card busy before it
+        sc.copy_(src * (i + 1))           # written by the kernel just before
+        got = rmsnorm_rows(x, sc, 1e-5)
+        torch.testing.assert_close(
+            got.float(), rmsnorm_plain(x, sc).float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [False, True])
+def test_rmsnorm_decode_chain_graph_equals_eager(cuda, pdl):
+    """A captured CUDA graph of residual adds and norms (as one decode step
+    chains them) replays equal, bit for bit, to the same chain run eagerly."""
+    from repro_torch.kernels import rmsnorm_rows
+    g = torch.Generator(cuda).manual_seed(0)
+    h0 = torch.randn((4, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    scales = [(1 + 0.1 * torch.randn(4096, generator=g, device=cuda))
+              .to(torch.bfloat16) for _ in range(8)]
+
+    def chain(h):
+        y = h
+        for sc in scales:
+            h = h + y
+            y = rmsnorm_rows(h, sc, 1e-5, pdl=pdl)
+        return y
+    eager = chain(h0)
+    static = h0.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        chain(static)                     # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chain(static)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda

@@ -66,6 +66,138 @@ def test_plain_spike_hist_equals_numpy_f64_scatter(seed, rows, cols):
     np.testing.assert_array_equal(got, want)
 
 
+def _edge_block(rng, rows, cols, scale=1.0):
+    """Uniform values with every bin edge (and its neighbours) times
+    ``scale`` at the start, a tenth -inf and a few NaN."""
+    r = rng.uniform(0.0, 2.5, (rows, cols))
+    edges = _edge_values()
+    flat = r.reshape(-1)
+    flat[:min(len(edges), flat.size)] = edges[:flat.size]
+    r = r * scale
+    r[rng.random(r.shape) < 0.1] = -np.inf
+    r[rng.random(r.shape) < 0.02] = np.nan
+    return r
+
+
+@pytest.mark.parametrize("seed,rows,cols,R", [(10, 7, 256, 3), (11, 1, 1000, 1),
+                                              (12, 33, 13, 40)])
+def test_plain_spike_hist_out_rows_equals_index_add_and_numpy(seed, rows,
+                                                              cols, R):
+    """out= / rows= (repeated indices included) adds up as index_add_ of
+    the counts does, and as the reference's float64 scatter into the same
+    rows."""
+    rng = np.random.default_rng(seed)
+    r = _edge_block(rng, rows, cols)
+    idx = rng.integers(0, R, rows)
+    idx[-1] = idx[0]
+    base = rng.integers(0, 9, (R, sum(NBINS))).astype(np.float64)
+    out = torch.from_numpy(base.copy())
+    got = spike_hist_batch_plain(torch.from_numpy(r), BINS, NBINS, out=out,
+                                 rows=torch.from_numpy(idx))
+    assert got is out
+    counts = spike_hist_batch_plain(torch.from_numpy(r), BINS, NBINS)
+    two_step = torch.from_numpy(base.copy()).index_add_(
+        0, torch.from_numpy(idx), counts.to(torch.float64))
+    assert torch.equal(got, two_step)
+    want = base.copy()
+    per_row = np.concatenate([_numpy_scatter(r, c, n)
+                              for c, n in zip(BINS, NBINS)], axis=1)
+    np.add.at(want, idx, per_row.astype(np.float64))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # without rows=, row i adds into out[i]
+    out2 = torch.zeros((rows, sum(NBINS)), dtype=torch.float64)
+    spike_hist_batch(torch.from_numpy(r), BINS, NBINS, out=out2)
+    assert torch.equal(out2, counts.to(torch.float64))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_spike_hist_divisor_equals_divide_then_bin(per_row, dtype):
+    """divisor= bins r / divisor, one IEEE divide as torch.div, with bin
+    edges (times the divisor) among the samples."""
+    rng = np.random.default_rng(13)
+    tdp = rng.uniform(100.0, 300.0, 9 if per_row else ())
+    r = _edge_block(rng, 9, 300, tdp[:, None] if per_row else tdp)
+    t = torch.from_numpy(r).to(dtype)
+    div = torch.tensor(tdp, dtype=dtype)
+    got = spike_hist_batch(t, BINS, NBINS, divisor=div)
+    rel = t / (div[:, None] if per_row else div)
+    assert torch.equal(got, spike_hist_batch_plain(rel, BINS, NBINS))
+    if dtype == torch.float64:        # the reference's scatter of r / tdp
+        want = np.concatenate([
+            _numpy_scatter(r / (tdp[:, None] if per_row else tdp), c, n)
+            for c, n in zip(BINS, NBINS)], axis=1)
+        np.testing.assert_array_equal(got.numpy(), want)
+    out = torch.zeros((9, sum(NBINS)), dtype=torch.float64)
+    spike_hist_batch(t, BINS, NBINS, divisor=div, out=out,
+                     rows=torch.arange(9))
+    assert torch.equal(out, got.to(torch.float64))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(out=torch.zeros((5, 72), dtype=torch.float32)), "float64"),
+    (dict(out=torch.zeros((5, 71), dtype=torch.float64)), "float64"),
+    (dict(out=torch.zeros((4, 72), dtype=torch.float64)), "rows="),
+    (dict(out=torch.zeros((72, 5), dtype=torch.float64).t()), "contiguous"),
+    (dict(out=torch.zeros((5, 72), dtype=torch.float64),
+          rows=torch.zeros(4, dtype=torch.int64)), "rows"),
+    (dict(out=torch.zeros((5, 72), dtype=torch.float64),
+          rows=torch.zeros(5, dtype=torch.int32)), "rows"),
+    (dict(rows=torch.zeros(5, dtype=torch.int64)), "needs out"),
+    (dict(divisor=torch.ones(4, dtype=torch.float64)), "divisor"),
+    (dict(divisor=torch.ones((5, 1), dtype=torch.float64)), "divisor"),
+    (dict(divisor=torch.ones((), dtype=torch.float32)), "divisor"),
+])
+def test_spike_hist_rejects_bad_out_rows_divisor(kw, match):
+    r = torch.zeros((5, 10), dtype=torch.float64)
+    with pytest.raises(ValueError, match=match):
+        spike_hist_batch(r, BINS, NBINS, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_quotient_plan_scalings_equal_the_divides(dtype):
+    """The kernel's quotient plan, followed as the kernel does: a size
+    whose quotient is an exact power-of-two scaling of its family's divided
+    quotient or of r - lo gives the IEEE divide's bits, at every bin edge,
+    its neighbours and random values."""
+    from repro_torch.kernels.spike_hist import (DIVIDE, FROM_BASE,
+                                                _plan_code, _quotient_plan)
+    sizes = BINS + (0.4, 0.3, 1.0, 0.125)
+    plan = _quotient_plan(sizes, dtype)
+    assert sorted(b for b, _, _ in plan) == list(range(len(sizes)))
+    assert [b for b, _, _ in _quotient_plan(BINS, dtype)] == [0, 1, 3, 2,
+                                                              4, 5]
+    assert _plan_code(_quotient_plan(BINS, dtype)) == 2580   # kPlanSix
+    assert sum(kind == DIVIDE for _, kind, _ in plan) == 2   # 0.05, 0.15
+    rng = np.random.default_rng(14)
+    v = np.concatenate([_edge_values(), rng.uniform(0.5, 3.0, 20_000),
+                        [0.5, 1e300, np.inf]])
+    shifted = torch.from_numpy(v).to(dtype) - torch.tensor(0.5, dtype=dtype)
+    base = shifted
+    for b, kind, scale in plan:
+        want = shifted / torch.tensor(sizes[b], dtype=dtype)
+        if kind == DIVIDE:
+            got = want
+            base = got
+        else:
+            got = (base if kind == FROM_BASE else shifted) \
+                * torch.tensor(scale, dtype=dtype)
+        assert torch.equal(got, want), (sizes[b], kind, scale)
+
+
+@pytest.mark.parametrize("rows,F,total,want", [
+    (10_000, 256, 72, (1, 1)),        # the engine's blocks: a warp a row
+    (300, 256, 72, (8, 1)),           # too few rows to fill the card
+    (1, 256, 72, (8, 1)),             # a builder commit: a CTA a row
+    (1, 4000, 15, (8, 1)),            # ops.spike_hist: a CTA, no split
+    (1, 100_000, 72, (8, 25)),        # one long trace over 25 CTAs
+    (5000, 300, 2000, (8, 1)),        # counters too many for eight sets
+])
+def test_spike_hist_layout(rows, F, total, want):
+    from repro_torch.kernels.spike_hist import _hist_layout
+    assert _hist_layout(rows, F, total) == want
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(3)
     r = torch.from_numpy(rng.uniform(0.0, 2.2, (5, 300)))
@@ -373,6 +505,48 @@ def test_plain_rmsnorm_matches_pallas_interpret(n, d, dtypes):
     # leading dims are flattened, as ops.rmsnorm does
     x3 = x.reshape(2, n // 2, d)
     assert torch.equal(rmsnorm(x3, torch.from_numpy(sc)).reshape(n, d), got)
+
+
+@pytest.mark.parametrize("n,d", [(4, 4096), (1, 4096), (7, 100), (3, 1),
+                                 (5, 257)])
+@pytest.mark.parametrize("pdl", [False, True])
+def test_rmsnorm_pdl_on_cpu_is_the_plain_version(n, d, pdl):
+    """ops.rmsnorm with or without pdl= (a launch option of the kernel) is
+    the plain version on CPU tensors, and agrees with the reference's
+    rmsnorm_ref; the decode rows (4, 4096) and (1, 4096) are served."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(n * d)
+    x = rng.standard_normal((n, d), np.float32) * 3
+    sc = rng.standard_normal(d).astype(np.float32)
+    got = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(sc), pdl=pdl)
+    assert torch.equal(got, rmsnorm_plain(torch.from_numpy(x),
+                                          torch.from_numpy(sc)))
+    want = ref_kernels.rmsnorm_ref(jnp.asarray(x), jnp.asarray(sc))
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(torch.float32))
+
+
+def test_norm_layer_launches_rmsnorm_with_pdl(monkeypatch):
+    """Norm's scale is a weight that no kernel of the step writes, so Norm
+    (and only the rmsnorm kind) asks for programmatic dependent launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import Norm
+    seen = []
+    real = ops.rmsnorm
+
+    def spy(x, scale, eps=1e-5, **kw):
+        seen.append(kw)
+        return real(x, scale, eps, **kw)
+    monkeypatch.setattr(ops, "rmsnorm", spy)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 3, 16), np.float32))
+    norm = Norm("n", 16, device="cpu")
+    norm.scale.copy_(torch.linspace(0.5, 1.5, 16))
+    y = norm(x)
+    assert seen == [{"pdl": True}]
+    assert torch.equal(y, rmsnorm_plain(x.reshape(-1, 16),
+                                        norm.scale).reshape(x.shape))
+    Norm("ln", 16, kind="layernorm", device="cpu")(x)
+    assert len(seen) == 1
 
 
 def test_rmsnorm_wrapper_rejects_bad_inputs():
