@@ -14,7 +14,14 @@ that phases 9 and 10 run right after phases 6 and 7:
      10,000 x 256 block with six bin sizes and values on and within 1e-12
      of every bin edge (counts exactly equal), in float32 at jobs = 1
      (exactly equal); ``ema_scan`` against its plain float32 version and
-     against the float64 prefix doubling (tolerances below); and times the
+     against the float64 prefix doubling (tolerances below); the engine's
+     blocked float64 EMA (``ema_scan_blocks``) against its plain twin,
+     exactly, at the edge lengths (1, 255, 256, 257, 512, 4 x 256 + 3 and
+     empty rows) for alpha 0.5, 1.0 and 0.999 with and without state, 300
+     ragged rows, and the main path's three forms (a group advance of
+     (10,000, 256), a snapshot of 42 pending views of 4-250 samples, a
+     builder's (1, 256) ingest), each timed beside the eager composition it
+     replaced and the bound; and times the
      kernels, their plain versions and the bound of each, a builder commit
      ((1, 256) float64 with ``divisor=`` and ``out=``, equal to the divide,
      bin, cast and add it replaced) and a diagnostic build of the
@@ -22,8 +29,8 @@ that phases 9 and 10 run right after phases 6 and 7:
      where its counts differ; never used by the port);
   4. card-vs-host phase — a small fleet (the micro zoo, 300 jobs) through the
      port on the card and on the CPU: reference-library traces, the
-     engine's histograms and EMA state must be bitwise equal, and so must
-     every decision;
+     engine's histograms and EMA state (filtered by the blocked EMA kernel
+     on the card) must be bitwise equal, and so must every decision;
   5. main path — ``benchmarks/bench_fleet_scale.py``'s full configuration
      through the port on the card: ``build_reference_library`` (28
      workloads x 9 frequencies), 10,000 jobs of ``fleet_job_mix(seed=11)``
@@ -32,7 +39,9 @@ that phases 9 and 10 run right after phases 6 and 7:
      ``count_classifier_calls``, and the bench's ground-truth budget check
      with every trace EMA-filtered on the card (``spikes.ema_filter``).  The
      decision counts must equal ``results/fleet_scale.json`` and every
-     kernel must have launched during this phase;
+     kernel must have launched during this phase, ``ema_scan`` in each of
+     the library build, the fleet drive and the ground truth (counted
+     apart);
   6. LM kernel phase — prints the flash library's ptxas report (registers,
      shared memory, spills) and the count of HGMMA (warpgroup MMA)
      instructions in its SASS (``cuobjdump -sass``), and fails if there is
@@ -88,8 +97,9 @@ The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
 exits non-zero and prints no result.  Options: ``--trace`` adds one more
 fleet drive and one more request of each served model under
-``torch.profiler`` (device busy share, top operators, ``spike_hist``'s
-device time in the fleet drive, device ops per builder commit);
+``torch.profiler`` (device busy share, top operators, ``spike_hist``'s and
+the blocked EMA's device time in the fleet drive, device ops per builder
+commit and per blocked-EMA call of each form, which must be 1);
 ``--fleet-kernels-only``, ``--lm-kernels-only`` and ``--ssm-kernel-only``
 build the kernels and run phase 3, 6 or 9 alone,
 without a result line (for work on a kernel); ``--out DIR`` writes
@@ -290,7 +300,8 @@ def kernel_phase(dev, flush) -> dict:
                                shape=list(rt.shape), n_spike=n_spike,
                                numel=rt.numel(), commit=commit,
                                divide_as_multiply=diag),
-            "ema_scan": dict(err=err_plain, err_f64=err_f64)}
+            "ema_scan": dict(err=err_plain, err_f64=err_f64),
+            "ema_blocks": ema_blocks_phase(dev, flush)}
 
 
 def builder_commit(dev, flush, power: np.ndarray, tdp: float, nb) -> dict:
@@ -418,6 +429,241 @@ def divide_diagnostic(rt, nb, flush, t_base: float) -> dict:
     return dict(ms=t_var, base_ms=[t_base, t_again], exact=exact)
 
 
+# the blocked float64 EMA's edge lengths: one sample, a block and one either
+# side, two blocks, four blocks and three, and empty rows among them
+EMA_EDGE_LENGTHS = (1, 255, 256, 0, 257, 512, 4 * 256 + 3, 0)
+
+
+def ema_forms(dev) -> dict:
+    """The profiling engine's three blocked-EMA call forms at the main path's
+    shapes, each as ``kernel`` (the call the port makes), ``plain`` (the
+    plain twin on the same inputs) and ``composed`` (the eager
+    ``ema_filter_block`` composition the call site ran before), with the
+    bytes and float64 operations of the work:
+
+      * ``group``: a ``_advance_group`` of 10,000 rows, one 256-sample block
+        each out of (10,000, 300) buffers, states read from and written to
+        the engine's slot column;
+      * ``snapshot``: a ``snapshot_batch`` of 42 slots' pending views, 4-250
+        samples each with state, read at their slots;
+      * ``ingest``: a ``ProfileBuilder`` chunk of 256 samples through
+        ``_BlockedEMA.ingest`` (the reference library's build)."""
+    from repro_torch.kernels import (ema_filter_block, ema_scan_blocks,
+                                     ema_scan_blocks_plain)
+    from repro_torch.pipeline.builder import _BlockedEMA
+    rng = np.random.default_rng(23)
+    cap = 16_384                       # the engine's capacity on the path
+    col = torch.from_numpy(rng.uniform(0.0, 400.0, cap)).to(dev)
+    hcol = torch.ones(cap, dtype=torch.bool, device=dev)
+    forms = {}
+
+    buf = torch.from_numpy(rng.uniform(0.0, 400.0, (10_000, 300))).to(dev)
+    idx = torch.from_numpy(rng.permutation(cap)[:10_000]).to(dev)
+    group = dict(n=256, index=idx, state_out=col, has_out=hcol)
+
+    def group_composed():              # the eager _advance_group
+        filt = torch.empty((10_000, 256), dtype=torch.float64, device=dev)
+        out = ema_filter_block(buf[:, :256], col[idx], 0.5, 0.5)
+        filt[:, :256] = out
+        col[idx] = out[:, -1]
+        hcol[idx] = True
+    forms["group"] = dict(
+        shape=[10_000, 256], rows=10_000, samples=10_000 * 256,
+        row_bytes=8 + 8 + 8 + 1,       # index, state read and written, flag
+        kernel=lambda: ema_scan_blocks(buf, col, True, 0.5, **group),
+        plain=lambda: ema_scan_blocks_plain(buf, col, True, 0.5, **group),
+        composed=group_composed)
+
+    lengths = rng.integers(4, 251, 42)
+    offs = np.concatenate([[0], np.cumsum(lengths)])
+    xs = torch.from_numpy(rng.uniform(0.0, 400.0, int(offs[-1]))).to(dev)
+    slots = rng.permutation(cap)[:42]
+    sidx = torch.from_numpy(slots).to(dev)
+    snap = dict(offsets=offs, index=sidx)
+    pieces = [(int(a), int(b), int(s)) for a, b, s in
+              zip(offs, offs[1:], slots)]
+
+    def snapshot_composed():           # the eager per-slot pending view
+        for a, b, s in pieces:
+            ema_filter_block(torch.cat([xs[a:b]]), col[s], 0.5, 0.5)
+    forms["snapshot"] = dict(
+        shape=[42, int(lengths.min()), int(lengths.max())], rows=42,
+        samples=int(offs[-1]), row_bytes=8 + 8 + 1 + 8,   # + its bounds
+        kernel=lambda: ema_scan_blocks(xs, col, hcol, 0.5, **snap),
+        plain=lambda: ema_scan_blocks_plain(xs, col, hcol, 0.5, **snap),
+        composed=snapshot_composed)
+
+    chunk = torch.from_numpy(rng.uniform(0.0, 400.0, 256)).to(dev)
+    ema = _BlockedEMA()
+    ema.ingest(chunk)                  # from here on every block has state
+    st0 = col[7]
+    forms["ingest"] = dict(
+        shape=[1, 256], rows=1, samples=256, row_bytes=8 + 8,
+        kernel=lambda: ema.ingest(chunk),
+        plain=lambda: ema_scan_blocks_plain(chunk, st0, True, 0.5),
+        composed=lambda: ema_filter_block(torch.cat([chunk]), st0, 0.5, 0.5))
+    for f in forms.values():
+        f["bytes"] = f["samples"] * 16 + f["rows"] * f["row_bytes"]
+        f["ops"] = f["samples"] * 17 + f["rows"] * 2   # 8 doubling steps
+        f["bound_ms"] = max(f["bytes"] / HBM_BYTES_PER_S,
+                            f["ops"] / PEAK_OPS["f64"]) * 1e3
+    return forms
+
+
+def ema_blocks_check(dev) -> int:
+    """``ema_scan_blocks`` against its plain twin on the card, exactly
+    (``torch.equal``, the written state and flag columns included): the
+    edge lengths at alpha 0.5, 1.0 and 0.999 with no state, every row's
+    state and every other row's; one row with and without a 0-dim state
+    (the builder's form); 300 ragged rows (bounds copied to the card); and
+    the main path's three forms.  Returns the number of cases."""
+    from repro_torch.kernels import ema_scan_blocks, ema_scan_blocks_plain
+    rng = np.random.default_rng(29)
+    n_cases = 0
+
+    def check(what, x, state, has, alpha, commit=False, **kw):
+        nonlocal n_cases
+        got = []
+        for fn in (ema_scan_blocks, ema_scan_blocks_plain):
+            c = h = None
+            if commit:
+                c = state.clone()
+                h = has.clone() if isinstance(has, torch.Tensor) else \
+                    torch.zeros(state.numel(), dtype=torch.bool, device=dev)
+            out = fn(x, state if c is None else c,
+                     h if isinstance(has, torch.Tensor) and commit else has,
+                     alpha, state_out=c, has_out=h, **kw)
+            got.append([out] + ([c, h] if commit else []))
+        torch.cuda.synchronize()
+        for a, b in zip(*got):
+            if not torch.equal(a, b):
+                raise AssertionError(f"ema_scan_blocks {what} differs from "
+                                     f"its plain version")
+        n_cases += 1
+
+    def ragged(lengths, cap):
+        offs = np.concatenate([[0], np.cumsum(lengths)])
+        x = torch.from_numpy(rng.uniform(0.0, 400.0, int(offs[-1]))).to(dev)
+        col = torch.from_numpy(rng.uniform(0.0, 400.0, cap)).to(dev)
+        idx = torch.from_numpy(rng.permutation(cap)[:len(lengths)]).to(dev)
+        return x, col, idx, offs
+
+    for alpha in (0.5, 1.0, 0.999):
+        x, col, idx, offs = ragged(EMA_EDGE_LENGTHS, 64)
+        check(f"edges alpha={alpha} no state", x, None, False, alpha,
+              offsets=offs)
+        for mode in ("all", "mixed"):
+            has = torch.ones(64, dtype=torch.bool, device=dev)
+            if mode == "mixed":
+                has[idx[::2]] = False
+            for commit in (False, True):
+                check(f"edges alpha={alpha} {mode} state", x, col, has,
+                      alpha, commit=commit, offsets=offs, index=idx)
+        for n in EMA_EDGE_LENGTHS:
+            row = x[:n]
+            check(f"one row n={n} alpha={alpha}", row, None, False, alpha)
+            check(f"one row n={n} alpha={alpha} with state", row, col[3],
+                  True, alpha)
+    x, col, idx, offs = ragged(rng.integers(0, 601, 300), 512)
+    check("300 ragged rows", x, col, True, 0.5, commit=True, offsets=offs,
+          index=idx)
+    buf = torch.from_numpy(rng.uniform(0.0, 400.0, (10_000, 300))).to(dev)
+    col = torch.from_numpy(rng.uniform(0.0, 400.0, 16_384)).to(dev)
+    idx = torch.from_numpy(rng.permutation(16_384)[:10_000]).to(dev)
+    for has in (False, True):
+        check(f"group (10000, 256) has={has}", buf, col, has, 0.5,
+              commit=True, n=256, index=idx)
+    x, col, idx, offs = ragged(rng.integers(4, 251, 42), 16_384)
+    has = torch.ones(16_384, dtype=torch.bool, device=dev)
+    check("snapshot 42 x 4-250", x, col, has, 0.5, offsets=offs, index=idx)
+    check("finalize 42 x 4-250", x, col, has, 0.5, commit=True,
+          offsets=offs, index=idx)
+    check("ingest (1, 256)", buf[0, :256], col[5], True, 0.5)
+    return n_cases
+
+
+def ema_blocks_phase(dev, flush) -> dict:
+    """The blocked float64 EMA: the exact checks, then each main-path form's
+    kernel, plain twin and old composition timed with the L2 flushed, beside
+    the bound."""
+    from repro_torch.kernels import build
+    n_cases = ema_blocks_check(dev)
+    log(f"kernel check: ema_scan_blocks f64 equals its plain version exactly "
+        f"(torch.equal) in {n_cases} cases: edge lengths, alpha 0.5 / 1.0 / "
+        f"0.999, with and without state, 300 ragged rows, the main path's "
+        f"shapes")
+    before = dict(build.LAUNCHES)
+    out = {"cases": n_cases}
+    for name, f in ema_forms(dev).items():
+        r = dict(shape=f["shape"], bytes=f["bytes"], ops=f["ops"],
+                 bound_ms=f["bound_ms"],
+                 ms=cuda_time_ms(f["kernel"], 50, flush),
+                 composed_ms=cuda_time_ms(f["composed"], 20, flush),
+                 plain_ms=cuda_time_ms(f["plain"], 10, flush))
+        out[name] = r
+        log(f"ema_scan_blocks {name} {r['shape']} f64: kernel {r['ms']:.4f} "
+            f"ms, old composition {r['composed_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bytes']} B)")
+    build.LAUNCHES.update(before)          # timing launches do not count
+    return out
+
+
+def device_ops(fn, n: int) -> dict:
+    """Device operations (kernels, memsets, copies) by name that ``n`` calls
+    of ``fn`` ran, counted by ``torch.profiler``: only those that started
+    inside a marked window around the calls, with one call before and one
+    after it (a profile has been seen to drop an event at its edge).  The
+    card idles 10 ms between each edge of the window and the nearest
+    launch, since the device's timestamps are placed on the host's clock
+    only approximately (a neighbour's kernel was once counted in)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+    cuda = torch.autograd.DeviceType.CUDA
+    gap = 0.01
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(gap)
+        with record_function("counted calls"):
+            time.sleep(gap)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(gap)
+        time.sleep(gap)
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e for e in events if e.name == "counted calls"
+               and e.device_type != cuda)
+    ops: dict[str, int] = {}
+    for e in events:
+        if e.device_type == cuda and e.name != "counted calls" and \
+                win.time_range.start <= e.time_range.start \
+                <= win.time_range.end:
+            ops[e.name] = ops.get(e.name, 0) + 1
+    return ops
+
+
+def ema_call_ops(dev, card: str, n: int = 20) -> dict:
+    """Device operations per blocked-EMA call of each main-path form over
+    ``n`` calls (``device_ops``): the kernel's (must be 1) and the old
+    composition's."""
+    out = {}
+    for name, f in ema_forms(dev).items():
+        per = {kind: sum(device_ops(f[kind], n).values()) / n
+               for kind in ("kernel", "composed")}
+        out[name] = per
+        log(f"trace [{card}]: device ops per EMA call, {name}: kernel "
+            f"{per['kernel']:g}, old composition {per['composed']:g}")
+        if per["kernel"] != 1:
+            raise AssertionError(f"a blocked-EMA call ({name}) ran "
+                                 f"{per['kernel']} device ops, not 1")
+    return out
+
+
 def time_ema(dev, flush, n: int) -> tuple[float, float, float]:
     """Kernel and plain times of ``ema_scan`` on one trace of ``n`` samples,
     and the kernel's max |error| against the plain version there."""
@@ -498,6 +744,7 @@ def decision_key(d):
 
 
 def card_vs_host_phase(dev) -> None:
+    from repro_torch.kernels import build
     from repro_torch.pipeline import ReferenceLibrary, stream_profile_workload
     from repro_torch.telemetry import TPUPowerModel, kernel_stream as ks
     streams = [ks.micro_gemm(), ks.micro_spmv_memory(),
@@ -505,6 +752,7 @@ def card_vs_host_phase(dev) -> None:
                ks.micro_stencil()]
     model = TPUPowerModel()
     runs = {}
+    build.reset_launches()
     for device in (dev, "cpu"):
         lib = ReferenceLibrary(
             (stream_profile_workload(s, model, (0.6, 0.8, 1.0),
@@ -522,11 +770,13 @@ def card_vs_host_phase(dev) -> None:
         if not torch.equal(lib_c.spike_matrix(c).cpu(), lib_h.spike_matrix(c)):
             raise AssertionError(f"library spike matrix {c} differs")
     ec, eh = card["fleet"].engine, host["fleet"].engine
-    for name in ("_hist_all", "_ema_state", "_energy", "_busy",
-                 "_next_index", "_n_committed", "_seen_busy"):
+    for name in ("_hist_all", "_ema_state", "_ema_has", "_energy", "_busy",
+                 "_next_index", "_n_pending", "_n_committed", "_seen_busy"):
         if not torch.equal(getattr(ec, name).cpu(), getattr(eh, name)):
             raise AssertionError(f"engine column {name} on the card differs "
                                  f"from the host's")
+    if build.LAUNCHES["ema_scan"] == 0:
+        raise AssertionError("the micro fleet on the card ran no EMA kernel")
     dc, dh = card["result"].decisions, host["result"].decisions
     if [decision_key(d) for d in dc.values()] != \
             [decision_key(d) for d in dh.values()]:
@@ -535,7 +785,8 @@ def card_vs_host_phase(dev) -> None:
             [p.job_id for p in host["final"].placed]:
         raise AssertionError("placements on the card differ from the host's")
     log(f"card vs host: micro fleet of 300 jobs, {len(dc)} decisions, "
-        f"library traces, engine histograms and EMA state bitwise equal")
+        f"library traces, engine histograms and EMA state bitwise equal "
+        f"(blocked EMA on the card: {build.LAUNCHES['ema_scan']} launches)")
 
 
 def ground_truth(run, dev) -> tuple[int, float, int]:
@@ -587,15 +838,21 @@ def main_path(dev, want: dict):
                                   device=dev)
     torch.cuda.synchronize()
     t_lib = time.perf_counter() - t0
+    ema_lib = build.LAUNCHES["ema_scan"]
     log(f"reference library: {len(lib)} profiles x 9 frequencies built on "
         f"the card in {t_lib:.3f} s")
     run = drive_fleet(lib, None, FLEET, 10_000, dev,
                       with_jobs=fleet_job_mix(10_000, seed=11))
+    ema_fleet = build.LAUNCHES["ema_scan"] - ema_lib
     t0 = time.perf_counter()
     violations, peak, ema_n = ground_truth(run, dev)
     torch.cuda.synchronize()
     t_truth = time.perf_counter() - t0
     launches = {k: build.LAUNCHES[k] for k in ("spike_hist", "ema_scan")}
+    # the blocked f64 EMA of the library's builders and of the fleet's
+    # engine; the ground truth's traces through the f32 entry
+    ema_split = {"library": ema_lib, "fleet": ema_fleet,
+                 "ground_truth": launches["ema_scan"] - ema_lib - ema_fleet}
     res, final = run["result"], run["final"]
     got = {"decisions": len(res.decisions),
            "early_decisions": res.early_decisions,
@@ -612,11 +869,13 @@ def main_path(dev, want: dict):
     if rel > 1e-9:
         raise AssertionError(f"planned_power_w {final.planned_power_w} vs "
                              f"{want['planned_power_w']} (rel {rel:.2e})")
-    for name, n in launches.items():
+    for name, n in {**launches, **{f"ema_scan ({k})": v
+                                   for k, v in ema_split.items()}}.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"main path")
     jobs_per_s = len(run["assigned"]) / run["elapsed"]
+    log(f"main path: ema_scan launches {json.dumps(ema_split)}")
     log(f"main path: {json.dumps(got)} planned_power_w="
         f"{final.planned_power_w!r} (json {want['planned_power_w']}); "
         f"peak sustained {peak!r} W (json {want['peak_sustained_w']})")
@@ -624,6 +883,7 @@ def main_path(dev, want: dict):
                 peak_sustained_w=peak, library_s=t_lib,
                 admit_s=run["admit_s"], run_s=run["run_s"],
                 jobs_per_s=jobs_per_s, truth_s=t_truth, launches=launches,
+                ema_launches=ema_split,
                 engine_slots=run["fleet"].engine.capacity, ema_n=ema_n,
                 row_loop_s=run["fleet"].engine.row_loop_s,
                 repack_s=run["fleet"].repack_s)
@@ -654,39 +914,41 @@ def trace_phase(lib, dev, card: str, out: str | None) -> dict:
     hist_n = sum(e.count for e in hist)
     log(f"trace [{card}]: spike_hist in admit+run: {hist_us / 1e3:.3f} ms of "
         f"device time over {hist_n} launches")
+    ema = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+           and "ema_blocks" in e.key]
+    ema_us = sum(e.self_device_time_total for e in ema)
+    ema_n = sum(e.count for e in ema)
+    log(f"trace [{card}]: ema_scan f64 blocks in admit+run: "
+        f"{ema_us / 1e3:.3f} ms of device time over {ema_n} launches")
     if out is not None:
         by_dev = ka.table(sort_by="self_device_time_total", row_limit=15)
         by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=15)
         with open(os.path.join(out, "trace_summary.txt"), "w") as f:
             f.write(f"{card}\nadmit+run {run['elapsed']:.3f} s traced, "
                     f"device busy {device_us / 1e6:.3f} s ({busy:.3%}); "
-                    f"spike_hist {hist_us:.1f} us over {hist_n} launches\n\n"
+                    f"spike_hist {hist_us:.1f} us over {hist_n} launches; "
+                    f"ema_scan f64 blocks {ema_us:.1f} us over {ema_n} "
+                    f"launches\n\n"
                     f"{by_dev}\n\n{by_cpu}\n")
-    return dict(spike_hist_device_us=hist_us, spike_hist_launches=hist_n)
+    return dict(spike_hist_device_us=hist_us, spike_hist_launches=hist_n,
+                ema_blocks_device_us=ema_us, ema_blocks_launches=ema_n)
 
 
 def builder_commit_ops(dev, card: str, n: int = 20) -> dict:
     """Device operations (kernels, memsets, copies) per
-    ``ProfileBuilder._commit`` of 256 samples, counted by ``torch.profiler``
-    over ``n`` commits of one builder on the card."""
-    from torch.profiler import ProfilerActivity, profile
+    ``ProfileBuilder._commit`` of 256 samples over ``n`` commits of one
+    builder on the card (``device_ops``)."""
+    import itertools
     from repro_torch.pipeline import ProfileBuilder
     from repro_torch.telemetry import TraceMeta
     meta = TraceMeta(name="commit", domain="t", sample_dt=1e-3,
                      n_samples=256 * (n + 1), exec_time=1.0, app_sm_util=0.5,
                      app_dram_util=0.5)
     builder = ProfileBuilder(meta, 197.0, device=dev)
-    arrs = [torch.from_numpy(np.random.default_rng(i).uniform(0, 400, 256))
-            .to(dev) for i in range(n + 1)]
-    builder._commit(arrs[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for arr in arrs[1:]:
-            builder._commit(arr)
-        torch.cuda.synchronize()
-    ops = {e.key: e.count for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
+    arrs = itertools.cycle(
+        [torch.from_numpy(np.random.default_rng(i).uniform(0, 400, 256))
+         .to(dev) for i in range(n + 1)])
+    ops = device_ops(lambda: builder._commit(next(arrs)), n)
     per = sum(ops.values()) / n
     log(f"trace [{card}]: device ops per builder commit {per:g} "
         f"({json.dumps(ops)} over {n} commits)")
@@ -1413,6 +1675,7 @@ def main() -> int:
     if args.fleet_kernels_only:
         kp = kernel_phase(dev, flush)
         kp["builder_commit_ops"] = builder_commit_ops(dev, card)
+        kp["ema_call_ops"] = ema_call_ops(dev, card)
         if args.out is not None:
             with open(os.path.join(args.out, "fleet_kernels.json"), "w") as f:
                 json.dump({"card": card, "fleet_kernels": kp}, f, indent=1)
@@ -1436,6 +1699,7 @@ def main() -> int:
     # the first profiler session of the process: a later one (after the
     # serving traces) recorded no device activity for these small launches
     commit_ops = builder_commit_ops(dev, card) if args.trace else None
+    ema_ops = ema_call_ops(dev, card) if args.trace else None
     lp = lm_kernel_phase(dev, flush, card)
     ssp = ssm_kernel_phase(dev, flush, card)
     card_vs_host_phase(dev)
@@ -1468,6 +1732,7 @@ def main() -> int:
     t_ema, t_ema_plain, err_ema = time_ema(dev, flush, ema_n)
     ema_bound = max(ema_n * 8 / HBM_BYTES_PER_S,
                     ema_n * 3 / PEAK_OPS["f32"]) * 1e3
+    eb = kp["ema_blocks"]             # the engine's group advance leads
     kernels = [
         {"name": "spike_hist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spike_hist.cu",
@@ -1479,9 +1744,17 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ema_scan.cu",
          "replaces": "src/repro/kernels/ema_scan.py:49",
          "launches": mp["launches"]["ema_scan"],
-         "max_abs_err": max(kp["ema_scan"]["err"], err_ema), "ms": t_ema,
-         "plain_ms": t_ema_plain, "bound_ms": ema_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "max_abs_err": max(kp["ema_scan"]["err"], err_ema),
+         "ms": eb["group"]["ms"], "plain_ms": eb["group"]["plain_ms"],
+         "bound_ms": eb["group"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": eb["group"]["shape"],
+         "launches_by_stage": mp["ema_launches"],
+         "shapes": [dict(form=k, **{f: eb[k][f] for f in
+                                    ("shape", "ms", "composed_ms", "plain_ms",
+                                     "bound_ms")})
+                    for k in ("group", "snapshot", "ingest")],
+         "f32": {"n": ema_n, "ms": t_ema, "plain_ms": t_ema_plain,
+                 "bound_ms": ema_bound}},
     ]
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:68"),
@@ -1513,8 +1786,13 @@ def main() -> int:
         f"({hist_bytes} B)")
     log(f"ema_scan f32 n={ema_n} [{card}]: kernel {t_ema:.4f} ms, plain "
         f"{t_ema_plain:.4f} ms, bound {ema_bound:.6f} ms")
+    for k in ("group", "snapshot", "ingest"):
+        log(f"ema_scan f64 blocks, {k} {eb[k]['shape']} [{card}]: kernel "
+            f"{eb[k]['ms']:.4f} ms, old composition {eb[k]['composed_ms']:.4f}"
+            f" ms, bound {eb[k]['bound_ms']:.6f} ms")
     fleet_trace = dict(trace_phase(lib, dev, card, args.out),
-                       builder_commit=commit_ops) if args.trace else None
+                       builder_commit=commit_ops,
+                       ema_call_ops=ema_ops) if args.trace else None
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,

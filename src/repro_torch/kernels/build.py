@@ -44,6 +44,8 @@ _SIGNATURES = {
     },
     "ema_scan": {
         "ema_scan_f32": (_P, _P, _I64, _I64, _F, _F, _P),
+        "ema_blocks_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I, _P,
+                           _P, _P, _D, _D, _P),
     },
     "flash_attention": {
         f"flash_attention_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

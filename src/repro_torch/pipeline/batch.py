@@ -46,9 +46,9 @@ import torch
 
 from repro_torch.core import spikes
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.ema_scan import EMA_BLOCK, ema_scan_blocks
 from repro_torch.kernels.spike_hist import spike_hist_batch
-from repro_torch.pipeline.builder import (DEFAULT_BIN_SIZES, EMA_BLOCK,
-                                          PartialProfile, _ema_filter_block,
+from repro_torch.pipeline.builder import (DEFAULT_BIN_SIZES, PartialProfile,
                                           _fold_trim, _validate_readings)
 from repro_torch.telemetry.simulator import TelemetryChunk, TraceMeta
 
@@ -141,7 +141,6 @@ class BatchProfileEngine:
             raise ValueError(f"bin sizes must be positive: {self.bin_sizes}")
         self.device = resolve_device(device)
         self.alpha = float(alpha)
-        self.w = 1.0 - self.alpha
         self.block = int(ema_block)
         self._n_bins = tuple(spikes.num_bins(c) for c in self.bin_sizes)
         self._offsets = tuple(int(o) for o in np.cumsum((0,) + self._n_bins))
@@ -400,16 +399,12 @@ class BatchProfileEngine:
             busy_buf = torch.cat([prev_b, busy], dim=1)
         else:
             buf, busy_buf = p_raw, busy
+        # every block of every row in one launch, which also writes each
+        # row's last filtered value and has-state flag into its slot
         take = nblocks * self.block
-        filt = torch.empty((len(slots), take), dtype=_F64, device=self.device)
-        state = self._ema_state[idx] if has_state else None
-        for b in range(nblocks):
-            blk = buf[:, b * self.block:(b + 1) * self.block]
-            out = _ema_filter_block(blk, state, self.alpha, self.w)
-            state = out[:, -1]
-            filt[:, b * self.block:(b + 1) * self.block] = out
-        self._ema_state[idx] = state
-        self._ema_has[idx] = True
+        filt = ema_scan_blocks(buf, self._ema_state, has_state, self.alpha,
+                               n=take, index=idx, state_out=self._ema_state,
+                               has_out=self._ema_has, block=self.block)
         rest_p = buf[:, take:]
         rest_b = busy_buf[:, take:]
         keep = rest_p.shape[1] > 0
@@ -571,30 +566,41 @@ class BatchProfileEngine:
         """Host copy of the per-slot fields that profile emission needs."""
         idx = self._idx(slots)
         cols = torch.stack([self._n_pending[idx].to(_F64),
-                            self._ema_has[idx].to(_F64),
                             self._seen_busy[idx].to(_F64),
                             self._next_index[idx].to(_F64),
                             self._final[idx].to(_F64),
                             self._tdp[idx]]).cpu().numpy()
         return {"n_pending": cols[0].astype(np.int64).tolist(),
-                "ema_has": cols[1].astype(bool).tolist(),
-                "seen_busy": cols[2].astype(bool).tolist(),
-                "next_index": cols[3].astype(np.int64).tolist(),
-                "final": cols[4].astype(bool).tolist(),
-                "tdp": cols[5].tolist()}
+                "seen_busy": cols[1].astype(bool).tolist(),
+                "next_index": cols[2].astype(np.int64).tolist(),
+                "final": cols[3].astype(bool).tolist(),
+                "tdp": cols[4].tolist()}
 
-    def _pending_view(self, slot: int, n_pending: int,
-                      ema_has: bool) -> torch.Tensor:
-        if not n_pending:
-            return self._empty
-        state = self._ema_state[slot] if ema_has else None
-        return _ema_filter_block(torch.cat(self._pending[slot]), state,
-                                 self.alpha, self.w)
+    def _pending_views(self, slots: list[int], idx: torch.Tensor,
+                       lengths: list[int],
+                       commit: bool = False) -> list[torch.Tensor]:
+        """Each slot's pending partial block filtered from its carried
+        state (``lengths[j]`` samples of ``slots[j]``, 0 for none), every
+        slot in one launch over the concatenated pending samples.  With
+        ``commit`` each slot with samples also takes its last filtered value
+        as its state."""
+        offs = np.concatenate([[0], np.cumsum(lengths)]).tolist()
+        if not offs[-1]:
+            return [self._empty] * len(slots)
+        pieces = [p for s, n in zip(slots, lengths) if n
+                  for p in self._pending[s]]
+        buf = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        out = (self._ema_state, self._ema_has) if commit else (None, None)
+        filt = ema_scan_blocks(buf, self._ema_state, self._ema_has,
+                               self.alpha, offsets=offs, index=idx,
+                               state_out=out[0], has_out=out[1],
+                               block=self.block)
+        return [filt[a:b] for a, b in zip(offs, offs[1:])]
 
-    def _extras(self, slot: int, n_pending: int, ema_has: bool,
+    def _extras(self, slot: int, filt: torch.Tensor,
                 seen_busy: bool) -> list[torch.Tensor]:
-        """Pieces the pending EMA tail would commit now (snapshot view)."""
-        filt = self._pending_view(slot, n_pending, ema_has)
+        """Pieces the pending EMA tail (``filt``, its pending view) would
+        commit now (snapshot view)."""
         if not len(filt):
             return []
         busy = torch.cat(self._busyq[slot])[:len(filt)] \
@@ -651,13 +657,13 @@ class BatchProfileEngine:
             return []
         idx = self._live_idx(slots)
         st = self._row_state(slots)
+        views = self._pending_views(slots, idx, st["n_pending"])
         traces: list[torch.Tensor] = []
         extra_rows: list[int] = []
         extra_pieces: list[torch.Tensor] = []
         for j, s in enumerate(slots):
             pieces = self._committed[s]
-            extras = self._extras(s, st["n_pending"][j], st["ema_has"][j],
-                                  st["seen_busy"][j])
+            extras = self._extras(s, views[j], st["seen_busy"][j])
             if extras:
                 pieces = pieces + extras
                 extra_rows.extend([j] * len(extras))
@@ -704,15 +710,19 @@ class BatchProfileEngine:
             return [self.finalize_batch([s])[0] for s in slots]
         idx = self._live_idx(slots)
         st = self._row_state(slots)
+        # every slot's flush in one launch, which also sets the flushed
+        # slots' filter state
+        views = self._pending_views(
+            slots, idx, [0 if f else n for f, n in zip(st["final"],
+                                                       st["n_pending"])],
+            commit=True)
         flush_rows: list[int] = []
         flush_pieces: list[torch.Tensor] = []
         for j, s in enumerate(slots):
             if st["final"][j]:
                 continue
-            filt = self._pending_view(s, st["n_pending"][j], st["ema_has"][j])
+            filt = views[j]
             if len(filt):
-                self._ema_state[s] = filt[-1]
-                self._ema_has[s] = True
                 busy = torch.cat(self._busyq[s])[:len(filt)]
                 commits, seen, tail = _fold_trim(
                     filt, busy, st["seen_busy"][j], list(self._tail[s]))

@@ -35,11 +35,11 @@ import torch
 from repro_torch.core import spikes
 from repro_torch.core.classify import FreqPoint, WorkloadProfile
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels.ema_scan import EMA_BLOCK, ema_scan_blocks
 from repro_torch.kernels.spike_hist import spike_hist_batch
 from repro_torch.telemetry.simulator import TelemetryChunk, TraceMeta
 
 DEFAULT_BIN_SIZES = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
-EMA_BLOCK = 256
 
 
 @dataclass
@@ -56,28 +56,6 @@ class PartialProfile(WorkloadProfile):
         if c not in cache:
             cache[c] = super().spike_vec(c)
         return cache[c]
-
-
-def _ema_filter_block(p: torch.Tensor, state, alpha: float,
-                      w: float) -> torch.Tensor:
-    """One fixed-position EMA block via prefix doubling along the last axis
-    (one block or a (k, block) stack).  ``state`` is the carried filter
-    value (a tensor broadcasting against ``p[..., 0]``, or ``None`` at trace
-    start).  Shared by ``_BlockedEMA`` and ``BatchProfileEngine`` so both
-    evaluate the exact same float expressions; the doubling step is a
-    multiply then an add, never a fused multiply-add."""
-    out = p * alpha
-    if state is None:
-        out[..., 0] = p[..., 0]            # batch seeding: out_0 = p_0
-    else:
-        out[..., 0] += state * w
-    shift, decay = 1, w
-    n = out.shape[-1]
-    while shift < n and decay != 0.0:
-        out[..., shift:].add_(out[..., :-shift] * decay)
-        shift *= 2
-        decay *= decay
-    return out
 
 
 def _validate_readings(meta: TraceMeta, prev_e: float, prev_b: float,
@@ -111,20 +89,27 @@ def _validate_readings(meta: TraceMeta, prev_e: float, prev_b: float,
 class _BlockedEMA:
     """EMA filter whose output does not depend on ingest chunk boundaries:
     prefix doubling over blocks at fixed absolute positions (multiples of
-    ``block`` from trace start), each seeded with the carried filter state."""
+    ``block`` from trace start), each seeded with the carried filter state
+    (``kernels.ema_scan_blocks``: one launch for every block of a call)."""
 
     def __init__(self, alpha: float = 0.5, block: int = EMA_BLOCK):
         if not 0.0 < alpha <= 1.0:
             raise ValueError(f"alpha must be in (0, 1], got {alpha}")
         self.alpha = alpha
-        self.w = 1.0 - alpha
         self.block = int(block)
         self._pending: list[torch.Tensor] = []
         self._n_pending = 0
         self._state: torch.Tensor | None = None   # None until the 1st block
 
-    def _filter_block(self, p: torch.Tensor, state) -> torch.Tensor:
-        return _ema_filter_block(p, state, self.alpha, self.w)
+    def _buffer(self) -> torch.Tensor:
+        return self._pending[0] if len(self._pending) == 1 \
+            else torch.cat(self._pending)
+
+    def _filter(self, buf: torch.Tensor, n: int | None = None):
+        """The first ``n`` (default: all) samples of ``buf`` filtered from
+        the carried state."""
+        return ema_scan_blocks(buf, self._state, self._state is not None,
+                               self.alpha, n=n, block=self.block)
 
     def ingest(self, p: torch.Tensor) -> torch.Tensor:
         """Absorb raw samples; return the newly *committed* filtered samples
@@ -134,25 +119,21 @@ class _BlockedEMA:
             self._n_pending += len(p)
         if self._n_pending < self.block:
             return p[:0]
-        buf = torch.cat(self._pending)
-        done: list[torch.Tensor] = []
-        i = 0
-        while len(buf) - i >= self.block:
-            filt = self._filter_block(buf[i:i + self.block], self._state)
-            self._state = filt[-1]
-            done.append(filt)
-            i += self.block
-        rest = buf[i:]
+        take = self._n_pending // self.block * self.block
+        buf = self._buffer()
+        filt = self._filter(buf, take)
+        self._state = filt[-1]
+        rest = buf[take:]
         self._pending = [rest] if len(rest) else []
         self._n_pending = len(rest)
-        return torch.cat(done)
+        return filt
 
     def pending_view(self, like: torch.Tensor) -> torch.Tensor:
         """Filtered values for the pending partial block, without committing
         filter state (safe to call repeatedly)."""
         if not self._n_pending:
             return like[:0]
-        return self._filter_block(torch.cat(self._pending), self._state)
+        return self._filter(self._buffer())
 
     def flush(self, like: torch.Tensor) -> torch.Tensor:
         """Commit the pending partial block (end of stream)."""

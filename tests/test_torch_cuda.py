@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core import spikes
-from repro_torch.kernels import (build, ema_scan_plain, ema_scan_rows,
+from repro_torch.kernels import (build, ema_scan_blocks,
+                                 ema_scan_blocks_plain, ema_scan_plain,
+                                 ema_scan_rows,
                                  flash_attention, flash_attention_plain,
                                  rmsnorm, rmsnorm_plain, spike_hist,
                                  spike_hist_batch, spike_hist_batch_plain,
@@ -144,6 +146,90 @@ def test_wrappers_reject_non_contiguous(cuda):
         spike_hist_batch(r, BINS, NBINS)
     with pytest.raises(ValueError, match="contiguous"):
         ema_scan_rows(torch.zeros((4, 8), device=cuda).t())
+
+
+def _blocks_case(seed, lengths, has_bits, cuda):
+    """Ragged float64 rows with their states on the card and the host."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0.0, 400.0, int(sum(lengths))))
+    state = torch.from_numpy(rng.uniform(0.0, 400.0, len(lengths)))
+    has = torch.tensor(has_bits, dtype=torch.bool)
+    offs = np.concatenate([[0], np.cumsum(lengths)])
+    return {d: (x.to(d), state.to(d), has.to(d)) for d in (cuda, "cpu")}, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.5, 1.0, 0.999])
+@pytest.mark.parametrize("state_mode", ["none", "all", "mixed"])
+def test_ema_blocks_equal_plain_ragged(cuda, alpha, state_mode):
+    # the edge lengths, rows of length 0 among them, one launch
+    lengths = [1, 255, 256, 0, 257, 512, 4 * 256 + 3, 0]
+    has_bits = [state_mode == "all" or (state_mode == "mixed" and j % 2)
+                for j in range(len(lengths))]
+    t, offs = _blocks_case(len(lengths), lengths, has_bits, cuda)
+    before = build.LAUNCHES["ema_scan"]
+    got = ema_scan_blocks(*t[cuda], alpha, offsets=offs)
+    assert build.LAUNCHES["ema_scan"] == before + 1
+    assert torch.equal(got.cpu(), ema_scan_blocks_plain(*t["cpu"], alpha,
+                                                        offsets=offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 512, 4 * 256 + 3])
+def test_ema_blocks_one_row_equal_plain(cuda, n):
+    # the builder's ingest and pending view: one row, a 0-dim state
+    x = torch.from_numpy(np.random.default_rng(n).uniform(0, 400, n))
+    s = torch.tensor(211.5, dtype=torch.float64)
+    for state, has in ((None, False), (s, True)):
+        got = ema_scan_blocks(x.to(cuda), None if state is None
+                              else state.to(cuda), has)
+        assert torch.equal(got.cpu(), ema_scan_blocks_plain(x, state, has))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.5, 0.999])
+def test_ema_blocks_stop_at_zero_decay_on_card(cuda, alpha):
+    # an infinite sample: a step past the reference's last (a decay of 0.0)
+    # would turn what follows it into NaN
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 400, 768))
+    x[261] = torch.inf
+    got = ema_scan_blocks(x.to(cuda), alpha=alpha).cpu()
+    want = ema_scan_blocks_plain(x, alpha=alpha)
+    assert not want.isnan().any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has", [False, True])
+def test_ema_blocks_group_advance_equal_plain(cuda, has):
+    # the engine's (10,000, 256) group advance out of (rows, 300) buffers,
+    # states gathered from and written to a column through slot indices
+    rng = np.random.default_rng(11)
+    buf = torch.from_numpy(rng.uniform(0, 400, (10_000, 300)))
+    col = torch.from_numpy(rng.uniform(0, 400, 16_384))
+    idx = torch.from_numpy(rng.permutation(16_384)[:10_000])
+    outs = {}
+    for d in (cuda, "cpu"):
+        state = col.to(d, copy=True)
+        flag = torch.zeros(16_384, dtype=torch.bool, device=d)
+        got = ema_scan_blocks(buf.to(d), state, has, 0.5, n=256,
+                              index=idx.to(d), state_out=state, has_out=flag)
+        outs[d] = (got.cpu(), state.cpu(), flag.cpu())
+    for a, b in zip(outs[cuda], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ema_blocks_snapshot_rows_equal_plain(cuda):
+    # a snapshot: ~42 pending rows of 4-250 samples with state, at slots
+    rng = np.random.default_rng(12)
+    lengths = rng.integers(4, 251, 42)
+    t, offs = _blocks_case(12, lengths, [True] * 42, cuda)
+    got = ema_scan_blocks(*t[cuda], 0.5, offsets=offs)
+    assert torch.equal(got.cpu(), ema_scan_blocks_plain(*t["cpu"], 0.5,
+                                                        offsets=offs))
+    with pytest.raises(ValueError, match="blocks of 256"):
+        ema_scan_blocks(*t[cuda], 0.5, offsets=offs, block=128)
 
 
 def _counters(seed, n):

@@ -3,7 +3,7 @@
     python3 tools/kernel_variants.py tools/kernel_variants.json --out DIR
 
 The JSON file maps a kernel source (``rmsnorm``, ``spike_hist``,
-``ssm_scan``) to named lists of text substitutions of
+``ssm_scan``, ``ema_scan``) to named lists of text substitutions of
 ``src/repro_torch/kernels/csrc/<source>.cu``
 (``{"rmsnorm": {"name": [[old, new], ...]}}``), or to
 ``{"subs": [...], "set": {"_NAME": value}}`` to also set constants of the
@@ -19,7 +19,9 @@ what a diagnostic variant is for) and timed twice, in turns, with
 the serving path (rmsnorm: glm4-9b's prefill and decode rows; ssm_scan:
 falcon-mamba-7b's prefill (4, 1024) and (1, 2048) and a decode step) and
 of the fleet path (spike_hist: the engine's blocks, ``ops.spike_hist``'s
-trace and a builder commit).  ``F.rms_norm``, a ``zero_`` of a (4, 4096)
+trace and a builder commit; ema_scan: the blocked float64 EMA's group
+advance, snapshot and builder ingest, ``chip_smoke.ema_forms``, and rows
+of 16 blocks).  ``--sources`` runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of a (4, 4096)
 tensor (the timing's floor) and a ``copy_`` of (4000, 4096) bf16 (the
 bytes of the prefill norm) are timed once, and the SM clock is read while
 each source's base runs its first case.  Results go to
@@ -149,6 +151,27 @@ def ssm_scan_cases(dev):
     return cases
 
 
+def ema_scan_cases(dev):
+    """(label, run, check): the blocked float64 EMA's three main-path forms
+    (``chip_smoke.ema_forms``) and (300, 4096) rows of 16 blocks each (what
+    the next block's prefetch is for); the check is phase 3's exact
+    comparison with the plain twin (``chip_smoke.ema_blocks_check``)."""
+    from repro_torch.kernels import ema_scan_blocks
+    rng = np.random.default_rng(31)
+    big = torch.from_numpy(rng.uniform(0.0, 400.0, (300, 4096))).to(dev)
+
+    def ok():
+        try:
+            return cs.ema_blocks_check(dev) > 0
+        except AssertionError:
+            return False
+    forms = cs.ema_forms(dev)
+    cases = [(f"{name} {f['shape']}", f["kernel"], ok if i == 0 else
+              (lambda: True)) for i, (name, f) in enumerate(forms.items())]
+    cases.append(("(300, 4096)", lambda: ema_scan_blocks(big), lambda: True))
+    return cases
+
+
 def clock_under_load(run) -> str:
     """The SM clock, its maximum and the power draw while ``run`` is
     queued back to back for about half a second."""
@@ -171,12 +194,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", help="JSON file of named substitutions")
     ap.add_argument("--out", default=None, help="directory for the results")
+    ap.add_argument("--sources", nargs="*", default=None,
+                    help="run only these sources of the file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device available", file=sys.stderr)
         return 1
     with open(args.variants) as f:
         spec = json.load(f)
+    if args.sources is not None:
+        spec = {k: v for k, v in spec.items() if k in args.sources}
     card = cs.card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
@@ -199,7 +226,7 @@ def main() -> int:
         result[f"rms_norm ({n}, {D})"] = t
         print(f"F.rms_norm ({n}, {D}) bf16 {t:.4f} ms", flush=True)
     makers = {"rmsnorm": rmsnorm_cases, "spike_hist": spike_hist_cases,
-              "ssm_scan": ssm_scan_cases}
+              "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases}
     for source, variants in spec.items():
         shipped = build.library(source)
         module = importlib.import_module(f"repro_torch.kernels.{source}")
