@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 What it does (every phase fails the run if it fails), in this order save
-that phases 9 and 10 run right after phases 6 and 7:
+that phases 9 and 10 run right after phases 6 and 7, and phase 12 right
+after phase 5:
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -91,7 +92,26 @@ that phases 9 and 10 run right after phases 6 and 7:
      bfloat16 parameters, the port's seeded init; the glm4-9b engine is
      released first) answers 4 x 1024 and 1 x 2048 prompts, 32 new tokens
      each: tokens in range, logits finite, exactly 64 scan and 65 rmsnorm
-     launches per forward (33 forwards a request) and no flash launch.
+     launches per forward (33 forwards a request) and no flash launch;
+ 12. session path — the outcome targets through
+     ``repro_torch.api.MinosSession`` on the card, each ported from its
+     bench (``benchmarks/`` is not imported) and held to its json:
+     ``bench_fleet.py --smoke`` (``results/fleet.json``),
+     ``bench_chaos.py --smoke``'s seeded fail / degrade / restore / fail
+     schedule (``results/chaos.json``; the same drive on the host must
+     leave bitwise the same engine columns), ``bench_recovery.py --smoke``
+     (a child process drives the durable session on the card and SIGKILLs
+     itself; this process resumes the store on the card:
+     ``results/recovery.json``, 0 classifier calls) and
+     ``bench_online_cap.py``'s 28 workloads on phase 5's library
+     (``results/online_cap.json``); then phase 5's 10,000 jobs through
+     ``submit_many`` + ``run()`` without and with a journal
+     (``SCALE_SNAPSHOT_EVERY``), each with ``fleet_scale.json``'s counts
+     (``repacks`` follows the session's per-decision cadence and is printed
+     only), and a resume of that store with 0 classifier calls and every
+     decision and plan equal to the live session's.  ``spike_hist`` and
+     ``ema_scan`` must launch in every part (counted apart, the drains
+     after a re-profile and after the resume included).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -102,7 +122,8 @@ the blocked EMA's device time in the fleet drive, device ops per builder
 commit and per blocked-EMA call of each form, which must be 1);
 ``--fleet-kernels-only``, ``--lm-kernels-only`` and ``--ssm-kernel-only``
 build the kernels and run phase 3, 6 or 9 alone,
-without a result line (for work on a kernel); ``--out DIR`` writes
+without a result line (for work on a kernel); ``--session-only`` builds
+them and the 28-workload library and runs phase 12 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -116,6 +137,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +145,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from repro_torch.device import resolve_device  # noqa: E402
 
 # H100 SXM data-sheet peaks (HBM3 bandwidth; fp64 and fp32 outside the
 # tensor cores; bf16 dense on the tensor cores); exp on the special-function
@@ -712,20 +736,18 @@ def drive_fleet(lib, streams, counts, n_jobs, device, with_jobs=None):
     fleet = FleetCapController(lib, budget_w=budget, provision_quantile="p99",
                                repack="tick", device=device, **GATES)
     mux = FleetTelemetryMux()
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
-        else (lambda: None)
     t0 = time.perf_counter()
     job_ids = fleet.admit_many(
         dict(device=dev, meta=telemetry[(s.name, dev.model)][0], chips=c,
              job_id=f"j{i:05d}:{s.name}")
         for i, (s, c, dev) in enumerate(assigned))
-    sync()
+    sync(device)
     t_admit = time.perf_counter() - t0
     for (s, _, dev), job_id in zip(assigned, job_ids):
         meta, chunks = telemetry[(s.name, dev.model)]
         mux.add_job(job_id, meta, chunks, device_id=dev.device_id)
     result = fleet.run(mux)
-    sync()
+    sync(device)
     elapsed = time.perf_counter() - t0
     calls = count_classifier_calls(fleet.clf)
     fleet.set_budget(budget * 0.9)
@@ -769,12 +791,8 @@ def card_vs_host_phase(dev) -> None:
     for c in lib_c.bin_sizes:
         if not torch.equal(lib_c.spike_matrix(c).cpu(), lib_h.spike_matrix(c)):
             raise AssertionError(f"library spike matrix {c} differs")
-    ec, eh = card["fleet"].engine, host["fleet"].engine
-    for name in ("_hist_all", "_ema_state", "_ema_has", "_energy", "_busy",
-                 "_next_index", "_n_pending", "_n_committed", "_seen_busy"):
-        if not torch.equal(getattr(ec, name).cpu(), getattr(eh, name)):
-            raise AssertionError(f"engine column {name} on the card differs "
-                                 f"from the host's")
+    engine_columns_equal(card["fleet"].engine, host["fleet"].engine,
+                         "the micro fleet")
     if build.LAUNCHES["ema_scan"] == 0:
         raise AssertionError("the micro fleet on the card ran no EMA kernel")
     dc, dh = card["result"].decisions, host["result"].decisions
@@ -1626,6 +1644,637 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
                     f"\n")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the session path (MinosSession, its store, the fleet's failures)
+# ---------------------------------------------------------------------------
+SESSION_BUDGET_FRACTION = 0.75     # the benches' oversubscription target
+CHAOS_CHUNK_SAMPLES = 100          # bench_chaos / bench_recovery chunks
+RECOVERY_FAIL_FRACTION = 0.40      # bench_recovery: fail at 40 % of chunks
+RECOVERY_CRASH_FRACTION = 0.55     # ... and SIGKILL at 55 %
+ONLINE_FRACTIONS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+# journal records between snapshots in the 10,000-job stored run: its
+# ~20,000 records (admits and decisions) give two cadence snapshots, where
+# the store's default of 25 would write ~800 snapshots of up to 10,000 jobs
+SCALE_SNAPSHOT_EVERY = 10_000
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def take_launches() -> dict:
+    """The profiling kernels' launch counts since the last call, which
+    sets them to 0 again (every part of the phase starts from 0)."""
+    from repro_torch.kernels import build
+    got = {k: build.LAUNCHES[k] for k in ("spike_hist", "ema_scan")}
+    build.reset_launches()
+    return got
+
+
+def micro_streams():
+    from repro_torch.telemetry import kernel_stream as ks
+    return [ks.micro_gemm(), ks.micro_spmv_memory(), ks.micro_spmv_compute(),
+            ks.micro_idle_burst(), ks.micro_stencil()]
+
+
+def micro_library(device, target_duration: float):
+    """The benches' smoke library: the five micro streams at 0.6/0.8/1.0."""
+    from repro_torch.api import (ReferenceLibrary, TPUPowerModel,
+                                 stream_profile_workload)
+    model = TPUPowerModel()
+    return ReferenceLibrary(
+        (stream_profile_workload(s, model, (0.6, 0.8, 1.0), model.spec.tdp_w,
+                                 seed=i, target_duration=target_duration,
+                                 device=device)
+         for i, s in enumerate(micro_streams())),
+        built_on=model.spec.name, device=device)
+
+
+def smoke_assignment(counts: dict, jobs):
+    """The benches' round-robin placement on a seeded variability-on
+    inventory and their 75 %-of-nameplate budget."""
+    from repro_torch.api import DeviceInventory, VariabilityModel
+    inventory = DeviceInventory.generate(counts, VariabilityModel(), seed=7)
+    assigned = [(s, chips, inventory[i % len(inventory)])
+                for i, (s, chips) in enumerate(jobs)]
+    nameplate = sum(chips * dev.nameplate_w for _, chips, dev in assigned)
+    return inventory, assigned, SESSION_BUDGET_FRACTION * nameplate
+
+
+def sustained_violations(report, assigned, inventory, budget, seed0: int,
+                         target_duration: float, job_id) -> tuple[int, float]:
+    """The benches' ground truth: every placed job re-simulated at its cap
+    on its final device, the time-aligned aggregate's 50-sample rolling
+    mean held to the budget.  Returns (violations, peak sustained W)."""
+    from repro_torch.api import simulate
+    placed = {p.job_id: p for p in report.schedule.placed}
+    traces = []
+    for i, (stream, _, _) in enumerate(assigned):
+        plan = placed.pop(job_id(i, stream), None)
+        if plan is None:
+            continue
+        dev = inventory.get(plan.device_id)
+        tr = simulate(stream, plan.cap, dev.power_model(), seed=seed0 + i,
+                      target_duration=target_duration)
+        traces.append(plan.chips * tr.power_filtered)
+    if placed:
+        raise AssertionError(f"unmatched placed plans: {sorted(placed)}")
+    n = max(len(t) for t in traces)
+    agg = np.sum([np.resize(t, n) for t in traces], axis=0)
+    sustained = np.convolve(agg, np.ones(SUSTAIN_WINDOW) / SUSTAIN_WINDOW,
+                            mode="valid")
+    return int(np.sum(sustained > budget)), float(sustained.max())
+
+
+def short_id(i: int, stream) -> str:
+    return f"j{i:02d}:{stream.name}"
+
+
+def session_fleet_smoke(device) -> dict:
+    """``bench_fleet.py --smoke`` through the port's ``MinosSession``."""
+    from repro_torch.api import MinosSession
+    streams = micro_streams()
+    lib = micro_library(device, 1.0)
+    inventory, assigned, budget = smoke_assignment(
+        {"tpu-v5e": 2, "tpu-v5p": 1},
+        [(s, 4 * (i % 3 + 1)) for i, s in enumerate(streams)])
+    take_launches()
+    session = MinosSession(lib, inventory=inventory, budget_w=budget,
+                           objective="powercentric", quantile="p99",
+                           min_confidence=0.2, device=device)
+    for i, (stream, chips, dev) in enumerate(assigned):
+        session.submit(stream, device=dev, chips=chips,
+                       job_id=short_id(i, stream), seed=500 + i,
+                       target_duration=1.0)
+    report = session.run()
+    sync(device)
+    launches = take_launches()
+    violations, _ = sustained_violations(report, assigned, inventory, budget,
+                                         500, 1.0, short_id)
+    return dict(early_decisions=report.early_decisions,
+                repacks=report.repacks, chunks_dropped=report.chunks_dropped,
+                placed=len(report.schedule.placed),
+                deferred=len(report.schedule.deferred),
+                planned_power_w=round(report.schedule.planned_power_w, 1),
+                budget_violations=violations, launches=launches)
+
+
+def chaos_schedule(total_chunks: int, assigned, seed: int):
+    """bench_chaos's seeded schedule: kill one loaded device a quarter of
+    the way in, degrade another at half, restore the first at 70 %, kill a
+    second at 80 %."""
+    rng = np.random.default_rng(seed)
+    loaded = sorted({dev.device_id for _, _, dev in assigned})
+    victims = [loaded[int(rng.integers(len(loaded)))]]
+    rest = [d for d in loaded if d not in victims]
+    degraded = rest[int(rng.integers(len(rest)))]
+    second = [d for d in rest if d != degraded]
+    victims.append(second[int(rng.integers(len(second)))])
+    return [(int(0.25 * total_chunks), "fail", victims[0]),
+            (int(0.50 * total_chunks), "degrade", degraded),
+            (int(0.70 * total_chunks), "restore", victims[0]),
+            (int(0.80 * total_chunks), "fail", victims[1])]
+
+
+def session_chaos_smoke(device) -> dict:
+    """``bench_chaos.py --smoke`` through the port's ``MinosSession``:
+    seeded fail / degrade / restore / fail mid-stream, the mid-profile
+    migrants re-profiled, then the session drained (its straggler monitor
+    sends the drain down the per-chunk path).  Returns the counts, the
+    session, and the launches of the drain after the re-profiling."""
+    from repro_torch.api import (FleetTelemetryMux, MinosSession,
+                                 StragglerMonitor, count_classifier_calls,
+                                 stream_telemetry)
+    streams = micro_streams()
+    lib = micro_library(device, 1.0)
+    inventory, assigned, budget = smoke_assignment(
+        {"tpu-v5e": 3, "tpu-v5p": 2},
+        [(s, 4 * (i % 3 + 1)) for i, s in enumerate(streams)])
+    take_launches()
+    session = MinosSession(lib, inventory=inventory, budget_w=budget,
+                           objective="powercentric", quantile="p99",
+                           min_confidence=0.2,
+                           stragglers=StragglerMonitor(), device=device)
+    mux = FleetTelemetryMux()
+    handles = {}
+    for i, (stream, chips, dev) in enumerate(assigned):
+        meta, chunks = stream_telemetry(
+            stream, 1.0, dev.power_model(), seed=700 + i,
+            target_duration=1.0, chunk_samples=CHAOS_CHUNK_SAMPLES,
+            device_id=dev.device_id)
+        handle = session.submit(meta, device=dev, chips=chips,
+                                job_id=short_id(i, stream))
+        handles[handle.job_id] = handle
+        mux.add_job(handle.job_id, meta, chunks)
+    total = sum(-(-h.meta.n_samples // CHAOS_CHUNK_SAMPLES)
+                for h in handles.values())
+    pending = chaos_schedule(total, assigned, seed=23)
+    calls = count_classifier_calls(session.classifier)
+    chaos_calls = 0
+    failed_now: set[str] = set()
+
+    def apply(action, device_id):
+        nonlocal chaos_calls
+        n0 = calls["n"]
+        if action == "fail":
+            session.fail_device(device_id)
+            mux.drop_device(device_id)
+            failed_now.add(device_id)
+        elif action == "degrade":
+            session.degrade_device(device_id)
+        else:
+            session.restore_device(device_id)
+            failed_now.discard(device_id)
+        chaos_calls += calls["n"] - n0
+
+    for n, fchunk in enumerate(mux):
+        while pending and n >= pending[0][0]:
+            apply(*pending.pop(0)[1:])
+        if fchunk.device_id in failed_now:
+            continue
+        handles[fchunk.job_id].feed(fchunk.chunk)
+    for _, action, device_id in pending:
+        apply(action, device_id)
+    reprofiled = 0
+    for i, (stream, _, _) in enumerate(assigned):
+        handle = handles[short_id(i, stream)]
+        if not handle.decided and handle.fraction == 0.0:
+            handle.reprofile(stream, seed=900 + i, target_duration=1.0,
+                             chunk_samples=CHAOS_CHUNK_SAMPLES)
+            reprofiled += 1
+    sync(device)
+    before_restart = take_launches()
+    report = session.run()
+    sync(device)
+    after_restart = take_launches()
+    violations, _ = sustained_violations(report, assigned, inventory, budget,
+                                         700, 1.0, short_id)
+    return dict(failures=report.failures, migrations=report.migrations,
+                reprofiled_jobs=reprofiled, repacks=report.repacks,
+                placed=len(report.schedule.placed),
+                deferred=len(report.schedule.deferred),
+                planned_power_w=round(report.schedule.planned_power_w, 1),
+                classifier_calls_chaos=chaos_calls,
+                budget_violations=violations,
+                device_health=session.device_health,
+                launches={k: before_restart[k] + after_restart[k]
+                          for k in before_restart},
+                launches_after_restart=after_restart, session=session)
+
+
+def recovery_setup(device):
+    """bench_recovery's smoke scenario, identical in the crashing child
+    and the resuming parent."""
+    streams = micro_streams()
+    lib = micro_library(device, 1.0)
+    inventory, assigned, budget = smoke_assignment(
+        {"tpu-v5e": 3, "tpu-v5p": 2},
+        [(s, 4 * (i % 3 + 1)) for i, s in enumerate(streams)])
+    return lib, inventory, assigned, budget
+
+
+def recovery_child(store: str, device) -> None:
+    """The crash target: drive the durable session, fail the first job's
+    device at 40 % of the chunks, SIGKILL this process at 55 %."""
+    import signal
+    from repro_torch.api import (FleetTelemetryMux, MinosSession,
+                                 stream_telemetry)
+    lib, inventory, assigned, budget = recovery_setup(device)
+    session = MinosSession(lib, inventory=inventory, budget_w=budget,
+                           min_confidence=0.2, store=store, device=device)
+    mux = FleetTelemetryMux()
+    handles = {}
+    for i, (stream, chips, dev) in enumerate(assigned):
+        meta, chunks = stream_telemetry(
+            stream, 1.0, dev.power_model(), seed=700 + i,
+            target_duration=1.0, chunk_samples=CHAOS_CHUNK_SAMPLES,
+            device_id=dev.device_id)
+        handle = session.submit(meta, device=dev, chips=chips,
+                                job_id=short_id(i, stream))
+        handles[handle.job_id] = handle
+        mux.add_job(handle.job_id, meta, chunks)
+    total = sum(-(-h.meta.n_samples // CHAOS_CHUNK_SAMPLES)
+                for h in handles.values())
+    fail_at = int(RECOVERY_FAIL_FRACTION * total)
+    crash_at = int(RECOVERY_CRASH_FRACTION * total)
+    victim = assigned[0][2].device_id
+    failed = False
+    for n, fchunk in enumerate(mux):
+        if n >= crash_at:
+            sync(device)
+            os.kill(os.getpid(), signal.SIGKILL)     # the crash under test
+        if not failed and n >= fail_at:
+            session.fail_device(victim)
+            mux.drop_device(victim)
+            failed = True
+        if failed and fchunk.device_id == victim:
+            continue
+        handles[fchunk.job_id].feed(fchunk.chunk)
+    raise AssertionError("stream drained before the scheduled crash")
+
+
+def session_recovery_smoke(device, workdir: str) -> dict:
+    """``bench_recovery.py --smoke``: a child process drives the port's
+    durable session on ``device`` and SIGKILLs itself; this process resumes
+    the store on ``device`` with the classifier spied, re-profiles the jobs
+    that were mid-profile and drains the session."""
+    import signal
+    from repro_torch.api import MinosSession, count_classifier_calls
+    store = os.path.join(workdir, "recovery-store")
+    shutil.rmtree(store, ignore_errors=True)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--recovery-child",
+         store, "--child-device", str(device)], timeout=600)
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"recovery child exited {proc.returncode}, "
+                             f"not by SIGKILL")
+    lib, inventory, assigned, budget = recovery_setup(device)
+    clf = lib.classifier()
+    calls = count_classifier_calls(clf)
+    t0 = time.perf_counter()
+    session = MinosSession.resume(store, references=clf, device=device)
+    sync(device)
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    resume_calls = calls["n"]
+    decided = [jid for jid, h in session.jobs.items() if h.decided]
+    take_launches()
+    reprofiled = 0
+    for i, (stream, _, _) in enumerate(assigned):
+        handle = session.jobs[short_id(i, stream)]
+        if not handle.decided:
+            handle.reprofile(stream, seed=900 + i, target_duration=1.0,
+                             chunk_samples=CHAOS_CHUNK_SAMPLES)
+            reprofiled += 1
+    report = session.run()
+    session.close()
+    sync(device)
+    launches = take_launches()
+    with open(os.path.join(store, "journal.jsonl"), "rb") as f:
+        journal_records = sum(1 for _ in f)
+    violations, _ = sustained_violations(report, assigned, inventory, budget,
+                                         700, 1.0, short_id)
+    return dict(classifier_calls_resume=resume_calls,
+                decisions_recovered=len(decided), reprofiled_jobs=reprofiled,
+                migrations=report.migrations,
+                placed=len(report.schedule.placed),
+                deferred=len(report.schedule.deferred),
+                planned_power_w=round(report.schedule.planned_power_w, 1),
+                budget_violations=violations, resume_ms=resume_ms,
+                journal_records=journal_records,
+                launches_after_restart=launches)
+
+
+def session_online_cap(lib, device) -> dict:
+    """``bench_online_cap.py``'s full run: each of the 28 zoo workloads
+    submitted to one port session (``profile_to_completion``) and fed
+    chunk by chunk, Algorithm 1 on the partial profile at each tenth of the
+    trace against the completed profile's caps, the confidence gate riding
+    along."""
+    from repro_torch.api import (MinosSession, TPUPowerModel,
+                                 reference_streams, select_optimal_freq,
+                                 stream_telemetry)
+    model = TPUPowerModel()
+    streams = reference_streams()
+    take_launches()
+    session = MinosSession(lib, objective="powercentric", actuator="none",
+                           min_confidence=0.2, device=device)
+    clf = session.classifier
+    agree = {obj: {f: 0 for f in ONLINE_FRACTIONS}
+             for obj in ("powercentric", "perfcentric")}
+    rows = []
+
+    def caps(sel):
+        return {"powercentric": sel.f_pwr, "perfcentric": sel.f_perf}
+
+    for i, stream in enumerate(streams):
+        meta, chunks = stream_telemetry(stream, 1.0, model, seed=1000 + i,
+                                        target_duration=4.0)
+        job = session.submit(meta, profile_to_completion=True)
+        partial, next_f = {}, 0
+        for chunk in chunks:
+            job.feed(chunk)
+            while next_f < len(ONLINE_FRACTIONS) and \
+                    job.fraction >= ONLINE_FRACTIONS[next_f] - 1e-12:
+                partial[ONLINE_FRACTIONS[next_f]] = caps(
+                    select_optimal_freq(job.snapshot(), clf))
+                next_f += 1
+        gate = job.decision(finalize=False)
+        final = caps(select_optimal_freq(job.profile(), clf))
+        for f in ONLINE_FRACTIONS[next_f:]:
+            partial[f] = final
+        conv = {}
+        for obj in agree:
+            conv_f = 1.0
+            for f in reversed(ONLINE_FRACTIONS):
+                if partial[f][obj] != final[obj]:
+                    break
+                conv_f = f
+            conv[obj] = conv_f
+            for f in ONLINE_FRACTIONS:
+                agree[obj][f] += partial[f][obj] == final[obj]
+        rows.append({
+            "target": meta.name, "final_cap": final, "converged_at": conv,
+            "gate_fraction": None if gate is None else round(gate.fraction, 3),
+            "gate_confidence": None if gate is None
+            else round(gate.confidence, 3),
+            "gate_cap_matches": None if gate is None
+            else gate.cap == final["powercentric"]})
+    sync(device)
+    n = len(streams)
+    gated = [r for r in rows if r["gate_fraction"] is not None]
+    return {
+        "agreement_curve": {obj: {str(f): round(agree[obj][f] / n, 4)
+                                  for f in ONLINE_FRACTIONS}
+                            for obj in agree},
+        "agreement_at_half": {obj: round(agree[obj][0.5] / n, 4)
+                              for obj in agree},
+        "controller_gate": {
+            "decided_early": len(gated), "n_targets": n,
+            "mean_fraction": round(float(np.mean(
+                [r["gate_fraction"] for r in gated])), 3),
+            "cap_match_rate": round(float(np.mean(
+                [r["gate_cap_matches"] for r in gated])), 3)},
+        "per_workload": rows, "launches": take_launches()}
+
+
+def session_scale(lib, device, store_dir: str | None) -> dict:
+    """``bench_fleet_scale``'s 10,000 jobs through ``MinosSession``:
+    ``submit_many`` (round-robin over the 64-device inventory) + ``run()``,
+    with a journal in ``store_dir`` when given."""
+    from repro_torch.api import (DeviceInventory, MinosSession, SessionStore,
+                                 VariabilityModel, fleet_job_mix,
+                                 stream_telemetry, to_dict)
+    inventory = DeviceInventory.generate(FLEET, VariabilityModel.none(),
+                                         seed=7)
+    jobs = fleet_job_mix(10_000, seed=11)
+    assigned = [(s, c, inventory[i % len(inventory)])
+                for i, (s, c) in enumerate(jobs)]
+    budget = 0.75 * sum(c * d.nameplate_w for _, c, d in assigned)
+    seeds = {name: 500 + i for i, name in
+             enumerate(sorted({s.name for s, _, _ in assigned}))}
+    telemetry = {}
+    for stream, _, dev in assigned:
+        key = (stream.name, dev.model)
+        if key not in telemetry:
+            meta, chunks = stream_telemetry(
+                stream, 1.0, dev.power_model(), seed=seeds[stream.name],
+                target_duration=0.4, chunk_samples=256)
+            telemetry[key] = (meta, list(chunks))
+    store, snapshots = None, [0]
+    if store_dir is not None:
+        shutil.rmtree(store_dir, ignore_errors=True)
+        store = SessionStore.create(store_dir,
+                                    snapshot_every=SCALE_SNAPSHOT_EVERY)
+        flush = store.flush_snapshot
+
+        def counted_flush(*args, **kw):
+            wrote = flush(*args, **kw)
+            snapshots[0] += bool(wrote)
+            return wrote
+        store.flush_snapshot = counted_flush
+    sync(device)
+    take_launches()
+    t0 = time.perf_counter()
+    session = MinosSession(lib, inventory=inventory, budget_w=budget,
+                           quantile="p99", store=store, device=device,
+                           **GATES)
+    session.submit_many(
+        [telemetry[(s.name, d.model)] for s, _, d in assigned],
+        chips=[c for _, c, _ in assigned],
+        job_ids=[f"j{i:05d}:{s.name}" for i, (s, _, _) in
+                 enumerate(assigned)])
+    report = session.run()
+    sync(device)
+    elapsed = time.perf_counter() - t0
+    fleet = session._fleet
+    out = dict(decisions=len(report.decisions),
+               early_decisions=report.early_decisions,
+               repacks=report.repacks, chunks_dropped=report.chunks_dropped,
+               placed=len(report.schedule.placed),
+               deferred=len(report.schedule.deferred),
+               planned_power_w=report.schedule.planned_power_w,
+               jobs_per_s=len(assigned) / elapsed, seconds=elapsed,
+               launches=take_launches(),
+               state={jid: (to_dict(j.decision), to_dict(j.plan)
+                            if j.plan is not None else None)
+                      for jid, j in fleet.jobs.items()})
+    if store is not None:
+        out["journal_records"] = store.journal.last_seq
+        session.close()
+        out["snapshots_written"] = snapshots[0]
+        out["journal_bytes"] = sum(
+            os.path.getsize(os.path.join(store_dir, f))
+            for f in os.listdir(store_dir) if f.startswith("journal"))
+        out["snapshot_files"] = sorted(
+            f for f in os.listdir(store_dir) if f.startswith("snapshot"))
+        out["snapshot_bytes"] = sum(
+            os.path.getsize(os.path.join(store_dir, f))
+            for f in out["snapshot_files"])
+    return out
+
+
+def session_scale_resume(lib, device, store_dir: str, live: dict) -> dict:
+    """Resume the 10,000-job store on ``device`` with the classifier spied:
+    0 calls, every decision and plan equal to the live session's."""
+    from repro_torch.api import MinosSession, count_classifier_calls, to_dict
+    clf = lib.classifier()
+    calls = count_classifier_calls(clf)
+    sync(device)
+    t0 = time.perf_counter()
+    session = MinosSession.resume(store_dir, references=clf, device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    got = {jid: (to_dict(j.decision), to_dict(j.plan)
+                 if j.plan is not None else None)
+           for jid, j in session._fleet.jobs.items()}
+    session.close()
+    if calls["n"] != 0:
+        raise AssertionError(f"resume of the 10,000-job store classified "
+                             f"{calls['n']} times")
+    if got != live["state"]:
+        bad = [jid for jid in live["state"] if got.get(jid)
+               != live["state"][jid]]
+        raise AssertionError(f"resumed decisions/plans differ from the "
+                             f"live session's for {len(bad)} jobs "
+                             f"(first {bad[:3]})")
+    return dict(seconds=seconds, classifier_calls=calls["n"],
+                jobs=len(got))
+
+
+def engine_columns_equal(card, host, what: str) -> None:
+    """Every column of the engine ``card`` bitwise equal to ``host``'s
+    after the same drive (slot recycling after migrations and re-profiles
+    included)."""
+    for name in ("_hist_all", "_ema_state", "_ema_has", "_energy", "_busy",
+                 "_next_index", "_n_pending", "_n_committed", "_seen_busy",
+                 "_live", "_tdp"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(host, name)):
+            raise AssertionError(f"engine column {name} on the card differs "
+                                 f"from the host's after {what}")
+
+
+def check_counts(what: str, got: dict, want: dict, keys) -> None:
+    for key in keys:
+        if got[key] != want[key]:
+            raise AssertionError(f"{what}: {key} is {got[key]!r} through the "
+                                 f"port's session, {want[key]!r} in the "
+                                 f"reference's results")
+
+
+def check_launches(what: str, launches: dict) -> None:
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{what}: kernel {name} was not launched")
+
+
+def session_phase(dev, card: str, lib, want_scale: dict,
+                  workdir: str) -> dict:
+    """Phase 12: the outcome targets through the port's ``MinosSession`` on
+    the card, the 10,000-job session with and without a journal, its
+    resume, and the kernels' launches in each part."""
+    t_phase = time.perf_counter()
+    results = {}
+    with open(os.path.join(ROOT, "results", "fleet.json")) as f:
+        want = json.load(f)
+    got = session_fleet_smoke(dev)
+    check_counts("fleet.json", got, want,
+                 ("early_decisions", "repacks", "chunks_dropped", "placed",
+                  "deferred", "planned_power_w", "budget_violations"))
+    check_launches("fleet.json drive", got["launches"])
+    results["fleet"] = got
+    log(f"session fleet.json smoke: {json.dumps(got)}")
+
+    with open(os.path.join(ROOT, "results", "chaos.json")) as f:
+        want = json.load(f)
+    got = session_chaos_smoke(dev)
+    host = session_chaos_smoke("cpu")
+    engine_columns_equal(got.pop("session")._fleet.engine,
+                         host.pop("session")._fleet.engine,
+                         "the chaos schedule")
+    check_counts("chaos.json", got, want,
+                 ("failures", "migrations", "reprofiled_jobs", "repacks",
+                  "placed", "deferred", "planned_power_w",
+                  "classifier_calls_chaos", "budget_violations",
+                  "device_health"))
+    check_launches("chaos.json drive", got["launches"])
+    check_launches("chaos.json drain after the re-profile",
+                   got["launches_after_restart"])
+    results["chaos"] = got
+    log(f"session chaos.json smoke: {json.dumps(got)}; engine columns "
+        f"bitwise equal to the host's after the schedule")
+
+    with open(os.path.join(ROOT, "results", "recovery.json")) as f:
+        want = json.load(f)
+    got = session_recovery_smoke(dev, workdir)
+    check_counts("recovery.json", got, want,
+                 ("classifier_calls_resume", "decisions_recovered",
+                  "reprofiled_jobs", "migrations", "placed", "deferred",
+                  "planned_power_w", "budget_violations"))
+    check_launches("recovery.json drain after the resume",
+                   got["launches_after_restart"])
+    results["recovery"] = got
+    log(f"session recovery.json smoke: {json.dumps(got)}")
+
+    with open(os.path.join(ROOT, "results", "online_cap.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    got = session_online_cap(lib, dev)
+    got["seconds"] = time.perf_counter() - t0
+    check_counts("online_cap.json", got, want,
+                 ("agreement_curve", "agreement_at_half", "controller_gate",
+                  "per_workload"))
+    check_launches("online_cap.json drive", got["launches"])
+    results["online_cap"] = {k: v for k, v in got.items()
+                             if k != "per_workload"}
+    log(f"session online_cap.json (28 workloads): "
+        f"{json.dumps(results['online_cap'])}")
+
+    scale = {}
+    for mode, store_dir in (("plain", None),
+                            ("journal", os.path.join(workdir, "scale-store"))):
+        got = session_scale(lib, dev, store_dir)
+        check_counts(f"fleet_scale.json ({mode})", got, want_scale,
+                     ("decisions", "early_decisions", "chunks_dropped",
+                      "placed", "deferred"))
+        rel = abs(got["planned_power_w"] - want_scale["planned_power_w"]) \
+            / want_scale["planned_power_w"]
+        if rel > 1e-9:
+            raise AssertionError(f"fleet_scale.json ({mode}): planned_power_w"
+                                 f" {got['planned_power_w']} (rel {rel:.2e})")
+        check_launches(f"10,000-job session ({mode})", got["launches"])
+        scale[mode] = got
+    if scale["plain"]["state"] != scale["journal"]["state"]:
+        raise AssertionError("the journaled 10,000-job session decided "
+                             "differently from the plain one")
+    resume = session_scale_resume(lib, dev, os.path.join(workdir,
+                                                         "scale-store"),
+                                  scale["journal"])
+    for got in scale.values():
+        got.pop("state")
+    results["scale"] = dict(scale, resume=resume,
+                            snapshot_every=SCALE_SNAPSHOT_EVERY)
+    for mode, got in scale.items():
+        log(f"session 10,000 jobs ({mode}) [{card}]: "
+            f"{got['jobs_per_s']:.1f} jobs/s ({got['seconds']:.3f} s), "
+            f"{json.dumps({k: v for k, v in got.items() if k not in ('jobs_per_s', 'seconds')})}")
+    log(f"session 10,000-job resume [{card}]: {resume['seconds']:.3f} s, "
+        f"{resume['classifier_calls']} classifier calls, {resume['jobs']} "
+        f"jobs' decisions and plans equal to the live session's")
+    results["launches"] = {
+        "fleet": results["fleet"]["launches"],
+        "chaos": results["chaos"]["launches"],
+        "chaos_after_restart": results["chaos"]["launches_after_restart"],
+        "recovery_after_resume": results["recovery"]["launches_after_restart"],
+        "online_cap": results["online_cap"]["launches"],
+        "scale_plain": scale["plain"]["launches"],
+        "scale_journal": scale["journal"]["launches"]}
+    log(f"phase 12 launches: {json.dumps(results['launches'])}")
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 (session path): {results['seconds']:.3f} s [{card}]")
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1645,7 +2294,18 @@ def main() -> int:
                     help="build the kernels and run phase 6 alone (checks, "
                          "timings, the flash library's ptxas and SASS "
                          "report); prints no result line")
+    ap.add_argument("--session-only", action="store_true",
+                    help="build the kernels and the 28-workload library and "
+                         "run phase 12 alone (the session path); prints no "
+                         "result line")
+    ap.add_argument("--recovery-child", metavar="STORE",
+                    help=argparse.SUPPRESS)   # phase 12's crash target
+    ap.add_argument("--child-device", default="cuda",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.recovery_child:
+        recovery_child(args.recovery_child, resolve_device(args.child_device))
+        return 1                              # unreachable: SIGKILL
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1695,6 +2355,30 @@ def main() -> int:
                 json.dump({"card": card, "ssm_kernel": ssp}, f, indent=1)
         log("phase 9 alone (--ssm-kernel-only): no result line")
         return 0
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return run_phases(args, dev, card, kind, flush, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
+               workdir: str) -> int:
+    """Phases 3-12 (the whole run, or phase 12 alone with
+    ``--session-only``); prints the result lines."""
+    with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
+        want = json.load(f)
+    if args.session_only:
+        from repro_torch.pipeline import build_reference_library
+        from repro_torch.telemetry import TPUPowerModel
+        lib = build_reference_library(TPUPowerModel(), target_duration=3.0,
+                                      device=dev)
+        ses = session_phase(dev, card, lib, want, workdir)
+        if args.out is not None:
+            with open(os.path.join(args.out, "session.json"), "w") as f:
+                json.dump({"card": card, "session": ses}, f, indent=1)
+        log("phase 12 alone (--session-only): no result line")
+        return 0
     kp = kernel_phase(dev, flush)
     # the first profiler session of the process: a later one (after the
     # serving traces) recorded no device activity for these small launches
@@ -1705,14 +2389,17 @@ def main() -> int:
     card_vs_host_phase(dev)
     lm_card_vs_host_phase(dev)
     mamba_card_vs_host_phase(dev)
-    with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
-        want = json.load(f)
     lib, mp = main_path(dev, want)
     log(f"fleet timings [{card}]: library {mp['library_s']:.3f} s, admit "
         f"{mp['admit_s']:.3f} s, run {mp['run_s']:.3f} s (of it: engine "
         f"per-row loop {mp['row_loop_s']:.3f} s, packing "
         f"{mp['repack_s']:.3f} s), {mp['jobs_per_s']:.1f} jobs/s, ground "
         f"truth {mp['truth_s']:.3f} s")
+    ses = session_phase(dev, card, lib, want, workdir)
+    log(f"session vs direct controller [{card}]: 10,000 jobs at "
+        f"{ses['scale']['plain']['jobs_per_s']:.1f} jobs/s (no journal), "
+        f"{ses['scale']['journal']['jobs_per_s']:.1f} jobs/s (journal), "
+        f"phase 5's controller {mp['jobs_per_s']:.1f} jobs/s")
     sp = serve_phase(dev, card, GLM, REQUESTS, glm_launches, args.out,
                      args.trace)
     torch.cuda.empty_cache()        # the glm4-9b engine is gone: release it
@@ -1767,6 +2454,9 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for rec in kernels[:2]:             # phase 12's parts, counted apart
+        rec["launches_session"] = {part: n[rec["name"]] for part, n in
+                                   ses["launches"].items()}
     kernels[2]["shapes"] = [            # flash at every timed prefill shape
         {k: r[k] for k in ("b", "s", "ms", "library_ms", "bound_ms",
                            "bound_by")}
@@ -1796,7 +2486,7 @@ def main() -> int:
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,
-                       "fleet_trace": fleet_trace,
+                       "session": ses, "fleet_trace": fleet_trace,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,11 +6,13 @@ The layout mirrors ``repro`` module for module (``repro.X.Y`` <->
 library only.  Its entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU; with no card and no such request they raise.
 
-Slice ported so far: the fleet profiling path — telemetry simulation,
+Ported so far: the fleet profiling path — telemetry simulation,
 ``BatchProfileEngine`` / ``ProfileBuilder``, the reference library, the
 Minos classifier and Algorithm 1, the online cap controllers, the
-incremental packer and ``FleetCapController`` (inert configuration).  The
-two kernels on that path (``kernels/csrc``) are CUDA C++ for ``sm_90a``.
+incremental packer and ``FleetCapController`` with its failure paths — the
+``MinosSession`` facade (``api``) with its durable store (``store``) and
+fault-tolerance helpers (``ft``), and LM serving (``models``, ``serve``).
+The kernels (``kernels/csrc``) are CUDA C++ for ``sm_90a``.
 """
 from repro_torch.device import resolve_device
 

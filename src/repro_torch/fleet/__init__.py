@@ -1,6 +1,8 @@
 """Heterogeneous fleet layer of the port: variability-aware device models,
-multiplexed telemetry, and cluster-wide online capping (the inert
-configuration of ``FleetCapController``; see its module docstring).
+multiplexed telemetry, and cluster-wide online capping — with an
+``inventory`` attached, ``fail_device``/``degrade_device``/``restore_device``
+migrate jobs to healthy silicon from their cached decisions (zero
+re-classification; see ``repro_torch.ft``).
 
     from repro_torch.fleet import (DeviceInventory, VariabilityModel,
                                    FleetTelemetryMux, FleetCapController)

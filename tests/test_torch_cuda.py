@@ -608,3 +608,100 @@ def test_reduced_mamba_on_card_matches_host(cuda):
         torch.testing.assert_close(caches["l0_mamba"][key].cpu(),
                                    caches_h["l0_mamba"][key], rtol=1e-4,
                                    atol=1e-4)
+
+
+def _scripted_session(device, store=None):
+    """``tests/test_store.py``'s chaos script through the port's session
+    on ``device`` (submit, decide, fail, budget, submit, run, degrade,
+    retire, restore); returns the session and the launches of the drain
+    that follows the failure."""
+    from repro_torch.api import (DeviceInventory, MinosSession,
+                                 ReferenceLibrary, TPUPowerModel,
+                                 VariabilityModel, micro_gemm,
+                                 micro_idle_burst, micro_spmv_memory,
+                                 micro_stencil, stream_profile_workload,
+                                 stream_telemetry)
+    model = TPUPowerModel()
+    lib = ReferenceLibrary(
+        (stream_profile_workload(s, model, (0.6, 0.8, 1.0), model.spec.tdp_w,
+                                 seed=i, target_duration=0.5, device=device)
+         for i, s in enumerate([micro_gemm(), micro_idle_burst(),
+                                micro_spmv_memory(), micro_stencil()])),
+        built_on="tpu-v5e", device=device)
+    inv = DeviceInventory.generate({"tpu-v5e": 3, "tpu-v5p": 2},
+                                   VariabilityModel(), seed=7)
+    session = MinosSession(lib, inventory=inv, budget_w=20000.0,
+                           min_confidence=0.2, store=store, device=device)
+
+    def tel(stream, seed):
+        return stream_telemetry(stream, 1.0, model, seed=seed,
+                                target_duration=0.5)
+
+    a = session.submit(tel(micro_gemm(), 100), chips=4)
+    a.run()
+    session.submit(tel(micro_spmv_memory(), 101), chips=2)
+    session.fail_device(a.device.device_id)
+    session.set_budget(5000.0)
+    c = session.submit(tel(micro_stencil(), 102), chips=1)
+    before = dict(build.LAUNCHES)
+    session.run()
+    drained = {k: build.LAUNCHES[k] - before[k]
+               for k in ("spike_hist", "ema_scan")}
+    session.degrade_device(c.device.device_id)
+    session.retire(a.job_id)
+    session.restore_device(sorted(session._fleet._failed_devices)[0])
+    return session, drained
+
+
+_ENGINE_COLUMNS = ("_hist_all", "_ema_state", "_ema_has", "_energy", "_busy",
+                   "_next_index", "_n_pending", "_n_committed",
+                   "_seen_busy", "_live", "_tdp")
+
+
+@pytest.mark.cuda
+def test_chaos_session_engine_on_card_bitwise_equal_host(cuda, tmp_path):
+    """Slot recycling under failures: after the chaos script (a migration,
+    its freed and re-claimed slot, a retire) and after a resume of its
+    store, every engine column on the card equals the host's bit for bit,
+    and the drain after the failure ran the kernels."""
+    from repro_torch.api import MinosSession, count_classifier_calls, to_json
+    card, drained = _scripted_session(cuda, store=str(tmp_path / "card"))
+    host, _ = _scripted_session("cpu", store=str(tmp_path / "host"))
+    assert drained["spike_hist"] > 0 and drained["ema_scan"] > 0
+    for name in _ENGINE_COLUMNS:
+        assert torch.equal(getattr(card._fleet.engine, name).cpu(),
+                           getattr(host._fleet.engine, name)), name
+    assert to_json(card.report()) == to_json(host.report())
+    card.close()
+    host.close()
+    # resume both stores on the card: 0 classifier calls, the same report
+    clf = card.library.classifier()
+    calls = count_classifier_calls(clf)
+    for path in ("card", "host"):
+        resumed = MinosSession.resume(str(tmp_path / path), references=clf,
+                                      device=cuda)
+        assert to_json(resumed.report()) == to_json(host.report())
+        resumed.close()
+    assert calls["n"] == 0
+
+
+@pytest.mark.cuda
+def test_bench_chaos_engine_on_card_bitwise_equal_host(cuda):
+    """``bench_chaos.py --smoke`` as ``chip_smoke.py`` drives it: the card
+    and the host give the same counts and bitwise-equal engine columns, and
+    the straggler path's drain after the re-profile launches the kernels."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    card = chip_smoke.session_chaos_smoke(cuda)
+    host = chip_smoke.session_chaos_smoke("cpu")
+    chip_smoke.engine_columns_equal(card.pop("session")._fleet.engine,
+                                    host.pop("session")._fleet.engine,
+                                    "the chaos schedule")
+    assert card["launches_after_restart"]["spike_hist"] > 0
+    assert card["launches_after_restart"]["ema_scan"] > 0
+    for key in ("failures", "migrations", "reprofiled_jobs", "repacks",
+                "placed", "deferred", "planned_power_w", "device_health"):
+        assert card[key] == host[key], key

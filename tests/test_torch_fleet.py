@@ -144,18 +144,24 @@ def test_retire_repacks_without_reclassification():
 
 
 def test_not_ported_paths_raise():
+    """Online class discovery is the one controller path still to port
+    (ROADMAP item 1c); the failure paths are ported and, as in the
+    reference, need an inventory."""
     fleet, _, _, _ = _port(10, repack="tick")
+    for call in (lambda: fleet.adopt_classifier(fleet.clf),
+                 lambda: fleet.set_discovery(object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 1c"):
+            call()
     for call in (lambda: fleet.fail_device("tpu-v5e/000"),
                  lambda: fleet.degrade_device("tpu-v5e/000"),
-                 lambda: fleet.restore_device("tpu-v5e/000"),
-                 lambda: fleet.adopt_classifier(fleet.clf),
-                 lambda: fleet.set_discovery(object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: fleet.restore_device("tpu-v5e/000")):
+        with pytest.raises(ValueError, match="needs an inventory"):
             call()
     lib = [j.controller.clf for j in fleet.jobs.values()][0]
-    for kw in (dict(journal=object()), dict(straggler_adapter=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.FleetCapController(lib, budget_w=1.0, device=CPU, **kw)
+    adapter = TF.controller.FleetStragglerAdapter()
+    built = TF.FleetCapController(lib, budget_w=1.0, device=CPU,
+                                  journal=None, straggler_adapter=adapter)
+    assert built.straggler_adapter is adapter and built.journal is None
 
 
 def test_inventory_and_mux_copies_match_reference():
