@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 What it does (every phase fails the run if it fails), in this order save
-that phases 9 and 10 run right after phases 6 and 7, and phase 12 right
-after phase 5:
+that phases 9 and 10 run right after phases 6 and 7, and phases 12 and 13
+right after phase 5:
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -111,7 +111,27 @@ after phase 5:
      only), and a resume of that store with 0 classifier calls and every
      decision and plan equal to the live session's.  ``spike_hist`` and
      ``ema_scan`` must launch in every part (counted apart, the drains
-     after a re-profile and after the resume included).
+     after a re-profile and after the resume included);
+ 13. discovery and the rest of ``core/`` — ``bench_discovery.py --smoke``
+     through the port's ``MinosSession(discovery=...)`` on the card, held
+     to ``results/discovery.json`` but its two latencies (printed): every
+     count, the promoted class names, the baseline / before / after
+     blocks, 0 classifier calls on the swap and on the resume (every
+     classifier any library mints spied), resumed version 2, discovery-off
+     identical; then the bench's full configuration (four novel families,
+     1.0 s profiles) under the bench's asserts, its numbers printed.  In
+     both, the resumed session takes one more arrival of each family,
+     which must classify to its discovered class.  ``spike_hist`` and
+     ``ema_scan`` must launch in each part (library, submissions,
+     ``discover``, arrivals after the promotion, the resume and its
+     arrivals; counted apart).  Then phase 12's 10,000-job session once
+     more with ``discovery=True`` (quarantine only): every decision and
+     plan equal to the plain session's, the quarantined count and jobs/s
+     printed.  Last, on phase 5's library: the float32 Lloyd on the card
+     bitwise equal to the host's for every (k, restart) of the silhouette
+     sweep, and ``classification.json`` (Table 1's class columns, k_best,
+     the silhouettes, the dendrogram), ``holdout.json`` and
+     ``baseline_cmp.json`` exactly.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -122,8 +142,9 @@ the blocked EMA's device time in the fleet drive, device ops per builder
 commit and per blocked-EMA call of each form, which must be 1);
 ``--fleet-kernels-only``, ``--lm-kernels-only`` and ``--ssm-kernel-only``
 build the kernels and run phase 3, 6 or 9 alone,
-without a result line (for work on a kernel); ``--session-only`` builds
-them and the 28-workload library and runs phase 12 alone; ``--out DIR`` writes
+without a result line (for work on a kernel); ``--session-only`` and
+``--discovery-only`` build them and the 28-workload library and run phase
+12 or 13 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -2038,10 +2059,12 @@ def session_online_cap(lib, device) -> dict:
         "per_workload": rows, "launches": take_launches()}
 
 
-def session_scale(lib, device, store_dir: str | None) -> dict:
+def session_scale(lib, device, store_dir: str | None,
+                  discovery=None) -> dict:
     """``bench_fleet_scale``'s 10,000 jobs through ``MinosSession``:
     ``submit_many`` (round-robin over the 64-device inventory) + ``run()``,
-    with a journal in ``store_dir`` when given."""
+    with a journal in ``store_dir`` when given and ``discovery`` passed to
+    the session (quarantine only: no profiler is attached)."""
     from repro_torch.api import (DeviceInventory, MinosSession, SessionStore,
                                  VariabilityModel, fleet_job_mix,
                                  stream_telemetry, to_dict)
@@ -2078,7 +2101,7 @@ def session_scale(lib, device, store_dir: str | None) -> dict:
     t0 = time.perf_counter()
     session = MinosSession(lib, inventory=inventory, budget_w=budget,
                            quantile="p99", store=store, device=device,
-                           **GATES)
+                           discovery=discovery, **GATES)
     session.submit_many(
         [telemetry[(s.name, d.model)] for s, _, d in assigned],
         chips=[c for _, c, _ in assigned],
@@ -2099,6 +2122,9 @@ def session_scale(lib, device, store_dir: str | None) -> dict:
                state={jid: (to_dict(j.decision), to_dict(j.plan)
                             if j.plan is not None else None)
                       for jid, j in fleet.jobs.items()})
+    if session.discovery is not None:
+        out["quarantined"] = session.discovery.quarantined
+        out["pool"] = len(session.discovery.pool)
     if store is not None:
         out["journal_records"] = store.journal.last_seq
         session.close()
@@ -2250,6 +2276,7 @@ def session_phase(dev, card: str, lib, want_scale: dict,
     resume = session_scale_resume(lib, dev, os.path.join(workdir,
                                                          "scale-store"),
                                   scale["journal"])
+    results["plain_state"] = scale["plain"]["state"]   # for phase 13
     for got in scale.values():
         got.pop("state")
     results["scale"] = dict(scale, resume=resume,
@@ -2272,6 +2299,492 @@ def session_phase(dev, card: str, lib, want_scale: dict,
     log(f"phase 12 launches: {json.dumps(results['launches'])}")
     results["seconds"] = time.perf_counter() - t_phase
     log(f"phase 12 (session path): {results['seconds']:.3f} s [{card}]")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 13: online class discovery and the rest of core/ (K-Means,
+# silhouette, baselines)
+# ---------------------------------------------------------------------------
+# bench_discovery's configuration: the quarantine threshold sits above the
+# ~0.7-0.9 band at which a novel family matches an existing class
+# decisively-but-wrongly
+DISCOVERY = {"quarantine_below": 0.9, "min_cluster": 3,
+             "recluster_every": 1000, "promote_agreement": 0.5,
+             "cluster_distance": 0.5}
+DISCOVERY_FREQS = (0.6, 0.8, 1.0)           # micro_library's sweep
+SEEDS_PER_FAMILY = 3             # arrivals per novel family (>= min_cluster)
+DISCOVERY_LATENCIES = ("swap_latency_ms", "resume_latency_ms")
+DISCOVERY_PARTS = ("library", "submissions", "discover", "after_promotion",
+                   "resume")
+
+
+def discovery_setup(device, smoke: bool):
+    """``bench_discovery._setup``: the micro library (five streams) and the
+    novel families' full-profile ground truth."""
+    from repro_torch.api import (TPUPowerModel, novel_streams,
+                                 stream_profile_workload)
+    model = TPUPowerModel()
+    target_duration = 0.5 if smoke else 1.0
+    novel = novel_streams()[:2 if smoke else 4]
+    lib = micro_library(device, target_duration)
+    truth = {s.name: stream_profile_workload(
+        s, model, DISCOVERY_FREQS, model.spec.tdp_w, seed=50 + i,
+        target_duration=target_duration, device=device)
+        for i, s in enumerate(novel)}
+    return model, lib, micro_streams(), novel, truth, target_duration
+
+
+def discovery_submit(session, streams, model, seeds, target_duration,
+                     chips=2):
+    """One job per (stream, seed) pair, each run to its decision."""
+    from repro_torch.api import stream_telemetry
+    handles = []
+    for i, stream in enumerate(streams):
+        for j in seeds:
+            meta = stream_telemetry(stream, 1.0, model,
+                                    seed=1000 * (i + 1) + j,
+                                    target_duration=target_duration)
+            h = session.submit(meta, chips=chips)
+            h.run()
+            handles.append(h)
+    return handles
+
+
+def discovery_score(handles, truth_by_name, objective) -> dict:
+    """Cap agreement against full-profile ground truth + decision stats."""
+    from repro_torch.api import truth_selection
+    hits, fracs, confs = 0, [], []
+    for h in handles:
+        d = h.decision()
+        truth_cap = objective.cap(truth_selection(
+            truth_by_name[h.meta.name], d.selection.bin_size))
+        hits += int(d.cap == truth_cap)
+        fracs.append(d.fraction)
+        confs.append(d.confidence)
+    n = len(handles)
+    return {"n_jobs": n,
+            "cap_agreement": round(hits / n, 4) if n else 0.0,
+            "mean_fraction": round(sum(fracs) / n, 4) if n else 0.0,
+            "mean_confidence": round(sum(confs) / n, 4) if n else 0.0}
+
+
+def discovery_bench(device, smoke: bool, workdir: str) -> dict:
+    """``bench_discovery.py`` through the port on ``device``, under the
+    bench's asserts: in-library baseline, the novel families before
+    discovery, the durable discovery loop with the live classifier spied
+    across the swap, fresh arrivals after the promotion, the resume across
+    the version bump with every classifier any library mints spied (then
+    one arrival of each family on the resumed session, which must classify
+    to its discovered class), and the discovery-off checks.  The profiling
+    kernels' launches are counted part by part."""
+    from repro_torch.api import (MinosSession, ReferenceLibrary,
+                                 count_classifier_calls, resolve_objective,
+                                 stream_profiler, to_json)
+    launches = {}
+    sync(device)
+    take_launches()
+    model, lib, library_streams, novel, truth, target_duration = \
+        discovery_setup(device, smoke)
+    sync(device)
+    launches["library"] = take_launches()
+    objective = resolve_objective("powercentric")
+    seeds = range(SEEDS_PER_FAMILY)
+    truth_in_library = {p.name: p for p in lib}
+
+    plain = MinosSession(lib, device=device, **GATES)
+    baseline = discovery_score(discovery_submit(
+        plain, library_streams, model, seeds, target_duration),
+        truth_in_library, objective)
+    before_session = MinosSession(lib, device=device, **GATES)
+    novel_before = discovery_score(discovery_submit(
+        before_session, novel, model, seeds, target_duration), truth,
+        objective)
+    store = os.path.join(workdir, f"discovery-{'smoke' if smoke else 'full'}")
+    shutil.rmtree(store, ignore_errors=True)
+    session = MinosSession(lib, store=store, discovery=DISCOVERY,
+                           device=device, **GATES)
+    discovery_submit(session, novel, model, seeds, target_duration)
+    quarantined = len(session.discovery.pool)
+    sync(device)
+    launches["submissions"] = take_launches()
+
+    session.discovery.profiler = stream_profiler(
+        novel, model, DISCOVERY_FREQS, model.spec.tdp_w,
+        target_duration=target_duration, device=device)
+    live_calls = count_classifier_calls(session._fleet.clf)
+    t0 = time.perf_counter()
+    promo = session.discover(force=True)
+    sync(device)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    swap_calls = live_calls["n"]
+    promoted = promo["classes"] if promo else []
+    launches["discover"] = take_launches()
+
+    after_handles = discovery_submit(session, novel, model,
+                                     [100 + s for s in seeds],
+                                     target_duration)
+    novel_after = discovery_score(after_handles, truth, objective)
+    absorbed = sum(1 for h in after_handles
+                   if h.decision().selection.power_neighbor in promoted)
+    sync(device)
+    launches["after_promotion"] = take_launches()
+
+    session.close()
+    spies = []
+    orig_classifier = ReferenceLibrary.classifier
+
+    def spied_classifier(self, *a, **k):
+        clf = orig_classifier(self, *a, **k)
+        spies.append(count_classifier_calls(clf))
+        return clf
+
+    ReferenceLibrary.classifier = spied_classifier
+    try:
+        t0 = time.perf_counter()
+        resumed = MinosSession.resume(store, references=lib, device=device)
+        sync(device)
+        resume_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ReferenceLibrary.classifier = orig_classifier
+    resume_calls = sum(s["n"] for s in spies)
+    resumed_version = (resumed.discovery.version
+                       if resumed.discovery else 1)
+    resume_only = dict(take_launches())
+    continued = discovery_submit(resumed, novel, model, [200], target_duration)
+    continued_absorbed = sum(
+        1 for h in continued
+        if h.decision().selection.power_neighbor in promoted)
+    resumed.close()
+    sync(device)
+    launches["resume"] = {k: resume_only[k] + n
+                          for k, n in take_launches().items()}
+
+    def library_traffic(discovery=None):
+        s = MinosSession(lib, discovery=discovery, device=device, **GATES)
+        handles = discovery_submit(s, library_streams, model, seeds,
+                                   target_duration)
+        return to_json(s.report()), [
+            (d.target, d.cap, d.early, round(d.fraction, 6))
+            for d in (h.decision() for h in handles)]
+
+    rep_a, dec_a = library_traffic()
+    rep_b, dec_b = library_traffic()
+    _, dec_c = library_traffic(DISCOVERY)          # quarantine only
+    discovery_off_identical = (rep_a == rep_b and dec_a == dec_b
+                               and dec_a == dec_c)
+    take_launches()
+    out = {
+        "config": {"smoke": smoke, "novel_families": [s.name for s in novel],
+                   "seeds_per_family": SEEDS_PER_FAMILY,
+                   "discovery": DISCOVERY},
+        "baseline": baseline,
+        "novel_before": novel_before,
+        "novel_after": novel_after,
+        "quarantined": quarantined,
+        "promoted": promoted,
+        "absorbed_by_promoted": absorbed,
+        "swap_latency_ms": round(swap_ms, 3),
+        "swap_classifier_calls": swap_calls,
+        "resume_latency_ms": round(resume_ms, 3),
+        "resume_classifier_calls": resume_calls,
+        "resumed_library_version": resumed_version,
+        "discovery_off_identical": bool(discovery_off_identical),
+    }
+    if not promoted:
+        raise AssertionError(f"no class promoted from {quarantined} "
+                             f"quarantined novel arrivals")
+    if swap_calls != 0 or resume_calls != 0:
+        raise AssertionError(f"classifier calls: {swap_calls} on the swap, "
+                             f"{resume_calls} on the resume (must be 0)")
+    if resumed_version < 2:
+        raise AssertionError(f"resume came back at library version "
+                             f"{resumed_version}")
+    if not discovery_off_identical:
+        raise AssertionError("a session without the discovery key is not "
+                             "byte-identical run-to-run, or a quarantine-"
+                             "only session changed decisions")
+    if novel_after["cap_agreement"] < baseline["cap_agreement"] - 0.25:
+        raise AssertionError(f"post-promotion novel agreement "
+                             f"{novel_after['cap_agreement']} fell more than "
+                             f"0.25 below the baseline "
+                             f"{baseline['cap_agreement']}")
+    if continued_absorbed != len(continued):
+        raise AssertionError(f"{len(continued) - continued_absorbed} of "
+                             f"{len(continued)} arrivals after the resume "
+                             f"missed the discovered classes")
+    return dict(result=out, launches=launches, resume_only=resume_only,
+                continued=len(continued))
+
+
+def check_discovery_json(got: dict, want: dict) -> None:
+    """``results/discovery.json`` exactly, but the two latencies."""
+    for key, value in want.items():
+        if key in DISCOVERY_LATENCIES:
+            continue
+        if got[key] != value:
+            raise AssertionError(f"discovery.json: {key} is {got[key]!r} "
+                                 f"through the port, {value!r} in the "
+                                 f"reference's results")
+
+
+def classification_tables(lib) -> dict:
+    """``bench_classification.py`` on the port: Table 1's class columns,
+    the silhouette sweep and the dendrogram text (paper Figs. 3-4)."""
+    from repro_torch.core.clustering import dendrogram_order
+    refs = lib.profiles
+    clf = lib.classifier()
+    names = lib.names
+    Z = clf.power_linkage()
+    power_labels = clf.power_classes(k=3)
+    means = {}
+    for c in set(power_labels):
+        members = [refs[i] for i in range(len(refs)) if power_labels[i] == c]
+        means[c] = np.mean([m.p_quantile(90) for m in members])
+    rank = {c: i for i, c in enumerate(sorted(means, key=means.get))}
+    tags = ["Low-spike", "Mixed", "High-spike"]
+    power_class = {n: tags[rank[c]] for n, c in zip(names, power_labels)}
+    util_labels, centers, k_best, sil_scores = clf.util_classes()
+    cmeans = {c: centers[c][1] - centers[c][0] for c in range(k_best)}
+    crank = {c: i for i, c in enumerate(sorted(cmeans, key=cmeans.get))}
+    utags = ["M", "H", "C"] if k_best == 3 else [f"U{i}" for i in
+                                                  range(k_best)]
+    util_class = {n: utags[crank[c]] for n, c in zip(names, util_labels)}
+    rows = [{"workload": r.name, "domain": r.domain,
+             "pwr_class": power_class[r.name],
+             "util_class": util_class[r.name],
+             "p90": round(r.p_quantile(90), 3),
+             "mean": round(r.mean_power, 3),
+             "sm_util": round(r.sm_util, 3),
+             "dram_util": round(r.dram_util, 3)} for r in refs]
+    lines = ["power-spike dendrogram (ward/cosine), leaves in merge order:"]
+    for i in dendrogram_order(Z):
+        lines.append(f"  [{power_class[names[i]][0]}] {names[i]}")
+    return {"table1": rows,
+            "silhouette_by_k": {str(k): round(v, 4)
+                                for k, v in (sil_scores or {}).items()},
+            "k_best": k_best, "dendrogram": "\n".join(lines)}
+
+
+def unique_library(lib):
+    """``benchmarks/common.unique_library``: the train cell of each arch and
+    every microbenchmark, as a sub-library (cached rows carried over)."""
+    keep, seen = set(), set()
+    for r in lib.profiles:
+        if ":" in r.name:
+            arch, shape = r.name.split(":")
+            if shape != "train_4k" or arch in seen:
+                continue
+            seen.add(arch)
+        keep.add(r.name)
+    return lib.subset(lambda p: p.name in keep)
+
+
+def nearest_freq(profile, f: float) -> float:
+    return min(profile.scaling, key=lambda x: abs(x - f))
+
+
+def holdout_power_error(target, neighbor, quantile: str = "p90"):
+    """(abs prediction error, selected cap, observed value), PowerCentric."""
+    from repro_torch.core.algorithm1 import POWER_BOUND, cap_power_centric
+    f = cap_power_centric(neighbor, POWER_BOUND, quantile)
+    pred = getattr(neighbor.scaling[nearest_freq(neighbor, f)], quantile)
+    obs = getattr(target.scaling[nearest_freq(target, f)], quantile)
+    return abs(obs - pred), f, obs
+
+
+def holdout_perf_error(target, neighbor):
+    from repro_torch.core.algorithm1 import cap_perf_centric
+
+    def degradation(profile, f):
+        base = profile.scaling[max(profile.scaling)].exec_time
+        return profile.scaling[nearest_freq(profile, f)].exec_time / base \
+            - 1.0
+
+    f = cap_perf_centric(neighbor)
+    pred = degradation(neighbor, f)
+    obs = degradation(target, f)
+    return abs(obs - pred), f, obs
+
+
+def holdout_table(lib) -> dict:
+    """``bench_holdout.py`` on the port (paper §7.2, Figs. 9-11)."""
+    uniq_lib = unique_library(lib)
+    uniq = uniq_lib.profiles
+    clf = uniq_lib.classifier()
+    rows = []
+    for target, (nn_pwr, d_pwr), (nn_perf, d_perf) in zip(
+            uniq, clf.power_neighbors(uniq), clf.util_neighbors(uniq)):
+        rec = {"target": target.name, "power_neighbor": nn_pwr.name,
+               "cos_distance": round(d_pwr, 4),
+               "perf_neighbor": nn_perf.name,
+               "eucl_distance": round(d_perf, 4)}
+        for q in ("p90", "p95", "p99"):
+            err, f, _ = holdout_power_error(target, nn_pwr, q)
+            rec[f"{q}_err"] = round(err, 4)
+            rec[f"{q}_cap"] = f
+        perr, pf, _ = holdout_perf_error(target, nn_perf)
+        rec["perf_err"] = round(perr, 4)
+        rec["perf_cap"] = pf
+        rows.append(rec)
+    mean = {q: float(np.mean([r[f"{q}_err"] for r in rows]))
+            for q in ("p90", "p95", "p99")}
+    mean["perf"] = float(np.mean([r["perf_err"] for r in rows]))
+    perfect = sum(1 for r in rows if r["perf_err"] < 0.005)
+
+    def binify(dist_key, err_key, edges):
+        out = []
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            sel = [r[err_key] for r in rows if lo <= r[dist_key] < hi]
+            out.append({"bin": f"[{lo},{hi})", "n": len(sel),
+                        "mean_err": round(float(np.mean(sel)), 4)
+                        if sel else None})
+        return out
+
+    return {"rows": rows,
+            "mean_errors": {k: round(v, 4) for k, v in mean.items()},
+            "perfect_perf_predictions": f"{perfect}/{len(rows)}",
+            "err_by_cos_distance": binify("cos_distance", "p90_err",
+                                          [0, 0.02, 0.05, 0.1, 0.25, 1.01]),
+            "err_by_eucl_distance": binify("eucl_distance", "perf_err",
+                                           [0, 0.05, 0.1, 0.2, 0.5, 10.0])}
+
+
+def baseline_table(lib) -> dict:
+    """``bench_baseline_cmp.py`` on the port: Minos against the Guerreiro
+    et al. mean-power classifier and a utilization-only one (paper §7.3)."""
+    from repro_torch.core.baselines import (mean_power_neighbor,
+                                            util_only_neighbor)
+    uniq_lib = unique_library(lib)
+    uniq = uniq_lib.profiles
+    clf = uniq_lib.classifier()
+    rows = []
+    for target in uniq:
+        nn_minos, _ = clf.power_neighbor(target)
+        nn_mean, _ = mean_power_neighbor(target, uniq)
+        nn_util, _ = util_only_neighbor(target, uniq)
+        rec = {"target": target.name}
+        for tag, nn in (("minos", nn_minos), ("guerreiro", nn_mean),
+                        ("util_only", nn_util)):
+            for q in ("p90", "p95", "p99"):
+                err, _, _ = holdout_power_error(target, nn, q)
+                rec[f"{tag}_{q}"] = round(err, 4)
+            rec[f"{tag}_nn"] = nn.name
+        rows.append(rec)
+    means = {f"{tag}_{q}": round(float(np.mean(
+        [r[f"{tag}_{q}"] for r in rows])), 4)
+        for tag in ("minos", "guerreiro", "util_only")
+        for q in ("p90", "p95", "p99")}
+    return {"rows": rows, "means": means}
+
+
+def kmeans_card_vs_host(lib, dev) -> int:
+    """Every (k, restart) of Fig. 4's silhouette sweep on the library's
+    utilization points (k = 3..17, four kmeans++ starts each): the float32
+    Lloyd's centres, labels and inertia on the card bitwise equal to the
+    host's.  Returns the number of pairs held."""
+    from repro_torch.core.clustering import _lloyd, kmeanspp_init
+    X = lib.classifier().util_matrix().cpu().numpy()
+    pairs = 0
+    for k in range(3, 18):
+        rng = np.random.default_rng(0)
+        inits = torch.from_numpy(np.stack(
+            [kmeanspp_init(X, k, rng) for _ in range(4)])).float()
+        Xf = torch.from_numpy(X).float()
+        card = _lloyd(Xf.to(dev), inits.to(dev), k, 50)
+        host = _lloyd(Xf, inits, k, 50)
+        for r in range(4):
+            if not all(torch.equal(c[r].cpu(), h[r])
+                       for c, h in zip(card, host)):
+                raise AssertionError(f"K-Means k={k} restart {r}: the card's "
+                                     f"Lloyd differs from the host's")
+            pairs += 1
+    return pairs
+
+
+def check_json(name: str, got: dict, keys=None) -> None:
+    """``results/<name>`` exactly, key by key."""
+    with open(os.path.join(ROOT, "results", name)) as f:
+        want = json.load(f)
+    for key in keys or want:
+        if got[key] != want[key]:
+            raise AssertionError(f"{name}: {key} differs from the reference's "
+                                 f"results: {got[key]!r} != {want[key]!r}")
+
+
+def discovery_phase(dev, card: str, lib, want_scale: dict, workdir: str,
+                    plain_state: dict | None = None) -> dict:
+    """Phase 13: ``discovery.json`` (smoke) and the bench's full
+    configuration through the port's discovery on the card; phase 12's
+    10,000-job session with quarantine on, against the plain session; and
+    ``classification.json``, ``holdout.json`` and ``baseline_cmp.json`` on
+    phase 5's library."""
+    t_phase = time.perf_counter()
+    results = {}
+    with open(os.path.join(ROOT, "results", "discovery.json")) as f:
+        want = json.load(f)
+    smoke = discovery_bench(dev, True, workdir)
+    check_discovery_json(smoke["result"], want)
+    for part in DISCOVERY_PARTS:
+        check_launches(f"discovery (smoke) {part}", smoke["launches"][part])
+    results["smoke"] = smoke
+    log(f"discovery.json smoke [{card}]: {json.dumps(smoke['result'])}; "
+        f"launches {json.dumps(smoke['launches'])} (the resume alone "
+        f"{json.dumps(smoke['resume_only'])}, then {smoke['continued']} "
+        f"arrivals)")
+    full = discovery_bench(dev, False, workdir)
+    for part in DISCOVERY_PARTS:
+        check_launches(f"discovery (full) {part}", full["launches"][part])
+    results["full"] = full
+    log(f"discovery full configuration [{card}]: "
+        f"{json.dumps(full['result'])}; launches "
+        f"{json.dumps(full['launches'])}")
+
+    if plain_state is None:             # --discovery-only: no phase 12
+        plain_state = session_scale(lib, dev, None)["state"]
+    got = session_scale(lib, dev, None, discovery=True)
+    check_counts("fleet_scale.json (quarantine on)", got, want_scale,
+                 ("decisions", "early_decisions", "chunks_dropped", "placed",
+                  "deferred"))
+    check_launches("10,000-job session (quarantine on)", got["launches"])
+    if got.pop("state") != plain_state:
+        raise AssertionError("the 10,000-job session with discovery on "
+                             "decided or planned differently from the "
+                             "plain one")
+    results["scale_quarantine"] = got
+    log(f"session 10,000 jobs (quarantine on) [{card}]: "
+        f"{got['jobs_per_s']:.1f} jobs/s ({got['seconds']:.3f} s), "
+        f"{got['quarantined']} quarantined ({got['pool']} in the pool), "
+        f"every decision and plan equal to the plain session's")
+
+    t0 = time.perf_counter()
+    results["kmeans_pairs_bitwise"] = kmeans_card_vs_host(lib, dev)
+    cls = classification_tables(lib)
+    check_json("classification.json", cls)
+    hold = holdout_table(lib)
+    check_json("holdout.json", hold)
+    base = baseline_table(lib)
+    check_json("baseline_cmp.json", base)
+    results["tables_s"] = time.perf_counter() - t0
+    results["classification"] = {k: cls[k] for k in ("k_best",
+                                                     "silhouette_by_k")}
+    results["holdout"] = {k: hold[k] for k in ("mean_errors",
+                                               "perfect_perf_predictions")}
+    results["baseline_cmp"] = base["means"]
+    log(f"classification.json, holdout.json, baseline_cmp.json on the port "
+        f"[{card}]: K-Means card = host bitwise for "
+        f"{results['kmeans_pairs_bitwise']} (k, restart) pairs, "
+        f"k_best {cls['k_best']}, holdout "
+        f"{hold['perfect_perf_predictions']} {json.dumps(hold['mean_errors'])}"
+        f", baselines {json.dumps(base['means'])} "
+        f"({results['tables_s']:.3f} s)")
+    results["launches"] = {
+        f"{cfg}_{part}": results[cfg]["launches"][part]
+        for cfg in ("smoke", "full") for part in DISCOVERY_PARTS}
+    results["launches"]["scale_quarantine"] = got["launches"]
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 (discovery and core/): {results['seconds']:.3f} s "
+        f"[{card}]")
     return results
 
 
@@ -2298,6 +2811,10 @@ def main() -> int:
                     help="build the kernels and the 28-workload library and "
                          "run phase 12 alone (the session path); prints no "
                          "result line")
+    ap.add_argument("--discovery-only", action="store_true",
+                    help="build the kernels and the 28-workload library and "
+                         "run phase 13 alone (discovery, K-Means, holdout, "
+                         "baselines); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -2364,20 +2881,27 @@ def main() -> int:
 
 def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                workdir: str) -> int:
-    """Phases 3-12 (the whole run, or phase 12 alone with
-    ``--session-only``); prints the result lines."""
+    """Phases 3-13 (the whole run, or phase 12 or 13 alone with
+    ``--session-only`` / ``--discovery-only``); prints the result lines."""
     with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
         want = json.load(f)
-    if args.session_only:
+    if args.session_only or args.discovery_only:
         from repro_torch.pipeline import build_reference_library
         from repro_torch.telemetry import TPUPowerModel
         lib = build_reference_library(TPUPowerModel(), target_duration=3.0,
                                       device=dev)
-        ses = session_phase(dev, card, lib, want, workdir)
+        if args.session_only:
+            name, phase = "session", session_phase(dev, card, lib, want,
+                                                   workdir)
+            phase.pop("plain_state")
+        else:
+            name, phase = "discovery", discovery_phase(dev, card, lib, want,
+                                                       workdir)
         if args.out is not None:
-            with open(os.path.join(args.out, "session.json"), "w") as f:
-                json.dump({"card": card, "session": ses}, f, indent=1)
-        log("phase 12 alone (--session-only): no result line")
+            with open(os.path.join(args.out, f"{name}.json"), "w") as f:
+                json.dump({"card": card, name: phase}, f, indent=1)
+        log(f"phase {12 if args.session_only else 13} alone "
+            f"(--{name}-only): no result line")
         return 0
     kp = kernel_phase(dev, flush)
     # the first profiler session of the process: a later one (after the
@@ -2400,6 +2924,11 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         f"{ses['scale']['plain']['jobs_per_s']:.1f} jobs/s (no journal), "
         f"{ses['scale']['journal']['jobs_per_s']:.1f} jobs/s (journal), "
         f"phase 5's controller {mp['jobs_per_s']:.1f} jobs/s")
+    dis = discovery_phase(dev, card, lib, want, workdir,
+                          ses.pop("plain_state"))
+    log(f"quarantine on vs off [{card}]: 10,000 jobs at "
+        f"{dis['scale_quarantine']['jobs_per_s']:.1f} jobs/s with "
+        f"discovery=True, {ses['scale']['plain']['jobs_per_s']:.1f} without")
     sp = serve_phase(dev, card, GLM, REQUESTS, glm_launches, args.out,
                      args.trace)
     torch.cuda.empty_cache()        # the glm4-9b engine is gone: release it
@@ -2454,9 +2983,12 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    for rec in kernels[:2]:             # phase 12's parts, counted apart
+    for rec in kernels[:2]:      # phases 12 and 13's parts, counted apart
         rec["launches_session"] = {part: n[rec["name"]] for part, n in
                                    ses["launches"].items()}
+        rec["launches_session"].update(
+            {f"discovery_{part}": n[rec["name"]]
+             for part, n in dis["launches"].items()})
     kernels[2]["shapes"] = [            # flash at every timed prefill shape
         {k: r[k] for k in ("b", "s", "ms", "library_ms", "bound_ms",
                            "bound_by")}
@@ -2486,7 +3018,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,
-                       "session": ses, "fleet_trace": fleet_trace,
+                       "session": ses, "discovery": dis,
+                       "fleet_trace": fleet_trace,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,8 +20,11 @@ profiling engine and the classifier run on ``device`` (default: the card):
     report = session.run()                      # SessionReport (JSON-able)
     session = MinosSession.resume("session_store")   # after a crash
 
-Everything the facade builds on is re-exported here.  Online class
-discovery (``repro.discovery`` in the reference) is not ported yet.
+    # online class discovery: low-margin jobs quarantine, promote new classes
+    session = MinosSession(library, discovery=True)
+    session.discovery.profiler = stream_profiler(novel_streams())
+
+Everything the facade builds on is re-exported here.
 """
 from repro_torch.api.registry import (ACTUATORS, OBJECTIVES, QUANTILES,
                                       QuantilePolicy, Registry,
@@ -38,6 +41,9 @@ from repro_torch.core.algorithm1 import (FreqSelection, ObjectivePolicy,
 from repro_torch.core.classify import (FreqPoint, MinosClassifier,
                                        WorkloadProfile,
                                        count_classifier_calls)
+from repro_torch.discovery import (DiscoveryController, QuarantinePool,
+                                   ShadowEvaluator, stream_profiler,
+                                   truth_selection)
 from repro_torch.fleet.controller import (FleetCapController, FleetEvent,
                                           FleetResult)
 from repro_torch.fleet.inventory import (DeviceInstance, DeviceInventory,
@@ -101,6 +107,9 @@ __all__ = [
     # durable sessions (repro_torch.store)
     "SessionStore", "EventJournal", "JournalRecord", "SnapshotStore",
     "NoStoreError", "StoreError", "store_report", "windowed_report",
+    # online class discovery (repro_torch.discovery)
+    "DiscoveryController", "QuarantinePool", "ShadowEvaluator",
+    "stream_profiler", "truth_selection",
     # actuation / scheduling
     "FrequencyActuator", "SimActuator", "PowerAwareScheduler",
     # telemetry + workload zoo

@@ -26,9 +26,7 @@ names — so a deployment is one JSON document away from a running session.
 
 The port's session runs every job's profiling state, and the classifier, on
 ``device`` (default: the card); ``MinosSession.resume`` reads stores that
-either package wrote.  Online class discovery (``discovery=``,
-``discover``, ``rollback_discovery``) is not ported yet and raises
-``NotImplementedError``.
+either package wrote, discovery records included.
 """
 from __future__ import annotations
 
@@ -42,8 +40,8 @@ from contextlib import nullcontext
 from repro_torch.api.registry import ACTUATORS, OBJECTIVES, QUANTILES
 from repro_torch.core.algorithm1 import resolve_objective
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.fleet.controller import _SESSION_ITEM, FleetCapController, \
-    FleetEvent, FleetJob, RepackTrail, _not_ported
+from repro_torch.fleet.controller import FleetCapController, FleetEvent, \
+    FleetJob, RepackTrail
 from repro_torch.fleet.inventory import DEGRADED, FAILED, DeviceInstance, \
     DeviceInventory, VariabilityModel
 from repro_torch.fleet.mux import FleetTelemetryMux
@@ -231,15 +229,21 @@ class MinosSession:
         the session after a crash with zero classifier calls.  Without a
         store every code path is byte-identical to the store-less session.
 
-        ``discovery`` (online class discovery) is not ported yet: anything
-        but ``None``/``False`` raises ``NotImplementedError``.
+        ``discovery`` opts into online class discovery: pass ``True``
+        (defaults), a knobs dict (see ``repro_torch.discovery.
+        DISCOVERY_KEYS``), or a prebuilt ``DiscoveryController`` — finalized
+        low-margin decisions then quarantine their profiles, periodic
+        re-clustering mints candidate classes, and shadow-vetted promotions
+        publish a new library version the fleet adopts atomically between
+        ticks (``references`` must be a ``ReferenceLibrary``).  Set
+        ``session.discovery.profiler`` to a full-profile callable to enable
+        promotion.  Without a discovery key every code path is
+        byte-identical to the discovery-less session.
 
         ``device`` is where the classifier and every job's profiling state
         live (default: the card; pass ``"cpu"`` to run on the host).  A
         ``ReferenceLibrary`` or ``MinosClassifier`` passed as
         ``references`` must already live there."""
-        if discovery is not None and discovery is not False:
-            raise _not_ported("discovery=")
         self.device = resolve_device(device)
         self.library = references        # whatever was handed in (may be lib)
         self.inventory = inventory
@@ -262,6 +266,9 @@ class MinosSession:
         self._actuator_name = actuator if isinstance(actuator, str) else None
         self._library_path = None        # set when built via from_config
         self._store: SessionStore | None = None
+        self._discovery = self._init_discovery(discovery, references)
+        if self._discovery is not None:
+            self._fleet.set_discovery(self._discovery)
         if store is not None:
             self._init_store(store)
 
@@ -298,6 +305,34 @@ class MinosSession:
         raise ValueError(f"stragglers must be True, a StragglerMonitor, or "
                          f"a FleetStragglerAdapter, got {stragglers!r}")
 
+    def _init_discovery(self, discovery, references):
+        """Resolve the ``discovery`` option into a ``DiscoveryController``
+        (or ``None`` — the inert default: no discovery attribute is touched
+        anywhere on the hot paths)."""
+        if discovery is None or discovery is False:
+            return None
+        from repro_torch.discovery import DISCOVERY_KEYS, DiscoveryController
+        if isinstance(discovery, DiscoveryController):
+            return discovery
+        if discovery is True:
+            knobs = {}
+        elif isinstance(discovery, dict):
+            bad = set(discovery) - set(DISCOVERY_KEYS)
+            if bad:
+                raise ValueError(f"unknown discovery keys {sorted(bad)}; "
+                                 f"recognized: {list(DISCOVERY_KEYS)}")
+            knobs = dict(discovery)
+        else:
+            raise ValueError(f"discovery must be True, a knobs dict, or a "
+                             f"DiscoveryController, got {discovery!r}")
+        if not isinstance(references, ReferenceLibrary):
+            raise ValueError(
+                "discovery needs the session references to be a "
+                "ReferenceLibrary (promotions version its membership); got "
+                f"{type(references).__name__}")
+        return DiscoveryController(references, objective=self._objective,
+                                   **knobs)
+
     # -- declarative construction ----------------------------------------
     @classmethod
     def from_config(cls, config, references=None,
@@ -323,9 +358,14 @@ class MinosSession:
           * ``store`` — durable-session directory (must be fresh): every
             mutation is journaled write-ahead so a crashed session can be
             reconstructed with ``MinosSession.resume(path)``;
-          * ``discovery`` — recognized, but online class discovery is not
-            ported yet: a value other than ``false``/``null`` raises
-            ``NotImplementedError``.
+          * ``discovery`` — ``true`` (defaults) or a knobs dict
+            (``quarantine_below`` / ``min_cluster`` / ``cluster_distance``
+            / ``promote_agreement`` / ``recluster_every`` / ``capacity`` /
+            ``min_confidence_gain`` / ``bin_size``): online class discovery
+            — low-margin decisions quarantine, re-clustering mints
+            candidates, shadow-vetted promotions publish new library
+            versions (requires a ``ReferenceLibrary``; attach a profiler
+            via ``session.discovery.profiler`` to enable promotion).
 
         ``device`` (a keyword, not a config key) is where the session runs;
         the library is loaded onto it."""
@@ -430,10 +470,10 @@ class MinosSession:
         ``from_config({"library": ...})`` reload it from the recorded path.
 
         Stores written by the reference package resume here too: the
-        journal, snapshot and record formats are the same.  A store whose
-        session had online class discovery resumes without it (warned):
-        its replayed decisions and plans are adopted verbatim either way,
-        but new jobs classify against the base library.
+        journal, snapshot and record formats are the same, discovery's
+        quarantine, promotion and rollback records included.  A promoted
+        library version is re-adopted from its records (zero classifier
+        calls), so new jobs classify against it as they did before.
 
         Raises ``repro_torch.store.NoStoreError`` when ``path`` holds no
         store at all, ``repro_torch.store.StoreError`` when a store exists
@@ -458,11 +498,6 @@ class MinosSession:
                     "reference library (no 'library' path was recorded); "
                     "pass the references object to resume()")
             references = ReferenceLibrary.load(cfg["library"], device=device)
-        if cfg.get("discovery") is not None:
-            warnings.warn(
-                f"the session in {str(path)!r} had online class discovery, "
-                f"which is not ported yet ({_SESSION_ITEM}); resuming "
-                f"without it", RuntimeWarning)
         inventory = None
         if cfg.get("devices"):
             inventory = DeviceInventory(
@@ -474,7 +509,8 @@ class MinosSession:
             actuator=cfg.get("actuator") or "sim",
             quantile=cfg.get("quantile", "p99"),
             stragglers=cls._stragglers_from_record(cfg.get("stragglers")),
-            device=device, **(cfg.get("gates") or {}))
+            discovery=cfg.get("discovery"), device=device,
+            **(cfg.get("gates") or {}))
         session._library_path = cfg.get("library")
         state, snap_seq = store.load_snapshot()
         if state is not None:
@@ -493,6 +529,13 @@ class MinosSession:
         if not fleet.repacks \
                 and any(j.plan is not None for j in fleet.jobs.values()):
             fleet._repack()
+        d = session._discovery
+        if d is not None and d.version > 1:
+            # re-adopt the promoted library version verbatim: a fresh warm
+            # classifier from the replayed membership — pure spike-matrix
+            # adoption, zero classifier queries (replayed decisions were
+            # re-adopted from the journal, never re-derived)
+            fleet.adopt_classifier(d.library)
         session._attach_store(store)
         store.record(kinds.RESUME, last_seq=store.journal.last_seq,
                      snapshot_seq=snap_seq)
@@ -552,6 +595,10 @@ class MinosSession:
                 self._fleet.straggler_adapter),
             "library": self._library_path,
         }
+        if self._discovery is not None:
+            # key present only when enabled: discovery-less stores keep
+            # their open-record bytes (inert-by-default)
+            rec["discovery"] = self._discovery.config_record()
         return rec
 
     def _quantile_name(self):
@@ -611,6 +658,10 @@ class MinosSession:
             "dropped": fleet._dropped,
             "rr": self._rr,
         }
+        if self._discovery is not None:
+            # key present only when enabled: discovery-less snapshots keep
+            # their bytes (inert-by-default)
+            state["discovery"] = self._discovery.state_record()
         return state
 
     def _restore_state(self, state: dict) -> None:
@@ -647,6 +698,8 @@ class MinosSession:
             # final schedule preserves both without storing the whole trail
             fleet.repacks = RepackTrail([from_dict(state["schedule"])]
                                         * max(int(state["repacks"]), 1))
+        if self._discovery is not None and state.get("discovery") is not None:
+            self._discovery.restore(state["discovery"])
 
     def _replay_admit(self, rec: dict) -> None:
         device = device_from_record(rec["device"])
@@ -692,12 +745,23 @@ class MinosSession:
             case kinds.CURSOR:
                 self._rr = int(data["rr"])
             case kinds.QUARANTINE | kinds.PROMOTE | kinds.ROLLBACK:
-                # discovery is not ported: the session never has it
-                # configured, so these skip as the reference skips them
-                warnings.warn(
-                    f"journal record {rec.seq} is a discovery {kind!r} "
-                    f"record but the resumed session has no discovery "
-                    f"configured; skipping it", RuntimeWarning)
+                d = self._discovery
+                if d is None:
+                    warnings.warn(
+                        f"journal record {rec.seq} is a discovery {kind!r} "
+                        f"record but the resumed session has no discovery "
+                        f"configured; skipping it", RuntimeWarning)
+                elif kind == kinds.QUARANTINE:
+                    d.admit_record(data["entry"])
+                elif kind == kinds.PROMOTE:
+                    # verbatim re-adoption of the promoted membership:
+                    # rebuilds the profiles from their journaled records and
+                    # row-appends them — zero classifier calls (the fleet's
+                    # classifier is re-pointed once, after the full replay)
+                    d.adopt_promoted(int(data["version"]), data["profiles"],
+                                     data["consumed"])
+                else:
+                    d.rollback()
             case _:
                 warnings.warn(f"journal record {rec.seq} has unknown kind "
                               f"{kind!r}; skipping it", RuntimeWarning)
@@ -914,18 +978,83 @@ class MinosSession:
         its jobs finished early)."""
         return self._fleet.straggler_adapter
 
-    # -- online class discovery: not ported -----------------------------
+    # -- online class discovery -------------------------------------------
     @property
     def discovery(self):
-        """The session's ``DiscoveryController``: always ``None`` here
-        (online class discovery is not ported yet)."""
-        return None
+        """The session's ``DiscoveryController`` (``None`` unless the
+        session was built with a ``discovery`` option).  Set its
+        ``.profiler`` to a full-profile callable — e.g.
+        ``repro_torch.discovery.stream_profiler`` over the streams a production
+        profiling run would target — to enable promotion."""
+        return self._discovery
+
+    def _require_discovery(self):
+        if self._discovery is None:
+            raise ValueError(
+                "this session has no discovery configured; construct it "
+                "with discovery=True (or a knobs dict)")
+        return self._discovery
 
     def discover(self, force: bool = True) -> dict | None:
-        raise _not_ported("discover()")
+        """Run one re-cluster + shadow-evaluate pass over the quarantine
+        pool now (``force=False`` honours the ``recluster_every`` cadence),
+        and — when at least one candidate passes the shadow gate — promote:
+        journal the promotion write-ahead, publish the next library
+        version, and atomically re-point the whole fleet at it (zero
+        classifier calls on the swap).  Returns a promotion summary dict,
+        or ``None`` when nothing promoted."""
+        d = self._require_discovery()
+        promo = d.propose(force=force)
+        if promo is None:
+            return None
+        return self._adopt_promotion(promo)
 
     def rollback_discovery(self) -> dict:
-        raise _not_ported("rollback_discovery()")
+        """Revert the last promotion (N-1): journal the rollback, restore
+        the previous library version, and re-point the fleet at it.  Note
+        that plans built *after* the promotion may reference discovered
+        classes the restored library no longer has; re-costing such a plan
+        (migration, elastic shrink) will fail — roll back before acting on
+        a promotion's decisions, or retire the affected jobs first."""
+        d = self._require_discovery()
+        if d._previous is None:
+            raise ValueError("no previous library version to roll back to")
+        if self._store is not None:
+            self._store.record(kinds.ROLLBACK, version=d.version - 1)
+        d.rollback()
+        self._fleet.adopt_classifier(d.library)
+        if self._store is not None:
+            self._store.flush_snapshot(force=True)
+        return {"version": d.version, "classes": d.library.names}
+
+    def _maybe_discover(self) -> None:
+        """Between-ticks discovery hook (inert without discovery): runs the
+        re-cluster pass only when the quarantine cadence says it is due."""
+        d = self._discovery
+        if d is None or not d.due():
+            return
+        promo = d.propose()
+        if promo is not None:
+            self._adopt_promotion(promo)
+
+    def _adopt_promotion(self, promo) -> dict:
+        """Journal (write-ahead) + apply a promotion, then swap the fleet's
+        classifier atomically — between ticks, never mid-tick."""
+        d = self._discovery
+        if self._store is not None:
+            self._store.record(kinds.PROMOTE, version=promo.version,
+                               profiles=promo.profile_records,
+                               consumed=list(promo.consumed))
+        d.apply(promo)
+        self._fleet.adopt_classifier(d.library)
+        if self._store is not None:
+            # a promotion is a version boundary: snapshot it immediately so
+            # a crash right after resumes from the promoted state directly
+            self._store.flush_snapshot(force=True)
+        return {"version": d.version,
+                "classes": [p.name for p in promo.profiles],
+                "consumed": len(promo.consumed),
+                "reports": [r.record() for r in promo.reports]}
 
     def run(self, finalize: bool = True) -> SessionReport:
         """Drain every attached-but-unconsumed telemetry stream through the
@@ -940,8 +1069,10 @@ class MinosSession:
                 mux.add_job(h.job_id, h.meta, h._take_chunks())
             for batch in mux.ticks():
                 self._fleet.ingest_tick(batch)
+                self._maybe_discover()       # library swaps between ticks
         if finalize and self._fleet.jobs:
             self._fleet.finalize()
+            self._maybe_discover()
         return self.report()
 
     def report(self) -> SessionReport:
@@ -959,7 +1090,9 @@ class MinosSession:
             chunks_dropped=fleet._dropped,
             retired=dict(self._retired),
             events=list(fleet.events),
-            device_health=fleet.device_health())
+            device_health=fleet.device_health(),
+            discovery=self._discovery.report_record()
+                      if self._discovery is not None else None)
 
     # -- helpers ---------------------------------------------------------
     def _resolve_device(self, device) -> DeviceInstance:

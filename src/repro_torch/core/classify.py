@@ -22,8 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import spikes
-from repro_torch.core.clustering import (cosine_distance_matrix, cut_k,
-                                         linkage, row_dots, row_sq_norms)
+from repro_torch.core.clustering import (best_k_by_silhouette,
+                                         cosine_distance_matrix, cut_k,
+                                         kmeans, linkage, row_dots,
+                                         row_sq_norms)
 from repro_torch.device import as_f64
 
 
@@ -245,9 +247,17 @@ class MinosClassifier:
         return self._util_cache
 
     def util_classes(self, k: int | None = None, seed: int = 0):
-        raise NotImplementedError(
-            "util_classes needs K-Means, which is not ported yet (ROADMAP "
-            "queue 1: K-Means and silhouette, float32 Lloyd)")
+        """K-Means classes of the utilization points (paper Fig. 4): k from
+        the silhouette sweep unless given.  Returns (labels, centers, k,
+        scores) with host arrays, as the reference does."""
+        X = self.util_matrix()
+        if k is None:
+            k, scores = best_k_by_silhouette(X, seed=seed,
+                                             device=self.device)
+        else:
+            scores = None
+        centers, labels, _ = kmeans(X, k, seed=seed, device=self.device)
+        return labels, centers, k, scores
 
     def util_neighbors(self, targets: list[WorkloadProfile],
                        exclude: str | None = None

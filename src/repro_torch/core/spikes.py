@@ -170,7 +170,10 @@ def p_quantile(power: torch.Tensor, tdp: float, q: float = 90.0) -> float:
 
 
 def mean_power_rel(power: torch.Tensor, tdp: float) -> float:
-    """Mean power relative to TDP (the Guerreiro et al. feature)."""
+    """Mean power relative to TDP (the Guerreiro et al. feature).  The mean
+    is NumPy's over one host copy of the trace: the reference's bits, on
+    every device (a device reduction sums in another order on the card)."""
     if len(power) == 0:
         return 0.0
-    return float(power.to(torch.float64).mean().item()) / tdp
+    return float(np.mean(power.detach().to(torch.float64).cpu().numpy())
+                 / tdp)

@@ -36,11 +36,12 @@ shrink through ``ft.plan_new_mesh``/``rescale_batch`` instead of migrating
 wholesale.  A ``FleetStragglerAdapter`` wired via ``straggler_adapter``
 turns the mux's per-device chunk cadence into automatic degrade-and-drain.
 A ``journal`` (a ``repro_torch.store.SessionStore``) records every
-mutation write-ahead.
+mutation write-ahead, and ``set_discovery`` taps every job's confidence
+gate into online class discovery, whose promotions ``adopt_classifier``
+swaps in between ticks.
 
 The profiling state of every job is one slot of a ``BatchProfileEngine`` on
-``device`` (default: the card).  Online class discovery (``set_discovery``,
-``adopt_classifier``) is not ported yet and raises ``NotImplementedError``.
+``device`` (default: the card).
 """
 from __future__ import annotations
 
@@ -68,14 +69,6 @@ from repro_torch.sched.dvfs import SimActuator
 from repro_torch.sched.power_sched import IncrementalPacker, JobPlan, \
     PowerAwareScheduler, RepackStats, ScheduleResult
 from repro_torch.store import kinds
-
-# the ROADMAP item that adds what the port's controller and session leave
-# out (online class discovery)
-_SESSION_ITEM = "ROADMAP queue 1, item 1c: online class discovery"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet ({_SESSION_ITEM})")
 
 
 class _PendingRepack:
@@ -271,6 +264,11 @@ class FleetCapController:
         # no durability, every code path byte-identical to the store-less
         # controller
         self.journal = journal
+        # online class discovery (repro_torch.discovery.DiscoveryController),
+        # attached by MinosSession when configured with a discovery key;
+        # None = inert, every code path byte-identical to the
+        # discovery-less controller
+        self.discovery = None
         self.jobs: dict[str, FleetJob] = {}
         self.repacks = RepackTrail()
         self.events: list[FleetEvent] = []
@@ -300,12 +298,54 @@ class FleetCapController:
         if self.journal is not None:
             self.journal.flush_snapshot()
 
-    # -- not ported: discovery, classifier swaps --------------------------
+    # -- online class discovery -------------------------------------------
     def set_discovery(self, discovery) -> None:
-        raise _not_ported("online class discovery (set_discovery)")
+        """Attach a ``DiscoveryController``: every per-job controller's
+        confidence gate gets tapped so finalized low-margin profiles flow
+        into the quarantine pool (journaled write-ahead when a store is
+        attached).  Pass ``None`` to detach."""
+        self.discovery = discovery
+        tap = self._quarantine_tap if discovery is not None else None
+        for job in self.jobs.values():
+            job.controller.quarantine_tap = tap
+
+    def _quarantine_tap(self, profile, decision) -> None:
+        """Gate-tap callback (fires inside ``OnlineCapController._record``):
+        low-margin decisions quarantine their decided profile.  The entry
+        record is journaled *before* the pool admits it, so a crash between
+        the two replays to the identical pool state."""
+        d = self.discovery
+        if d is None or not d.wants(decision):
+            return
+        rec = d.entry_record(profile, decision)
+        self._journal(kinds.QUARANTINE, entry=rec)
+        d.admit_record(rec)
 
     def adopt_classifier(self, references) -> MinosClassifier:
-        raise _not_ported("adopt_classifier (discovery promotion)")
+        """Atomically repoint the whole fleet at a new reference classifier
+        (a discovery promotion or rollback published a new library version):
+        the shared classifier object, the scheduler's name-resolution memos,
+        and every per-job controller swap together, so the batched
+        observation paths (which group by classifier identity) keep seeing
+        ONE shared object.  Call only between ticks — decisions already
+        made keep their cached selections and are never re-derived.
+
+        Zero classifier calls: building a warm classifier from a library is
+        pure matrix adoption, and nothing here queries it."""
+        if isinstance(references, ReferenceLibrary):
+            clf = references.classifier()
+        elif isinstance(references, MinosClassifier):
+            clf = references
+        else:
+            clf = MinosClassifier(list(references), device=self.device)
+        if clf.device != self.device:
+            raise ValueError(f"the reference classifier lives on "
+                             f"{clf.device}, the fleet on {self.device}")
+        self.clf = clf
+        self.scheduler.adopt_classifier(clf)
+        for job in self.jobs.values():
+            job.controller.clf = clf
+        return clf
 
     # -- builder lifecycle -----------------------------------------------
     def _make_builder(self, meta, tdp: float):
@@ -445,6 +485,8 @@ class FleetCapController:
         controller = OnlineCapController(
             self.clf, objective=self.objective, actuator=actuator,
             device_id=device.device_id, **self._gates)
+        if self.discovery is not None:
+            controller.quarantine_tap = self._quarantine_tap
         if builder is None:
             builder = self._make_builder(spec["meta"],
                                          device.effective_tdp_w)

@@ -166,8 +166,13 @@ def test_exclusion_and_errors_match_reference(pair):
     ea = a.power_neighbors([a.references[0]], exclude=name)
     eb = b.power_neighbors([b.references[0]], exclude=name)
     assert ea[0][0].name == eb[0][0].name != name
-    with pytest.raises(NotImplementedError, match="K-Means"):
-        b.util_classes(3)
+    # K-Means classes of the utilization points: the reference's labels
+    # and float32 centres
+    la, ca, ka, _ = a.util_classes(3)
+    lb, cb, kb, _ = b.util_classes(3)
+    assert ka == kb == 3
+    np.testing.assert_array_equal(np.asarray(la), lb)
+    np.testing.assert_array_equal(np.asarray(ca), cb)
 
 
 def test_top2_and_sweep_match_reference(pair):

@@ -705,3 +705,136 @@ def test_bench_chaos_engine_on_card_bitwise_equal_host(cuda):
     for key in ("failures", "migrations", "reprofiled_jobs", "repacks",
                 "placed", "deferred", "planned_power_w", "device_health"):
         assert card[key] == host[key], key
+
+
+def _discovery_session(device, store=None):
+    """A discovery session on ``device``: the micro library, four
+    vector-search arrivals quarantined, a forced promotion, one arrival
+    after it; returns (session, promotion summary, decisions, the
+    launches of the promotion)."""
+    from repro_torch.api import (MinosSession, ReferenceLibrary,
+                                 TPUPowerModel, micro_gemm, micro_idle_burst,
+                                 micro_spmv_memory, micro_stencil,
+                                 micro_vector_search, stream_profile_workload,
+                                 stream_profiler, stream_telemetry, to_dict)
+    model, freqs = TPUPowerModel(), (0.6, 0.8, 1.0)
+    lib = ReferenceLibrary(
+        (stream_profile_workload(s, model, freqs, model.spec.tdp_w, seed=i,
+                                 target_duration=0.5, device=device)
+         for i, s in enumerate([micro_gemm(), micro_idle_burst(),
+                                micro_spmv_memory(), micro_stencil()])),
+        built_on="tpu-v5e", device=device)
+    session = MinosSession(
+        lib, store=store, device=device, min_confidence=0.2,
+        min_fraction=0.1, min_spike_samples=50,
+        discovery={"quarantine_below": 0.9, "min_cluster": 3,
+                   "recluster_every": 100, "promote_agreement": 0.5,
+                   "cluster_distance": 0.5})
+
+    def run(seed):
+        return session.submit(stream_telemetry(
+            micro_vector_search(), 1.0, model, seed=seed,
+            target_duration=0.5), chips=2).run()
+
+    decisions = [to_dict(run(800 + i)) for i in range(4)]
+    session.discovery.profiler = stream_profiler(
+        [micro_vector_search()], model, freqs, model.spec.tdp_w,
+        target_duration=0.5, device=device)
+    before = dict(build.LAUNCHES)
+    promo = session.discover(force=True)
+    launched = {k: build.LAUNCHES[k] - before[k]
+                for k in ("spike_hist", "ema_scan")}
+    decisions.append(to_dict(run(900)))
+    return session, promo, decisions, launched
+
+
+@pytest.mark.cuda
+def test_discovery_on_card_bitwise_equal_host(cuda, tmp_path):
+    """Online class discovery on the card against the host: the same
+    promotion, the pool's records, the promoted library's spike matrices
+    and every decision bit for bit; the promotion ran the kernels; both
+    stores resume on the card with 0 classifier calls."""
+    import json
+    from repro_torch.api import MinosSession, ReferenceLibrary
+    card, pc, dc, launched = _discovery_session(cuda, str(tmp_path / "c"))
+    host, ph, dh, _ = _discovery_session("cpu", str(tmp_path / "h"))
+    assert launched["spike_hist"] > 0 and launched["ema_scan"] > 0, launched
+    for i, (c, h) in enumerate(zip(dc, dh)):
+        assert c == h, (i, c, h)
+    assert pc == ph, (pc, ph)
+    assert "discovered-v2" in dc[-1]["selection"]["power_neighbor"]
+    assert json.dumps(card.discovery.state_record()) == \
+        json.dumps(host.discovery.state_record())
+    lc, lh = card.discovery.library, host.discovery.library
+    assert lc.names == lh.names
+    for c in lc.bin_sizes:
+        assert torch.equal(lc.spike_matrix(c).cpu(), lh.spike_matrix(c))
+    card.close()
+    host.close()
+    base = card.discovery.base_library
+    calls, orig = [], ReferenceLibrary.classifier
+
+    def spied(self, *a, **k):
+        from repro_torch.api import count_classifier_calls
+        clf = orig(self, *a, **k)
+        calls.append(count_classifier_calls(clf))
+        return clf
+
+    ReferenceLibrary.classifier = spied
+    try:
+        for path in ("c", "h"):
+            resumed = MinosSession.resume(str(tmp_path / path),
+                                          references=base, device=cuda)
+            assert resumed.discovery.version == 2
+            assert resumed.discovery.library.names == lc.names
+            resumed.close()
+    finally:
+        ReferenceLibrary.classifier = orig
+    assert sum(c["n"] for c in calls) == 0
+
+
+def _zoo_util_matrix(device):
+    from repro_torch.api import TPUPowerModel, reference_streams
+    from repro_torch.pipeline import stream_profile_once
+    model = TPUPowerModel()
+    profiles = [stream_profile_once(s, model, model.spec.tdp_w, seed=i,
+                                    target_duration=0.2, device=device)
+                for i, s in enumerate(reference_streams())]
+    return np.array([p.util_point for p in profiles])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zoo", (0, 28, 2), (3, 51, 4),
+                                  (5, 90, 2)])
+def test_kmeans_on_card_bitwise_equal_host(cuda, case):
+    """Every (k, restart) of the float32 Lloyd: centres, labels and inertia
+    on the card equal the host's bit for bit (fixed-order sums, no
+    atomics), and so do ``kmeans`` and the silhouette sweep's k."""
+    from repro_torch.core import clustering
+    if case == "zoo":
+        X, ks = _zoo_util_matrix("cpu"), range(3, 18)
+    else:
+        seed, n, d = case
+        rng = np.random.default_rng(seed)
+        X = rng.normal(size=(n, d)) * rng.uniform(0.1, 3.0)
+        ks = (2, 3, 5, 9)
+    for k in ks:
+        rng = np.random.default_rng(0)
+        inits = np.stack([clustering.kmeanspp_init(X, k, rng)
+                          for _ in range(4)])
+        got = clustering._lloyd(
+            torch.tensor(X, dtype=torch.float32, device=cuda),
+            torch.tensor(inits, dtype=torch.float32, device=cuda), k, 50)
+        want = clustering._lloyd(
+            torch.tensor(X, dtype=torch.float32),
+            torch.tensor(inits, dtype=torch.float32), k, 50)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), k
+        for g, w in zip(clustering.kmeans(X, k, device=cuda),
+                        clustering.kmeans(X, k, device="cpu")):
+            assert np.array_equal(g, w), k
+    kc, sc = clustering.best_k_by_silhouette(X, k_range=ks, device=cuda)
+    kh, sh = clustering.best_k_by_silhouette(X, k_range=ks, device="cpu")
+    assert kc == kh
+    for k in sh:
+        assert abs(sc[k] - sh[k]) <= 1e-12

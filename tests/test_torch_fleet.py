@@ -144,20 +144,35 @@ def test_retire_repacks_without_reclassification():
 
 
 def test_not_ported_paths_raise():
-    """Online class discovery is the one controller path still to port
-    (ROADMAP item 1c); the failure paths are ported and, as in the
-    reference, need an inventory."""
+    """Every controller path is ported: the discovery hooks swap the shared
+    classifier and tap the gates without classifying, and the failure
+    paths, as in the reference, need an inventory."""
     fleet, _, _, _ = _port(10, repack="tick")
-    for call in (lambda: fleet.adopt_classifier(fleet.clf),
-                 lambda: fleet.set_discovery(object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 1c"):
-            call()
+    calls = count_classifier_calls(fleet.clf)
+    lib = [j.controller.clf for j in fleet.jobs.values()][0]
+    clone = TF.controller.MinosClassifier(lib.references, device=CPU)
+    assert fleet.adopt_classifier(clone) is clone and fleet.clf is clone
+    assert all(j.controller.clf is clone for j in fleet.jobs.values())
+    assert fleet.adopt_classifier(list(lib.references)).device == \
+        fleet.device
+    with pytest.raises(ValueError, match="lives on"):
+        fleet.adopt_classifier(TF.controller.MinosClassifier(
+            lib.references, device="meta"))
+    assert fleet.discovery is None
+    tap = object()
+    fleet.set_discovery(tap)
+    assert fleet.discovery is tap and all(
+        j.controller.quarantine_tap == fleet._quarantine_tap
+        for j in fleet.jobs.values())
+    fleet.set_discovery(None)
+    assert all(j.controller.quarantine_tap is None
+               for j in fleet.jobs.values())
+    assert calls["n"] == 0
     for call in (lambda: fleet.fail_device("tpu-v5e/000"),
                  lambda: fleet.degrade_device("tpu-v5e/000"),
                  lambda: fleet.restore_device("tpu-v5e/000")):
         with pytest.raises(ValueError, match="needs an inventory"):
             call()
-    lib = [j.controller.clf for j in fleet.jobs.values()][0]
     adapter = TF.controller.FleetStragglerAdapter()
     built = TF.FleetCapController(lib, budget_w=1.0, device=CPU,
                                   journal=None, straggler_adapter=adapter)

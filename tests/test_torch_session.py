@@ -14,7 +14,8 @@ restore):
   * a store written by either package resumes in the other with 0
     classifier calls and the same decisions and plans;
   * torn tails, corrupt middle records and corrupt snapshots recover;
-    ``from_config`` takes the reference's keys; discovery raises.
+    ``from_config`` takes the reference's keys, ``discovery`` included
+    (its own pins are in ``tests/test_torch_discovery.py``).
 """
 import glob
 import json
@@ -518,17 +519,26 @@ def test_from_config_library_path_loads_on_device(libs, tmp_path):
 
 
 def test_discovery_not_ported_and_discovery_records_skip(libs, tmp_path):
+    """Discovery is ported: ``discovery=`` and the ``from_config`` key build
+    the reference's controller (the same open-record knobs); a session
+    without it has none, ``discover`` / ``rollback_discovery`` raise the
+    reference's ``ValueError``, and discovery records in its journal are
+    skipped with a warning, as the reference skips them."""
     for value in (True, {"capacity": 3}):
-        with pytest.raises(NotImplementedError, match="item 1c"):
-            T.MinosSession(libs[T], discovery=value, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 1c"):
-            T.MinosSession.from_config({"discovery": value},
-                                       references=libs[T], device=CPU)
+        built = [T.MinosSession(libs[T], discovery=value, device=CPU),
+                 T.MinosSession.from_config({"discovery": value},
+                                            references=libs[T], device=CPU)]
+        want = R.MinosSession(libs[R], discovery=value).discovery
+        for session in built:
+            assert session.discovery.config_record() == \
+                want.config_record()
+            assert session.discovery.pool.device.type == "cpu"
+            assert session.report().discovery == want.report_record()
     session = T.MinosSession(libs[T], discovery=False, device=CPU,
                              store=str(tmp_path / "s"))
     assert session.discovery is None and session.report().discovery is None
     for call in (session.discover, session.rollback_discovery):
-        with pytest.raises(NotImplementedError, match="item 1c"):
+        with pytest.raises(ValueError, match="no discovery configured"):
             call()
     for kind in ("quarantine", "promote", "rollback"):
         session.store.record(kind, version=2)
