@@ -4,7 +4,7 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12 and 13
-right after phase 5:
+right after phase 5 (phases 14 and 15 run last, after phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -48,14 +48,19 @@ right after phase 5:
      instructions in its SASS (``cuobjdump -sass``), and fails if there is
      none; ``flash_attention`` (bfloat16 causal at glm4-9b's heads: b=4 x
      s=1024, the serving path's ragged s=1000 and s=2048, a cached-prefill
-     sq < skv case, float32, head_dim 64 and 32, and q, k, v read through
-     the strides of a packed QKV tensor) and ``rmsnorm`` (bfloat16 at
-     (4096, 4096), the prefill rows (4000, 4096) and the decode rows
-     (4, 4096); float32) against their plain versions on the card; times
+     sq < skv case, float32, head_dim 64 and 32, granite-moe-3b-a800m's
+     prefill (4, 1000) and (1, 2048) with 24 query heads over 8 KV heads
+     at head_dim 64, and q, k, v read through the strides of a packed QKV
+     tensor) and ``rmsnorm`` (bfloat16 at (4096, 4096), the prefill rows
+     (4000, 4096) and the decode rows (4, 4096); float32; and the MoE
+     paths' norms, bfloat16 rows and scale at granite's width 1536,
+     deepseek's 5120 and MLA's latent 512 over 4000, 2048, 4 and 1 rows,
+     with and without pdl) against their plain versions on the card; times
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
      the serving path's shapes (flash at (4, 1000), (4, 1024) and (1, 2048),
-     each with its bound); rmsnorm at the decode rows with and without
+     and at granite's (4, 1000) heads, each with its bound); rmsnorm at the
+     decode rows with and without
      programmatic dependent launch (pdl), the decode chain (81 pairs of a
      residual add and a norm, as one glm4-9b forward, for the kernel with
      and without pdl, ``rms_norm`` and the adds alone) and the host
@@ -131,7 +136,32 @@ right after phase 5:
      bitwise equal to the host's for every (k, restart) of the silhouette
      sweep, and ``classification.json`` (Table 1's class columns, k_best,
      the silhouettes, the dendrogram), ``holdout.json`` and
-     ``baseline_cmp.json`` exactly.
+     ``baseline_cmp.json`` exactly;
+ 14. MoE card-vs-host phase — the reduced granite-moe-3b-a800m,
+     deepseek-v2-236b (MLA) and jamba-1.5-large-398b (Mamba, attention and
+     MoE) with the same seeded weights on the card and on the CPU, float32
+     and bfloat16 parameters: 2 x 100 prompts and 8 teacher-forced decode
+     steps; the launches per forward checked exactly (flash per prefill /
+     rmsnorm / ssm_scan per forward: granite 4 / 9 / 0, deepseek 0 / 13 /
+     0, jamba 2 / 9 / 2); each MoE block's routing (every token's top-k
+     experts in order) compared forward by forward and layer by layer (a
+     choice that differs must be a near tie, and the prefill's MoE inputs
+     before it agree within the tolerance); without a
+     flip, the prefill logits within the parameters' tolerance and the
+     decode logits and caches within rtol 2e-2 + atol 5e-2; then sublayer
+     by sublayer, each card sublayer fed the host's input (and a copy of
+     its cache slices at decode): every norm, block output, cache and the
+     logits of the prefill and all 8 decode steps within the tolerance,
+     whatever the whole models' routing does, and the routing of the same
+     input equal up to float32 near ties; the smallest top-k margin of
+     each MoE layer printed;
+ 15. MoE serving — granite-moe-3b-a800m at full width and depth (32
+     layers, 3.375 B bfloat16 parameters), then, its engine released,
+     deepseek-v2-236b at full width on 4 of its 60 layers (17.26 B), each
+     answering phase 8's two requests, 32 new tokens each: tokens in range,
+     logits finite, and exactly 32 flash per prefill and 65 rmsnorm per
+     forward for granite, no flash and 13 rmsnorm per forward for
+     deepseek, no scan.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -144,13 +174,17 @@ commit and per blocked-EMA call of each form, which must be 1);
 build the kernels and run phase 3, 6 or 9 alone,
 without a result line (for work on a kernel); ``--session-only`` and
 ``--discovery-only`` build them and the 28-workload library and run phase
-12 or 13 alone; ``--out DIR`` writes
+12 or 13 alone; ``--moe-only`` builds them and runs phases 14 and 15
+alone (with ``--trace``, granite's traced request adds the device time of
+the MoE blocks' routing, dispatch and combine beside their expert
+products); ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -184,6 +218,8 @@ EMA_F32_TOL = 1e-5          # x max|x|: f32 rounding of an alpha=0.5 filter
 SUSTAIN_WINDOW = 50
 
 GLM = "glm4-9b"
+# granite-moe-3b-a800m's prefill heads: 24 query heads over 8 KV heads
+GRANITE_HEADS = dict(H=24, KV=8, dh=64)
 # tests/test_kernels.py's tolerances (bf16 rounding of the output, f32
 # rounding of a softmax / mean of squares in another order)
 KERNEL_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -1100,6 +1136,8 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
              ((2, 100, 1000, torch.bfloat16), {}),
              ((1, 1000, 1000, torch.float32), {}),
              ((2, 300, 300, torch.bfloat16), dict(H=16, KV=4, dh=64)),
+             ((4, 1000, 1000, torch.bfloat16), GRANITE_HEADS),
+             ((1, 2048, 2048, torch.bfloat16), GRANITE_HEADS),
              ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
              ((2, 1000, 1000, torch.bfloat16), dict(packed=True))]
     for (b, sq, skv, dtype), kw in cases:
@@ -1128,6 +1166,29 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                     KERNEL_TOL[dtype], f"rmsnorm ({n}, {d}) {dtype}")
         rn_err = max(rn_err, err)
         log(f"rmsnorm check ({n}, {d}) {dtype}: max|err| {err:.3e} vs plain")
+    # the MoE paths' norms (granite's and deepseek's widths, MLA's latent
+    # norm), bfloat16 rows and scale, prefill and decode rows, launched as
+    # the models launch them (pdl) and without pdl
+    gcfg, dcfg = ARCHS[GRANITE], ARCHS[DEEPSEEK]
+    for dw, eps in ((gcfg.d_model, gcfg.norm_eps),
+                    (dcfg.d_model, dcfg.norm_eps),
+                    (dcfg.kv_lora_rank, dcfg.norm_eps)):
+        sc = (1 + 0.1 * torch.randn(dw, generator=g, device=dev)).to(
+            torch.bfloat16)
+        w_err = 0.0
+        for n in (4000, 2048, 4, 1):
+            x = (torch.randn((n, dw), generator=g, device=dev) * 3).to(
+                torch.bfloat16)
+            want = rmsnorm_plain(x, sc, eps)
+            for pdl in (True, False):
+                got = rmsnorm(x, sc, eps, pdl=pdl)
+                torch.cuda.synchronize()
+                what = f"rmsnorm ({n}, {dw}) bf16 pdl={pdl}"
+                w_err = max(w_err, close(got, want,
+                                         KERNEL_TOL[torch.bfloat16], what))
+        rn_err = max(rn_err, w_err)
+        log(f"rmsnorm check d={dw} bf16 (rows 4000, 2048, 4, 1; pdl on and "
+            f"off): max|err| {w_err:.3e} vs plain")
 
     # timings at the serving path's prefill shapes: the kernel, the plain
     # version (first shape only) and scaled_dot_product_attention; a first
@@ -1135,17 +1196,20 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
     q, k, v = attn_inputs(dev, 4, 1000, 1000, torch.bfloat16, 6)
     cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush)
     shapes = []
-    for b, s in ((4, 1000), (4, 1024), (1, 2048)):
-        q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7 + s)
+    glm = dict(H=H, KV=KV, dh=dh)
+    for b, s, heads in ((4, 1000, glm), (4, 1024, glm), (1, 2048, glm),
+                        (4, 1000, GRANITE_HEADS)):
+        q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7 + s, **heads)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True).transpose(1, 2)
         close(lib, flash_attention_plain(q, k, v, causal=True),
               KERNEL_TOL[torch.bfloat16], "scaled_dot_product_attention")
-        flops, nbytes = attn_work(b, s, s, H, KV, dh, 2)
+        flops, nbytes = attn_work(b, s, s, heads["H"], heads["KV"],
+                                  heads["dh"], 2)
         t_ops = flops / PEAK_OPS["bf16_tensor"]
         t_bytes = nbytes / HBM_BYTES_PER_S
-        r = dict(b=b, s=s, flops=flops, bytes=nbytes,
+        r = dict(b=b, s=s, **heads, flops=flops, bytes=nbytes,
                  bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops > t_bytes else "bytes",
                  ms=cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush),
@@ -1153,11 +1217,12 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                      lambda: F.scaled_dot_product_attention(
                          qt, kt, vt, is_causal=True, enable_gqa=True),
                      20, flush))
-        if not shapes:
+        if not shapes or heads is GRANITE_HEADS:
             r["plain_ms"] = cuda_time_ms(
                 lambda: flash_attention_plain(q, k, v), 5, flush)
         r["tflops"] = flops / r["ms"] * 1e-9
-        log(f"flash_attention bf16 b={b} s={s} H={H} KV={KV} dh={dh} causal "
+        log(f"flash_attention bf16 b={b} s={s} H={heads['H']} "
+            f"KV={heads['KV']} dh={heads['dh']} causal "
             f"[{card}]: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
             f"{r['bound_ms'] / r['ms']:.1%} of the bound), "
             f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
@@ -1545,11 +1610,21 @@ def mamba_card_vs_host_phase(dev) -> None:
 
 
 
-def glm_launches(cfg, n_requests: int) -> dict:
-    """What glm4-9b dictates: one flash launch per layer and prefill, one
-    rmsnorm per norm (two a layer and the final one) and forward."""
+def attn_launches(cfg, n_requests: int) -> dict:
+    """What glm4-9b and granite-moe-3b-a800m dictate: one flash launch per
+    layer and prefill, one rmsnorm per norm (two a layer and the final
+    one) and forward."""
     return {"flash_attention": cfg.num_layers * n_requests,
             "rmsnorm": (2 * cfg.num_layers + 1) * (1 + NEW_TOKENS)
+            * n_requests, "ssm_scan": 0}
+
+
+def mla_launches(cfg, n_requests: int) -> dict:
+    """What deepseek-v2-236b dictates: no flash (MLA's prefill attention is
+    plain PyTorch), three rmsnorms a layer (the two norms and MLA's latent
+    norm) and the final one per forward, no scan."""
+    return {"flash_attention": 0,
+            "rmsnorm": (3 * cfg.num_layers + 1) * (1 + NEW_TOKENS)
             * n_requests, "ssm_scan": 0}
 
 
@@ -1563,15 +1638,18 @@ def mamba_launches(cfg, n_requests: int) -> dict:
             "flash_attention": 0}
 
 
-def serve_phase(dev, card: str, arch: str, requests, dictates,
+def serve_phase(dev, card: str, cfg, requests, dictates,
                 trace_out: str | None, trace: bool) -> dict:
-    """Full-width ``arch`` answers ``requests`` through
+    """``cfg`` at full width answers ``requests`` through
     ServeEngine.generate; the launch counts are reset just before and read
     just after, and must equal ``dictates(cfg, len(requests))``."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import build
     from repro_torch.serve import ServeEngine
-    cfg = ARCHS[arch]
+    arch = cfg.name
+    full = ARCHS[arch].num_layers
+    depth = ("full depth" if cfg.num_layers == full else
+             f"{cfg.num_layers} of its {full} layers")
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, max_len=max(s for _, s in requests)
                          + NEW_TOKENS + 4, device=dev)
@@ -1609,34 +1687,81 @@ def serve_phase(dev, card: str, arch: str, requests, dictates,
     if launches != want:
         raise AssertionError(f"{arch} serving path launches {launches}, the "
                              f"model dictates {want}")
-    log(f"serving path [{card}]: {arch} full width, {n_params} parameters "
-        f"(bf16), seeded init {t_init:.3f} s; launches {json.dumps(launches)}"
-        f"; peak memory {peak / 2**30:.3f} GiB")
+    log(f"serving path [{card}]: {arch} full width, {depth}, {n_params} "
+        f"parameters (bf16), seeded init {t_init:.3f} s; launches "
+        f"{json.dumps(launches)}; peak memory {peak / 2**30:.3f} GiB")
     for r in results:
         log(f"  request {r['batch']} x {r['prompt']} -> {NEW_TOKENS} tokens "
             f"[{card}]: first token {r['first_token_ms']:.3f} ms, decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, {r['tokens_per_s']:.2f} "
             f"tokens/s, wall {r['wall_s']:.3f} s")
-    if trace:
-        trace_serve(engine, prompts[0], card, trace_out)
+    traced = trace_serve(engine, prompts[0], card, trace_out) if trace \
+        else None
     return dict(requests=results, launches=launches, peak_bytes=peak,
-                n_params=n_params, init_s=t_init)
+                n_params=n_params, init_s=t_init, num_layers=cfg.num_layers,
+                trace=traced)
 
 
-def trace_serve(engine, tokens, card: str, out: str | None) -> None:
+MOE_RANGES = ("forward", "_route", "_experts", "_shared")
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Wrap the MoE block's forward and its parts in profiler ranges named
+    ``moe.<method>`` (only while tracing; the class is restored after)."""
+    from torch.profiler import record_function
+    from repro_torch.models.moe import MoE
+    saved = {n: getattr(MoE, n) for n in MOE_RANGES}
+
+    def ranged(name, fn):
+        def inner(self, *args, **kwargs):
+            with record_function(f"moe.{name}"):
+                return fn(self, *args, **kwargs)
+        return inner
+
+    for n, fn in saved.items():
+        setattr(MoE, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(MoE, n, fn)
+
+
+def moe_device_times(ka) -> dict:
+    """Device ms of the MoE block's parts from ``moe_ranges``: routing,
+    dispatch and combine (the block but its expert products), the routed
+    experts' and the shared experts' products."""
+    cpu = torch.autograd.DeviceType.CPU
+    us = {e.key: e.device_time_total for e in ka
+          if e.key.startswith("moe.") and e.device_type == cpu}
+    whole = us.get("moe.forward", 0.0)
+    experts = us.get("moe._experts", 0.0)
+    shared = us.get("moe._shared", 0.0)
+    return {"route_dispatch_combine_ms": (whole - experts - shared) / 1e3,
+            "of_it_route_ms": us.get("moe._route", 0.0) / 1e3,
+            "experts_ms": experts / 1e3, "shared_experts_ms": shared / 1e3}
+
+
+def trace_serve(engine, tokens, card: str, out: str | None) -> dict:
     """One more request under ``torch.profiler``: device busy share and
-    device time by kernel (table in ``out/trace_serve_<arch>.txt``)."""
+    device time by kernel (table in ``out/trace_serve_<arch>.txt``); for a
+    MoE model also the device time of the block's parts."""
     from torch.profiler import ProfilerActivity, profile
+    moe = bool(engine.cfg.moe_num_experts)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with moe_ranges() if moe else contextlib.nullcontext(), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate({"tokens": tokens}, NEW_TOKENS)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     ka = prof.key_averages()
+    # the device-side spans of moe_ranges' annotations are not kernels
     kernels = [e for e in ka
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("moe.")]
     device_us = sum(e.self_device_time_total for e in kernels)
     shares = {}
     for e in kernels:
@@ -1652,6 +1777,10 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
         shares[group] = shares.get(group, 0.0) + e.self_device_time_total
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%})"
                       for k, v in sorted(shares.items(), key=lambda x: -x[1]))
+    if moe:
+        moe_ms = moe_device_times(ka)
+        parts += "; MoE blocks: " + ", ".join(f"{k} {v:.3f}"
+                                              for k, v in moe_ms.items())
     log(f"trace serve {engine.cfg.name} [{card}]: request "
         f"{tokens.shape[0]} x {tokens.shape[1]} -> {NEW_TOKENS} tokens in "
         f"{elapsed:.3f} s under the profiler, device busy {device_us / 1e6:.3f} s = "
@@ -1663,6 +1792,357 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> None:
                     f"{device_us / 1e6:.3f} s\n{parts}\n\n"
                     f"{ka.table(sort_by='self_device_time_total', row_limit=25)}"
                     f"\n")
+    return dict(elapsed_s=elapsed, device_busy_s=device_us / 1e6,
+                by_kernel_ms={k: v / 1e3 for k, v in shares.items()},
+                **({"moe_ms": moe_device_times(ka)} if moe else {}))
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: MoE, MLA and hybrid serving
+# ---------------------------------------------------------------------------
+GRANITE = "granite-moe-3b-a800m"
+DEEPSEEK = "deepseek-v2-236b"
+JAMBA = "jamba-1.5-large-398b"
+DEEPSEEK_LAYERS = 4              # of 60: the 4-layer cut fits one card
+# launches of the reduced models: flash per prefill, rmsnorm and ssm_scan
+# per forward (jamba: 4 layers, attention on layers 1 and 3, Mamba on 0
+# and 2)
+MOE_REDUCED_LAUNCHES = {
+    GRANITE: {"flash_attention": 4, "rmsnorm": 9, "ssm_scan": 0},
+    DEEPSEEK: {"flash_attention": 0, "rmsnorm": 3 * 4 + 1, "ssm_scan": 0},
+    JAMBA: {"flash_attention": 2, "rmsnorm": 9, "ssm_scan": 2}}
+# a routing choice that flips between the whole models on two devices must
+# be this near a tie (the least gap between neighbouring router
+# probabilities among a token's first k + 1): float32 rounding in another
+# order (tests/test_torch_moe.py's margin for an equal routing), or the
+# bfloat16 ulps by which the router inputs differ (the flips seen on an
+# H100 had margins of 1.2e-4 to 2.2e-4, PERF.md)
+NEAR_TIE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# a block fed the same input on both devices routes by float32 products of
+# the same operands, so only float32 rounding may flip a choice
+SAME_INPUT_NEAR_TIE = 1e-4
+
+
+def record_moe_inputs(model, store: dict) -> list:
+    """Forward pre-hooks that append each MoE block's input to
+    ``store[(period, sublayer)]``; returns the handles."""
+    hooks = []
+    for i, layer in enumerate(model.layers):
+        for name, sub in layer.items():
+            if sub.kind == "moe":
+                hooks.append(sub.core.register_forward_pre_hook(
+                    lambda m, a, key=(i, name):
+                    store.setdefault(key, []).append(a[0])))
+    return hooks
+
+
+def route_order(moe, x: torch.Tensor):
+    """Each token's top-k experts in order (the order decides which pass
+    claims a capacity slot) and its margin: the least gap between two
+    neighbouring router probabilities among the first k + 1, on the
+    host."""
+    p = moe._probs(x.reshape(-1, x.shape[-1]))
+    v, i = torch.sort(p, dim=-1, descending=True, stable=True)
+    k = moe.top_k
+    gaps = v[:, :k] - v[:, 1:k + 1]
+    return i[:, :k].cpu(), gaps.min(dim=-1).values.cpu()
+
+
+def route_diff(moe_h, moe_c, x: torch.Tensor, what: str):
+    """Both devices' routings of the same MoE input ``x`` (host tensor):
+    the tokens whose choices or slots differ (a (T,) host mask), the
+    flipped choices, and the host's least margin.  A flipped choice must be
+    a near tie, and a slot may move only in a group where a choice
+    flipped."""
+    xs = x[:, None, :] if x.dim() == 2 else x
+    T, d = xs.shape[0] * xs.shape[1], xs.shape[-1]
+    S = moe_h.group(T)
+    rh = moe_h._route(xs.reshape(T // S, S, d))
+    rc = moe_c._route(xs.reshape(T // S, S, d).to(moe_c.router.device))
+    _, margin = route_order(moe_h, x)
+    flip = (rh.topi != rc.topi.cpu()).any(dim=-1).reshape(-1)
+    moved = (rh.dispatched != rc.dispatched.cpu()).any(dim=-1).reshape(-1)
+    flips = []
+    for t in torch.nonzero(flip)[:, 0].tolist():
+        flips.append(dict(token=t, host_margin=float(margin[t])))
+        if margin[t] >= SAME_INPUT_NEAR_TIE:
+            raise AssertionError(f"{what}: token {t} routes differently on "
+                                 f"the same input, margin {margin[t]:.3e} "
+                                 f"not a near tie (< {SAME_INPUT_NEAR_TIE})")
+    flip_groups = set((torch.nonzero(flip)[:, 0] // S).tolist())
+    for t in torch.nonzero(moved & ~flip)[:, 0].tolist():
+        if t // S not in flip_groups:
+            raise AssertionError(f"{what}: token {t}'s slots differ on the "
+                                 f"same input with no flipped choice in "
+                                 f"its group")
+    return flip | moved, flips, float(margin.min())
+
+
+def moe_sublayers_vs_host(host_engine, card, dev, tokens, fed, dtype,
+                          arch: str) -> dict:
+    """Sublayer by sublayer, each card sublayer fed the host's input (and,
+    at decode, a copy of the host's cache slices): the prefill and every
+    teacher-forced decode step of ``host_engine``'s model (on the CPU) and
+    the model ``card``.  Every norm, block output and cache of every layer
+    and step is held to the tolerance whatever the whole models' routing
+    does; a MoE block's tokens whose routing differs (near ties only) are
+    left out of its output.  Decode's attention reads bfloat16 caches for
+    either parameter dtype, so its output and those caches are held to the
+    bfloat16 tolerance there.  A bfloat16 MoE output is a float32 sum of k
+    expert rows each rounded to bfloat16, which may cancel far below the
+    rows' size, so it is held to atol + rtol x its token's largest |value|
+    (elementwise otherwise).  Every failure is listed; launches made here
+    do not count."""
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import (apply_sublayer,
+                                                decode_sublayer)
+    host = host_engine.model
+    before = dict(build.LAUNCHES)
+    tol, bf16 = LM_TOL[dtype], LM_TOL[torch.bfloat16]
+    keys = ("norm", "block", "moe", "cache", "logits")
+    errs, used = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    flips, margins, failures = [], {}, []
+
+    def note(key, got, want, tol, what, keep=None, row_scale=False):
+        d = want.shape[-1]
+        got = got.float().cpu().reshape(-1, d)
+        want = want.float().reshape(-1, d)
+        if keep is not None:
+            got, want = got[keep], want[keep]
+        if not want.numel():
+            return
+        err = (got - want).abs()
+        scale = (want.abs().amax(dim=-1, keepdim=True) if row_scale
+                 else want.abs())
+        frac = float((err / (tol["atol"] + tol["rtol"] * scale)).max())
+        errs[key] = max(errs[key], float(err.max()))
+        used[key] = max(used[key], frac)
+        if frac > 1:
+            failures.append(f"{what}: max|err| {float(err.max()):.3e}, "
+                            f"{frac:.2f} x the tolerance (rtol "
+                            f"{tol['rtol']} + atol {tol['atol']}"
+                            f"{', by row' if row_scale else ''})")
+
+    def layer_pass(h, step, run):
+        for i, (lh, lc) in enumerate(zip(host.layers, card.layers)):
+            for name, kind in host.period_kinds:
+                sh, sc = lh[name], lc[name]
+                what = f"{arch} {dtype} {step} layer {i} {name}"
+                x = sh.norm(h)
+                note("norm", sc.norm(h.to(dev)), x, tol, f"{what} norm")
+                keep = None
+                if kind == "moe":
+                    diff, fl, m = route_diff(sh.core, sc.core, x, what)
+                    keep = ~diff
+                    margins[(i, name)] = min(margins.get((i, name), 1.0), m)
+                    flips.extend(dict(step=step, layer=[i, name], **f)
+                                 for f in fl)
+                out, got, block_tol = run(i, name, kind, sh, sc, x, what)
+                note("moe" if kind == "moe" else "block", got, out,
+                     block_tol, f"{what} output", keep,
+                     row_scale=kind == "moe" and dtype == torch.bfloat16)
+                h = h + out
+        hn = host.final_norm(h)
+        note("norm", card.final_norm(h.to(dev)), hn, tol,
+             f"{arch} {dtype} {step} final norm")
+        last = hn if hn.dim() == 2 else hn[:, -1]
+        note("logits", card.embed.logits(last.to(dev)),
+             host.embed.logits(last), tol, f"{arch} {dtype} {step} logits")
+
+    with torch.no_grad():
+        th = torch.as_tensor(tokens).long()
+        positions = torch.arange(th.shape[1])
+        caches = {}
+
+        def prefill(i, name, kind, sh, sc, x, what):
+            out, kv = apply_sublayer(sh, x, positions)
+            got, kvc = apply_sublayer(sc, x.to(dev), positions.to(dev))
+            for key in kv or {}:
+                note("cache", kvc[key], kv[key], tol, f"{what} cache {key}")
+                caches.setdefault(name, {}).setdefault(key, []).append(
+                    kv[key])
+            return out, got, tol
+
+        def step(i, name, kind, sh, sc, x, what):
+            entry = {key: c[i] for key, c in caches.get(name, {}).items()}
+            copy = {key: c.to(dev, copy=True) for key, c in entry.items()}
+            got = decode_sublayer(sc, x.to(dev), t, copy)
+            out = decode_sublayer(sh, x, t, entry)
+            for key in entry:
+                note("cache", copy[key], entry[key],
+                     bf16 if key in ("k", "v", "ckv", "krope") else tol,
+                     f"{what} cache {key}")
+            return out, got, bf16 if kind in ("attn", "mla") else tol
+
+        layer_pass(host.embed.embed(th), "prefill", prefill)
+        caches = host_engine._pad_caches(
+            {name: {key: torch.stack(v) for key, v in entry.items()}
+             for name, entry in caches.items()}, th.shape[0])
+        for f, tok in enumerate(fed):
+            t = th.shape[1] + f
+            h = host.embed.embed(tok.long())
+            host.promote_conv(caches, h.dtype)
+            layer_pass(h, f"decode {f}", step)
+    sync(dev)
+    build.LAUNCHES.update(before)
+    if failures:
+        raise AssertionError(f"{arch} {dtype}: {len(failures)} sublayer "
+                             f"comparison(s) beyond the tolerance:\n"
+                             + "\n".join(failures[:40]))
+    return dict(err=errs, of_tolerance=used, flips=flips,
+                margins={f"{k[0]}/{k[1]}": v for k, v in margins.items()})
+
+
+def moe_card_vs_host(dev, arch: str, dtype) -> dict:
+    """One reduced model with the same weights on the card (kernels) and
+    on the CPU (plain versions): prefill and 8 teacher-forced decode steps,
+    launches per forward checked exactly, routing compared forward by
+    forward and layer by layer, then every sublayer on the host's input
+    (``moe_sublayers_vs_host``)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[arch].reduced()
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 100))
+    host = ServeEngine(cfg, max_len=120, device="cpu", dtype=dtype)
+    host.init_params(0)
+    card = ServeEngine(cfg, max_len=120, device=dev, dtype=dtype)
+    card.model.load_state_dict(host.model.state_dict())
+    xs_h, xs_c = {}, {}
+    hooks = record_moe_inputs(host.model, xs_h)
+    lh, ch = host.model.prefill({"tokens": tokens})
+    ch = host._pad_caches(ch, 2)
+    host_logits, fed = [lh], []
+    for i in range(8):
+        fed.append(torch.argmax(host_logits[-1], dim=-1))
+        lh, ch = host.model.decode_step(ch, fed[-1], 100 + i)
+        host_logits.append(lh)
+    for h in hooks:
+        h.remove()
+    hooks = record_moe_inputs(card.model, xs_c)
+    before = dict(build.LAUNCHES)
+    lc, cc = card.model.prefill({"tokens": tokens})
+    cc = card._pad_caches(cc, 2)
+    card_logits = [lc]
+    for i in range(8):
+        lc, cc = card.model.decode_step(cc, fed[i].to(dev), 100 + i)
+        card_logits.append(lc)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    got = {k: build.LAUNCHES[k] - before[k] for k in before}
+    build.LAUNCHES.update(before)
+    per = MOE_REDUCED_LAUNCHES[arch]
+    want = {"flash_attention": per["flash_attention"],
+            "rmsnorm": 9 * per["rmsnorm"], "ssm_scan": 9 * per["ssm_scan"],
+            "spike_hist": 0, "ema_scan": 0}
+    if got != want:
+        raise AssertionError(f"reduced {arch} {dtype} on the card launched "
+                             f"{got}; 1 prefill + 8 decode steps dictate "
+                             f"{want}")
+
+    # routing, forward by forward (prefill, then each decode step) and
+    # layer by layer, up to the first choice that differs; before it the
+    # prefill's MoE inputs agree within the tolerance
+    tol = LM_TOL[dtype]
+    margins, flips = {}, []
+    keys = sorted(xs_h)
+    for f in range(9):
+        for key in keys:
+            moe_h = host.model.layers[key[0]][key[1]].core
+            moe_c = card.model.layers[key[0]][key[1]].core
+            xh, xc = xs_h[key][f], xs_c[key][f]
+            if f == 0 and not flips:
+                close(xc, xh, tol, f"{arch} {dtype} MoE input {key}")
+            sh, mh = route_order(moe_h, xh)
+            sc, _ = route_order(moe_c, xc)
+            margins[key] = min(margins.get(key, 1.0), float(mh.min()))
+            if not flips:
+                for t in torch.nonzero((sh != sc).any(dim=-1))[:, 0].tolist():
+                    flips.append(dict(forward=f, layer=list(key), token=t,
+                                      host_margin=float(mh[t]),
+                                      host=sh[t].tolist(),
+                                      card=sc[t].tolist()))
+                    if mh[t] >= NEAR_TIE[dtype]:
+                        raise AssertionError(
+                            f"{arch} {dtype}: routing differs at {flips[-1]},"
+                            f" not a near tie (< {NEAR_TIE[dtype]})")
+    errs = {}
+    if not flips:
+        # decode caches (and so the decode softmax) are bf16 for either
+        # parameter dtype: decode and every cache after it (a Mamba state
+        # too, fed by attention over bf16 caches) are held to the bf16
+        # tolerance, as in phase 7
+        bf16 = LM_TOL[torch.bfloat16]
+        errs["prefill_logits"] = close(card_logits[0], host_logits[0], tol,
+                                       f"{arch} prefill logits {dtype}")
+        errs["decode_logits"] = max(
+            close(c, h, bf16, f"{arch} decode logits {dtype} step {i}")
+            for i, (c, h) in enumerate(zip(card_logits[1:],
+                                           host_logits[1:])))
+        errs["caches"] = max(
+            close(cc[name][key], ch[name][key], bf16,
+                  f"{arch} cache {name}/{key} {dtype}")
+            for name in cc for key in cc[name])
+    per_sub = moe_sublayers_vs_host(host, card.model, dev, tokens, fed,
+                                    dtype, arch)
+    log(f"MoE card vs host, sublayer by sublayer on the host's inputs: "
+        f"reduced {arch} {dtype}, prefill and 8 decode steps: "
+        + ", ".join(f"{k} max|err| {v:.3e} ({per_sub['of_tolerance'][k]:.2f}"
+                    f" of the tolerance)" for k, v in per_sub["err"].items())
+        + f"; {len(per_sub['flips'])} token(s) routed differently on the "
+        f"same input"
+        + (f" (first {json.dumps(per_sub['flips'][0])})"
+           if per_sub["flips"] else ""))
+    log(f"MoE card vs host: reduced {arch} ({cfg.num_layers} layers) {dtype}"
+        f", 2 x 100 prompt, 8 teacher-forced decode steps: launches "
+        f"{json.dumps({k: got[k] for k in per})}; "
+        + (", ".join(f"{k} max|err| {v:.3e}" for k, v in errs.items())
+           + f" (prefill rtol {tol['rtol']} + atol {tol['atol']}; decode and"
+           f" bf16 caches rtol 2e-2 + atol 5e-2)" if not flips else
+           f"routing flips at a near tie, first {json.dumps(flips[0])} "
+           f"({len(flips)} token(s)): MoE inputs held up to it, the whole "
+           f"model's logits and caches not compared")
+        + "; smallest routing margin per MoE layer "
+        + ", ".join(f"{k[0]}/{k[1]} {v:.3e}" for k, v in margins.items()))
+    return dict(launches={k: got[k] for k in per}, err=errs, flips=flips,
+                margins={f"{k[0]}/{k[1]}": v for k, v in margins.items()},
+                sublayers=per_sub)
+
+
+def moe_card_vs_host_phase(dev, card: str) -> dict:
+    """Phase 14: the reduced granite-moe, deepseek-v2 and jamba models,
+    float32 and bfloat16 parameters, on the card against the host."""
+    t0 = time.perf_counter()
+    out = {f"{arch} {str(dtype)[6:]}": moe_card_vs_host(dev, arch, dtype)
+           for arch in (GRANITE, DEEPSEEK, JAMBA)
+           for dtype in (torch.float32, torch.bfloat16)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 (MoE, MLA, hybrid card vs host): {out['seconds']:.3f} s "
+        f"[{card}]")
+    return out
+
+
+def moe_serve_phase(dev, card: str, trace_out: str | None,
+                    trace: bool) -> dict:
+    """Phase 15: granite-moe-3b-a800m at full width and depth, then (its
+    engine released) deepseek-v2-236b at full width on 4 of its 60 layers,
+    each answering ``REQUESTS``."""
+    from repro_torch.configs import ARCHS
+    t0 = time.perf_counter()
+    out = {GRANITE: serve_phase(dev, card, ARCHS[GRANITE], REQUESTS,
+                                attn_launches, trace_out, trace)}
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(ARCHS[DEEPSEEK], num_layers=DEEPSEEK_LAYERS)
+    log(f"{DEEPSEEK}: cut to {DEEPSEEK_LAYERS} of its "
+        f"{ARCHS[DEEPSEEK].num_layers} layers at full width (244.2 B "
+        f"parameters do not fit one card; 4 layers hold 17.26 B)")
+    out[DEEPSEEK] = serve_phase(dev, card, cut, REQUESTS, mla_launches,
+                                trace_out, False)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 (MoE serving): {out['seconds']:.3f} s [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2815,6 +3295,11 @@ def main() -> int:
                     help="build the kernels and the 28-workload library and "
                          "run phase 13 alone (discovery, K-Means, holdout, "
                          "baselines); prints no result line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build the kernels and run phases 14 and 15 alone "
+                         "(MoE, MLA and hybrid models card vs host; "
+                         "granite-moe and 4-layer deepseek-v2 serving); "
+                         "prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -2872,6 +3357,14 @@ def main() -> int:
                 json.dump({"card": card, "ssm_kernel": ssp}, f, indent=1)
         log("phase 9 alone (--ssm-kernel-only): no result line")
         return 0
+    if args.moe_only:
+        moe = dict(card_vs_host=moe_card_vs_host_phase(dev, card),
+                   serve=moe_serve_phase(dev, card, args.out, args.trace))
+        if args.out is not None:
+            with open(os.path.join(args.out, "moe.json"), "w") as f:
+                json.dump({"card": card, "moe": moe}, f, indent=1)
+        log("phases 14 and 15 alone (--moe-only): no result line")
+        return 0
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         return run_phases(args, dev, card, kind, flush, workdir)
@@ -2883,6 +3376,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                workdir: str) -> int:
     """Phases 3-13 (the whole run, or phase 12 or 13 alone with
     ``--session-only`` / ``--discovery-only``); prints the result lines."""
+    from repro_torch.configs import ARCHS
     with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
         want = json.load(f)
     if args.session_only or args.discovery_only:
@@ -2929,12 +3423,14 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     log(f"quarantine on vs off [{card}]: 10,000 jobs at "
         f"{dis['scale_quarantine']['jobs_per_s']:.1f} jobs/s with "
         f"discovery=True, {ses['scale']['plain']['jobs_per_s']:.1f} without")
-    sp = serve_phase(dev, card, GLM, REQUESTS, glm_launches, args.out,
-                     args.trace)
+    sp = serve_phase(dev, card, ARCHS[GLM], REQUESTS, attn_launches,
+                     args.out, args.trace)
     torch.cuda.empty_cache()        # the glm4-9b engine is gone: release it
-    msp = serve_phase(dev, card, MAMBA, MAMBA_REQUESTS, mamba_launches,
-                      args.out, args.trace)
-    torch.cuda.empty_cache()
+    msp = serve_phase(dev, card, ARCHS[MAMBA], MAMBA_REQUESTS,
+                      mamba_launches, args.out, args.trace)
+    torch.cuda.empty_cache()        # the falcon-mamba-7b engine is gone too
+    moe_host = moe_card_vs_host_phase(dev, card)
+    moe_sp = moe_serve_phase(dev, card, args.out, args.trace)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -2990,8 +3486,9 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             {f"discovery_{part}": n[rec["name"]]
              for part, n in dis["launches"].items()})
     kernels[2]["shapes"] = [            # flash at every timed prefill shape
-        {k: r[k] for k in ("b", "s", "ms", "library_ms", "bound_ms",
-                           "bound_by")}
+        {k: r[k] for k in ("b", "s", "H", "KV", "dh", "ms", "library_ms",
+                           "bound_ms", "bound_by") + (
+                               ("plain_ms",) if "plain_ms" in r else ())}
         for r in lp["flash_attention"]["shapes"]]
     pre = ssp["prefill"]              # the first request's prefill scan
     kernels.append({
@@ -3002,6 +3499,14 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": None})
+    for rec in kernels[2:]:      # phase 15's two models, and phase 14's
+        rec["launches_moe_serving"] = {
+            f"{arch} ({moe_sp[arch]['num_layers']} layers)":
+            moe_sp[arch]["launches"][rec["name"]]
+            for arch in (GRANITE, DEEPSEEK)}
+        rec["launches_moe_card_vs_host"] = {
+            k: v["launches"][rec["name"]] for k, v in moe_host.items()
+            if k != "seconds"}
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -3021,7 +3526,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "session": ses, "discovery": dis,
                        "fleet_trace": fleet_trace,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
-                       "serve_mamba": msp}, f, indent=1)
+                       "serve_mamba": msp, "moe_card_vs_host": moe_host,
+                       "serve_moe": moe_sp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,23 +2,50 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
         --smoke --device cpu --prompt-len 16 --tokens 8
 
 The full configuration runs on the card by default, with the port's seeded
 init (no checkpoint); ``--smoke`` takes the reduced configuration.  The
-dense and ssm families are ported.
+dense, moe (MoE and MLA: granite-moe-3b-a800m, deepseek-v2-236b), ssm and
+hybrid (jamba-1.5-large-398b) families are ported.  A configuration whose
+bfloat16 weights exceed the device's memory (deepseek-v2-236b and
+jamba-1.5-large-398b at full size) is refused before anything is
+allocated.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.serve import ServeEngine
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """The card's memory, or the host's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise ``ValueError`` when the bfloat16 weights alone exceed the
+    device."""
+    need, have = 2 * cfg.param_count(), device_memory_bytes(device)
+    if need > have:
+        raise ValueError(
+            f"{cfg.name}: {need / 1e9:.1f} GB of bfloat16 weights do not fit "
+            f"in the {have / 1e9:.1f} GB of {device}; pass --smoke for the "
+            f"reduced configuration")
 
 
 def main() -> None:
@@ -35,6 +62,7 @@ def main() -> None:
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = cfg.reduced()
+    check_fits(cfg, resolve_device(args.device))
     engine = ServeEngine(cfg, max_len=args.prompt_len + args.tokens + 4,
                          device=args.device)
     engine.init_params(args.seed)

@@ -1,13 +1,22 @@
-"""GQA attention block: prefill through the flash kernel, decode in plain
-PyTorch against a KV cache.
+"""Attention blocks: GQA with prefill through the flash kernel, and
+DeepSeek-V2's latent attention (MLA); decode in plain PyTorch against a
+cache.
 
 The reference computes prefill attention with its jnp ``chunked_attention``
-and names the Pallas kernel as the TPU execution path; the port's prefill
-calls ``ops.flash_attention`` (the CUDA kernel on the card, the exact
-softmax on the CPU), which computes the same function in float32 without
-the jnp path's bfloat16 rounding of ``q * scale`` and of the softmax
-weights.  ``decode_attention`` is jnp in the reference and plain PyTorch
-here, rounding where the reference rounds.
+and names the Pallas kernel as the TPU execution path; the port's GQA
+prefill calls ``ops.flash_attention`` (the CUDA kernel on the card, the
+exact softmax on the CPU), which computes the same function in float32
+without the jnp path's bfloat16 rounding of ``q * scale`` and of the
+softmax weights.  ``decode_attention`` is jnp in the reference and plain
+PyTorch here, rounding where the reference rounds.
+
+MLA's prefill attends with a q/k width (``qk_nope + qk_rope``) other than
+its value width; the reference runs it through ``chunked_attention``, which
+allows that, while its Pallas kernel (and the port's) takes one head dim
+for q, k and v.  So it is the one attention path without the kernel:
+``latent_prefill_attention`` is plain PyTorch that rounds where the
+reference rounds.  Its latent RMS norm is the ``rmsnorm`` kernel's
+function and goes through ``ops.rmsnorm``.
 
 The weight layouts (``megatron``, ``fsdp_sp``, ``decode_rp``) decide only
 how the reference shards; on one card they name the same tensors and are
@@ -55,8 +64,8 @@ class Attention(ParamModule):
         super().__init__()
         if is_cross:
             raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP queue 1: MoE, "
-                "MLA, VLM and enc-dec serving)")
+                "cross-attention is not ported yet (ROADMAP queue 1: VLM "
+                "and enc-dec serving)")
         self.name, self.d_model = name, d_model
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim, self.layout = head_dim, layout
@@ -145,9 +154,127 @@ class Attention(ParamModule):
 
 
 class MLAttention(ParamModule):
-    """DeepSeek-V2 latent attention: not ported yet."""
+    """DeepSeek-V2 latent attention: k and v decompressed from a normalised
+    latent ``c`` (kv_lora_rank wide) and a shared rope key; decode caches
+    ``c`` and the rope key and attends in the latent space (absorbed)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue 1: MoE, MLA, VLM "
-            "and enc-dec serving)")
+    def __init__(self, name: str, d_model: int, num_heads: int,
+                 kv_lora_rank: int, qk_nope_dim: int, qk_rope_dim: int,
+                 v_head_dim: int, layout: str, rope_theta: float = 10_000.0,
+                 norm_eps: float = 1e-5, *, device, dtype=None):
+        super().__init__()
+        self.name, self.d_model, self.num_heads = name, d_model, num_heads
+        self.kv_lora_rank, self.qk_nope_dim = kv_lora_rank, qk_nope_dim
+        self.qk_rope_dim, self.v_head_dim = qk_rope_dim, v_head_dim
+        self.layout, self.rope_theta, self.norm_eps = (layout, rope_theta,
+                                                       norm_eps)
+        self._materialize(device, dtype)
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    def register(self, store: ParamStore) -> None:
+        d, H = self.d_model, self.num_heads
+        lora, rope = self.kv_lora_rank, self.qk_rope_dim
+        if self.layout == "megatron":
+            ax_q, ax_kva = ("fsdp", "tp", None), ("fsdp", None)
+            ax_kvb, ax_o = (None, "tp", None), ("tp", None, "fsdp")
+        else:  # decode: heads replicated, row-parallel in d
+            ax_q, ax_kva = ("tp", None, None), ("tp", None)
+            ax_kvb, ax_o = (None, None, "tp"), (None, None, "tp")
+        store.add("wq", ParamDef((d, H, self.qk_dim), ax_q))
+        store.add("w_kva", ParamDef((d, lora + rope), ax_kva))
+        store.add("kv_norm", ParamDef((lora,), (None,), init="ones"))
+        store.add("w_kvb", ParamDef((lora, H, self.qk_nope_dim
+                                     + self.v_head_dim), ax_kvb))
+        store.add("wo", ParamDef((H, self.v_head_dim, d), ax_o))
+
+    def _latent(self, x: torch.Tensor):
+        """x (b, s, d) -> normalised latent c (b, s, lora) in x's dtype, and
+        the rope key before rope (b, s, rope)."""
+        kva = x @ self.w_kva
+        c, k_rope = kva.split([self.kv_lora_rank, self.qk_rope_dim], dim=-1)
+        # the kernel takes contiguous rows; kv_norm is a weight
+        c = ops.rmsnorm(c.contiguous(), self.kv_norm, self.norm_eps,
+                        pdl=True)
+        return c, k_rope
+
+    # -- full-sequence forward (prefill) ---------------------------------
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                return_kv: bool = False):
+        """x (b, s, d), positions (s,) -> (b, s, d) [and the caches' rows
+        (c (b, s, lora), roped k_rope (b, s, rope))]."""
+        b, s, _ = x.shape
+        H = self.num_heads
+        q = Attention._proj(x, self.wq)
+        q_nope, q_rope = q.split([self.qk_nope_dim, self.qk_rope_dim], dim=-1)
+        q_rope = apply_rope(q_rope, positions, self.rope_theta)
+        c, k_rope = self._latent(x)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, self.rope_theta)
+        kvb = Attention._proj(c, self.w_kvb)
+        k_nope, v = kvb.split([self.qk_nope_dim, self.v_head_dim], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, H, self.qk_rope_dim)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        o = latent_prefill_attention(qf, k, v, self.qk_dim ** -0.5)
+        H_, dv, d = self.wo.shape
+        out = o.flatten(-2) @ self.wo.reshape(H_ * dv, d)
+        if return_kv:
+            return out, (c, k_rope[:, :, 0, :])
+        return out
+
+    # -- single-token decode, absorbed ------------------------------------
+    def decode(self, x: torch.Tensor, t: int, c_cache: torch.Tensor,
+               rope_cache: torch.Tensor):
+        """x (b, d) at position t.  Writes this token's latent and rope key
+        into the caches (b, S, lora) and (b, S, rope) in place at t, then
+        scores and reads values in the latent space: W_UK absorbed into q,
+        W_UV applied after.  Returns (out (b, d), (c_cache, rope_cache))."""
+        b, d = x.shape
+        H, nope = self.num_heads, self.qk_nope_dim
+        q = Attention._proj(x[:, None], self.wq)[:, 0]          # (b, H, qk)
+        q_nope, q_rope = q.split([nope, self.qk_rope_dim], dim=-1)
+        pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
+        q_rope = apply_rope(q_rope[:, None], pos, self.rope_theta)[:, 0]
+        c_new, k_rope_new = self._latent(x[:, None])
+        k_rope_new = apply_rope(k_rope_new[:, :, None, :], pos,
+                                self.rope_theta)[:, :, 0, :]
+        c_cache[:, t] = c_new[:, 0].to(c_cache.dtype)
+        rope_cache[:, t] = k_rope_new[:, 0].to(rope_cache.dtype)
+        wk, wv = self.w_kvb.split([nope, self.v_head_dim], dim=-1)
+        q_eff = torch.einsum("bhn,rhn->bhr", q_nope, wk)        # absorb W_UK
+        f32 = torch.float32
+        s = (torch.einsum("bhr,bsr->bhs", q_eff.to(f32), c_cache.to(f32))
+             + torch.einsum("bhr,bsr->bhs", q_rope.to(f32),
+                            rope_cache.to(f32)))
+        s = s * (self.qk_dim ** -0.5)
+        posv = torch.arange(c_cache.shape[1], device=x.device)
+        s = s.masked_fill(posv > t, _NEG)
+        pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        pr = pr / pr.sum(dim=-1, keepdim=True)
+        o_lat = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).to(f32),
+                             c_cache.to(f32)).to(x.dtype)
+        o = torch.einsum("bhr,rhv->bhv", o_lat, wv)              # absorb W_UV
+        out = o.reshape(b, H * self.v_head_dim) @ self.wo.reshape(
+            H * self.v_head_dim, d)
+        return out, (c_cache, rope_cache)
+
+
+def latent_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal softmax attention, q, k (b, s, H, dq) and v (b, s, H, dv) ->
+    (b, s, H, dv) in q's dtype, rounding where the reference's
+    ``chunked_attention`` rounds: ``q * scale`` and the softmax weights to
+    the inputs' dtypes; scores, sums and the output in float32."""
+    f32 = torch.float32
+    s_len = q.shape[1]
+    qs = (q * scale).to(q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs.to(f32), k.to(f32))
+    pos = torch.arange(s_len, device=q.device)
+    scores = scores.masked_fill(pos[:, None] < pos[None, :], _NEG)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                            # (b, H, q)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(f32), v.to(f32))
+    o = o / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
+    return o.to(q.dtype)

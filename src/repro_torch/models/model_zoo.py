@@ -11,5 +11,5 @@ def build_model(cfg: ModelConfig, topo: Topo = ONE_DEVICE,
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "the encoder-decoder model is not ported yet (ROADMAP queue 1: "
-            "MoE, MLA, VLM and enc-dec serving)")
+            "VLM and enc-dec serving)")
     return LM(cfg, topo, kind, device=device, dtype=dtype)

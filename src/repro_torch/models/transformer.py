@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense and ssm families.
+"""Decoder-only LM for the dense, moe, ssm and hybrid families.
 
 The reference scans a repeating *period* of sublayers over stacked
 parameters; the port keeps the period (``build_period``) and unrolls the
@@ -11,11 +11,17 @@ Entry points:
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference;
   * ``decode_step(caches, tokens, t)``: one new token per sequence; writes
-    its k and v (or a Mamba layer's state and conv window) into the caches
-    in place and returns ``(logits, caches)``.
+    its k and v (an MLA layer's latent and rope key, a Mamba layer's state
+    and conv window) into the caches in place and returns ``(logits,
+    caches)``;
+  * ``apply_sublayer`` / ``decode_sublayer``: one sublayer's block on its
+    normed input, as ``prefill`` and ``decode_step`` run it, for a
+    comparison layer by layer.
 
-Other families (moe, hybrid, vlm) and MLA raise ``NotImplementedError``
-naming their ROADMAP item; training (``loss``) is not ported yet.
+A MoE sublayer's load-balancing loss is dropped in serving, as the
+reference's ``prefill`` and ``decode_step`` drop it.  The vlm family raises
+``NotImplementedError`` naming its ROADMAP item; training (``loss``) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -24,14 +30,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.common import ONE_DEVICE, ParamStore, Topo, init_param_
 from repro_torch.models.layers import Embedding, Mlp, Norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
 
-# the ROADMAP item of every family still to port (item 3c); jamba's hybrid
-# family has Mamba layers but needs MoE too
-_LATER = "MoE, MLA, VLM and enc-dec serving"
+# the ROADMAP item of the family still to port (the rest of item 3c)
+_LATER = "VLM and enc-dec serving"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -46,6 +52,38 @@ class SubLayer(nn.Module):
         self.norm, self.core = norm, block
 
 
+def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor):
+    """One sublayer's block on its normed input over a prompt: ``(out, its
+    cache entry)``, the entry ``None`` for a MoE or MLP block."""
+    if sub.kind == "attn":
+        out, (k, v) = sub.core(x, positions, return_kv=True)
+        return out, {"k": k, "v": v}
+    if sub.kind == "mla":
+        out, (ckv, krope) = sub.core(x, positions, return_kv=True)
+        return out, {"ckv": ckv, "krope": krope}
+    if sub.kind == "mamba":
+        out, (state, conv) = sub.core(x, return_state=True)
+        return out, {"state": state, "conv": conv}
+    if sub.kind == "moe":
+        return sub.core(x)[0], None
+    return sub.core(x), None
+
+
+def decode_sublayer(sub: SubLayer, x: torch.Tensor, t: int,
+                    entry: dict) -> torch.Tensor:
+    """One sublayer's block on its normed input at decode position ``t``;
+    ``entry`` holds this period's cache slices, written in place."""
+    if sub.kind == "attn":
+        return sub.core.decode(x, t, entry["k"], entry["v"])[0]
+    if sub.kind == "mla":
+        return sub.core.decode(x, t, entry["ckv"], entry["krope"])[0]
+    if sub.kind == "mamba":
+        return sub.core.decode(x, t, entry["state"], entry["conv"])[0]
+    if sub.kind == "moe":
+        return sub.core(x)[0]
+    return sub.core(x)
+
+
 def _attn_layout(cfg: ModelConfig, topo: Topo, kind: str) -> str:
     if kind == "decode":
         return "decode_rp"
@@ -55,16 +93,25 @@ def _attn_layout(cfg: ModelConfig, topo: Topo, kind: str) -> str:
     return "fsdp_sp"
 
 
+def _moe_placement(cfg: ModelConfig, topo: Topo, kind: str) -> str:
+    tp = topo.axis_size("tp")
+    ep_ok = cfg.moe_num_experts % max(tp, 1) == 0
+    if kind == "decode":
+        return "ep_decode" if ep_ok else "tp_decode"
+    return "ep" if ep_ok else "gathered"
+
+
 def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                  dtype=None) -> tuple[list[SubLayer], int]:
-    """Sublayers of one period + number of periods (dense and ssm
-    families)."""
-    if cfg.family not in ("dense", "ssm"):
+    """Sublayers of one period + number of periods (dense, moe, ssm and
+    hybrid families)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise _not_ported(f"the {cfg.family!r} family", _LATER)
-    if cfg.use_mla:
-        raise _not_ported("MLA attention", _LATER)
     layout = _attn_layout(cfg, topo, kind)
-    if cfg.layers_per_period and cfg.num_layers % cfg.layers_per_period == 0:
+    if cfg.family == "hybrid":
+        period_len = cfg.attn_period
+    elif cfg.layers_per_period and \
+            cfg.num_layers % cfg.layers_per_period == 0:
         period_len = cfg.layers_per_period
     else:
         period_len = 1
@@ -75,21 +122,41 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
 
     subs: list[SubLayer] = []
     for j in range(period_len):
-        if cfg.family == "ssm":
+        # ---- mixer ----
+        if cfg.family == "ssm" or (cfg.family == "hybrid"
+                                   and not cfg.is_attn_layer(j)):
             n = f"l{j}_mamba"
             subs.append(SubLayer(n, "mamba", norm(n), MambaBlock(
                 f"{n}/core", cfg.d_model, cfg.d_inner, cfg.ssm_state,
                 cfg.ssm_conv, cfg.dt_rank,
                 layout=layout if kind == "decode" else "megatron",
                 scan_impl=cfg.ssm_scan_impl, device=device, dtype=dtype)))
-            continue
-        n = f"l{j}_attn"
-        subs.append(SubLayer(n, "attn", norm(n), Attention(
-            f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.head_dim, layout=layout, rope_theta=cfg.rope_theta,
-            use_rope=cfg.rope_theta > 0, qkv_bias=cfg.qkv_bias,
-            out_bias=cfg.attn_out_bias, device=device, dtype=dtype)))
-        if cfg.d_ff:
+        elif cfg.use_mla:
+            n = f"l{j}_mla"
+            subs.append(SubLayer(n, "mla", norm(n), MLAttention(
+                f"{n}/core", cfg.d_model, cfg.num_heads, cfg.kv_lora_rank,
+                cfg.mla_qk_nope, cfg.qk_rope_dim, cfg.mla_v_dim,
+                layout="decode_rp" if kind == "decode" else "megatron",
+                rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+                device=device, dtype=dtype)))
+        else:
+            n = f"l{j}_attn"
+            subs.append(SubLayer(n, "attn", norm(n), Attention(
+                f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, layout=layout, rope_theta=cfg.rope_theta,
+                use_rope=cfg.rope_theta > 0, qkv_bias=cfg.qkv_bias,
+                out_bias=cfg.attn_out_bias, device=device, dtype=dtype)))
+        # ---- ffn ----
+        if cfg.is_moe_layer(j):
+            n = f"l{j}_moe"
+            subs.append(SubLayer(n, "moe", norm(n), MoE(
+                f"{n}/core", cfg.d_model, cfg.moe_num_experts, cfg.moe_top_k,
+                cfg.moe_d_ff, num_shared=cfg.moe_num_shared,
+                group_size=cfg.moe_group_size,
+                capacity_factor=cfg.capacity_factor,
+                placement=_moe_placement(cfg, topo, kind), device=device,
+                dtype=dtype)))
+        elif cfg.d_ff:
             n = f"l{j}_mlp"
             subs.append(SubLayer(n, "mlp", norm(n), Mlp(
                 f"{n}/core", cfg.d_model, cfg.d_ff, cfg.mlp_activation,
@@ -149,25 +216,20 @@ class LM(nn.Module):
     def _apply_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
                      positions: torch.Tensor):
         kvs = {}
-        for name, kind in self.period_kinds:
+        for name, _ in self.period_kinds:
             sub = layer[name]
-            x = sub.norm(h)
-            if kind == "attn":
-                out, (k, v) = sub.core(x, positions, return_kv=True)
-                kvs[name] = {"k": k, "v": v}
-            elif kind == "mamba":
-                out, (state, conv) = sub.core(x, return_state=True)
-                kvs[name] = {"state": state, "conv": conv}
-            else:
-                out = sub.core(x)
+            out, kv = apply_sublayer(sub, sub.norm(h), positions)
+            if kv is not None:
+                kvs[name] = kv
             h = h + out
         return h, kvs
 
     @torch.no_grad()
     def prefill(self, batch: dict):
         """batch {"tokens": (b, s)} -> (logits (b, padded_vocab) float32,
-        caches {sublayer: {"k", "v": (n_periods, b, s, KV, dh)} or
-        {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
+        caches {sublayer: {"k", "v": (n_periods, b, s, KV, dh)},
+        {"ckv": (n_periods, b, s, lora), "krope": (n_periods, b, s, rope)}
+        or {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
         di)}})."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         h = self.embed.embed(tokens)
@@ -183,40 +245,36 @@ class LM(nn.Module):
                   for name, entry in per_layer[0].items()}
         return logits, caches
 
+    def promote_conv(self, caches: dict, dtype: torch.dtype) -> None:
+        """The reference's decode concatenates its bfloat16 conv cache with
+        the new x, so from the first step on a Mamba layer's conv cache has
+        the promoted dtype (float32 with float32 parameters)."""
+        for name, kind in self.period_kinds:
+            if kind == "mamba":
+                conv = caches[name]["conv"]
+                caches[name]["conv"] = conv.to(
+                    torch.promote_types(conv.dtype, dtype))
+
     @torch.no_grad()
     def decode_step(self, caches: dict, tokens: torch.Tensor, t: int):
         """tokens (b,) at position t -> (logits (b, padded_vocab) float32,
         caches updated in place)."""
         h = self.embed.embed(torch.as_tensor(tokens,
                                              device=self.device).long())
-        for name, kind in self.period_kinds:
-            if kind == "mamba":
-                # the reference's decode concatenates its bfloat16 conv
-                # cache with the new x, so from the first step on the cache
-                # has the promoted dtype (float32 with float32 parameters)
-                conv = caches[name]["conv"]
-                caches[name]["conv"] = conv.to(
-                    torch.promote_types(conv.dtype, h.dtype))
+        self.promote_conv(caches, h.dtype)
         for i, layer in enumerate(self.layers):
-            for name, kind in self.period_kinds:
+            for name, _ in self.period_kinds:
                 sub = layer[name]
-                x = sub.norm(h)
-                if kind == "attn":
-                    out, _ = sub.core.decode(x, t, caches[name]["k"][i],
-                                             caches[name]["v"][i])
-                elif kind == "mamba":
-                    out, _ = sub.core.decode(x, t, caches[name]["state"][i],
-                                             caches[name]["conv"][i])
-                else:
-                    out = sub.core(x)
-                h = h + out
+                entry = {key: c[i] for key, c in caches.get(name, {}).items()}
+                h = h + decode_sublayer(sub, sub.norm(h), t, entry)
         h = self.final_norm(h)
         return self.embed.logits(h), caches
 
     def cache_shape_structs(self, batch: int, seq: int) -> dict:
         """(shape, dtype) of every decode cache, stacked over periods, as in
-        the reference's ``cache_shape_structs``: k and v bfloat16, a Mamba
-        layer's state float32 and its conv window bfloat16."""
+        the reference's ``cache_shape_structs``: k and v bfloat16, an MLA
+        layer's latent and rope key bfloat16, a Mamba layer's state float32
+        and its conv window bfloat16."""
         cfg, n = self.cfg, self.n_periods
         kvd = (n, batch, seq, cfg.num_kv_heads, cfg.head_dim)
         out = {}
@@ -224,6 +282,12 @@ class LM(nn.Module):
             if kind == "attn":
                 out[name] = {"k": (kvd, torch.bfloat16),
                              "v": (kvd, torch.bfloat16)}
+            elif kind == "mla":
+                out[name] = {
+                    "ckv": ((n, batch, seq, cfg.kv_lora_rank),
+                            torch.bfloat16),
+                    "krope": ((n, batch, seq, cfg.qk_rope_dim),
+                              torch.bfloat16)}
             elif kind == "mamba":
                 out[name] = {
                     "state": ((n, batch, cfg.d_inner, cfg.ssm_state),

@@ -838,3 +838,103 @@ def test_kmeans_on_card_bitwise_equal_host(cuda, case):
     assert kc == kh
     for k in sh:
         assert abs(sc[k] - sh[k]) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the MoE block and MLA attention, card against host
+# ---------------------------------------------------------------------------
+# tests/test_torch_models.py's tolerances for a model's outputs and caches
+LM_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=5e-2),
+          torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def _module_pair(make, cuda, dtype, seed, prep=None):
+    """One module seeded on the host (then ``prep``-ed) and a copy of it on
+    the card."""
+    from repro_torch.models.common import init_param_
+    host = make("cpu", dtype)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(host.named_parameters()):
+            init_param_(p, host.defs[name], g)
+        if prep is not None:
+            prep(host)
+    card = make(cuda, dtype)
+    card.load_state_dict(host.state_dict())
+    return host, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 256), (4, 256)],
+                         ids=["prefill", "decode"])
+def test_moe_block_on_card_matches_host(cuda, dtype, shape):
+    """The same input on both: routing is equal where the host's
+    neighbouring router probabilities among a token's first k + 1 are
+    more than 1e-4 apart (asserted), so the slots are equal and the output
+    within the kernel tolerances.  Expert weights are drawn normal /
+    sqrt(input width) (the seeded init's fan-in of a stacked expert weight
+    is its expert count)."""
+    from repro_torch.models.moe import MoE
+
+    def prep(m):
+        m.router.mul_(5.0)               # the seeded 0.02: sharper routing
+        m.w_gate.mul_((8 / 256) ** 0.5)
+        m.w_up.mul_((8 / 256) ** 0.5)
+        m.w_down.mul_((8 / 128) ** 0.5)
+
+    host, card = _module_pair(
+        lambda dev, dt: MoE("m", 256, 8, 2, 128, num_shared=1,
+                            group_size=16, device=dev, dtype=dt),
+        cuda, dtype, 0, prep)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        shape).astype(np.float32)).to(dtype)
+    T = x.numel() // 256
+    xg = x.reshape(T // host.group(T), host.group(T), 256)
+    p = torch.sort(host._probs(xg), dim=-1, descending=True).values
+    assert float((p[..., :2] - p[..., 1:3]).min()) > 1e-4
+    rh, rc = host._route(xg), card._route(xg.to(cuda))
+    assert torch.equal(rh.topi, rc.topi.cpu())
+    assert torch.equal(rh.pos, rc.pos.cpu())
+    assert torch.equal(rh.dispatched, rc.dispatched.cpu())
+    got, aux_c = card(x.to(cuda))
+    want, aux_h = host(x)
+    torch.testing.assert_close(got.cpu(), want, **TOL[dtype])
+    torch.testing.assert_close(aux_c.cpu(), aux_h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_on_card_matches_host(cuda, dtype):
+    """Prefill and absorbed decode with bfloat16 caches, as served; the
+    latent norm launches the rmsnorm kernel once per call."""
+    from repro_torch.models.attention import MLAttention
+    host, card = _module_pair(
+        lambda dev, dt: MLAttention("a", 512, 8, 128, 64, 32, 64,
+                                    layout="megatron", device=dev, dtype=dt),
+        cuda, dtype, 2)
+    rng = np.random.default_rng(3)
+    b, s, S = 2, 50, 64
+    x = torch.from_numpy(rng.standard_normal((b, s, 512)).astype(
+        np.float32)).to(dtype)
+    pos = torch.arange(s)
+    before = build.LAUNCHES["rmsnorm"]
+    got, (c_c, r_c) = card(x.to(cuda), pos.to(cuda), return_kv=True)
+    assert build.LAUNCHES["rmsnorm"] == before + 1
+    want, (c_h, r_h) = host(x, pos, return_kv=True)
+    tol = LM_TOL[dtype]
+    for a, w in ((got, want), (c_c, c_h), (r_c, r_h)):
+        torch.testing.assert_close(a.cpu(), w, **tol)
+    caches = []
+    for c, r in ((c_h, r_h), (c_h.to(cuda), r_h.to(cuda))):
+        cc = torch.zeros((b, S, 128), dtype=torch.bfloat16, device=c.device)
+        rc = torch.zeros((b, S, 32), dtype=torch.bfloat16, device=c.device)
+        cc[:, :s], rc[:, :s] = c, r
+        caches.append((cc, rc))
+    xt = torch.from_numpy(rng.standard_normal((b, 512)).astype(
+        np.float32)).to(dtype)
+    want, _ = host.decode(xt, s, *caches[0])
+    got, _ = card.decode(xt.to(cuda), s, *caches[1])
+    torch.testing.assert_close(got.cpu(), want, **LM_TOL[torch.bfloat16])
+    for a, w in zip(caches[1], caches[0]):
+        torch.testing.assert_close(a.cpu(), w, **LM_TOL[torch.bfloat16])

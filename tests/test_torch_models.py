@@ -190,9 +190,7 @@ def test_lm_init_is_seeded_and_zero_biases_one_scales():
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "granite-moe-3b-a800m", "deepseek-v2-236b",
-                                  "llama-3.2-vision-11b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-medium"])
 def test_not_ported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ARCHS[arch].reduced(), kind="prefill", device="cpu")

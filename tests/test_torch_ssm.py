@@ -233,12 +233,6 @@ def test_falcon_mamba_init_is_seeded_and_follows_the_defs():
     assert abs(float(core.conv_w.std()) - 0.5) < 0.05
 
 
-def test_hybrid_family_still_raises():
-    with pytest.raises(NotImplementedError, match="MoE, MLA, VLM"):
-        build_model(ARCHS["jamba-1.5-large-398b"].reduced(), kind="prefill",
-                    device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the Mamba block, float32
 # ---------------------------------------------------------------------------
