@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 What it does (every phase fails the run if it fails), in this order save
-that phases 9 and 10 run right after phases 6 and 7, and phases 12 and 13
-right after phase 5 (phases 14 and 15 run last, after phase 11):
+that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
+16 right after phase 5 (phases 14, 15, 17 and 18 run last, after phase
+11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -50,8 +51,15 @@ right after phase 5 (phases 14 and 15 run last, after phase 11):
      s=1024, the serving path's ragged s=1000 and s=2048, a cached-prefill
      sq < skv case, float32, head_dim 64 and 32, granite-moe-3b-a800m's
      prefill (4, 1000) and (1, 2048) with 24 query heads over 8 KV heads
-     at head_dim 64, and q, k, v read through the strides of a packed QKV
-     tensor) and ``rmsnorm`` (bfloat16 at (4096, 4096), the prefill rows
+     at head_dim 64, q, k, v read through the strides of a packed QKV
+     tensor, and in bfloat16 and float32 every shape of the vlm and
+     whisper paths: the vlm's causal self-attention at (4, 1000) and
+     (1, 2048) and its non-causal cross-attention of those queries over
+     1,600 image tokens, at 32 / 8 heads, dh 128; whisper's non-causal
+     encoder over (4, 1500) and (1, 1500) frames at 16 / 16 heads, dh 64,
+     its causal decoder at (4, 64) and (1, 384) and its cross-attention of
+     those over 1,500) and ``rmsnorm`` (bfloat16 at
+     (4096, 4096), the prefill rows
      (4000, 4096) and the decode rows (4, 4096); float32; and the MoE
      paths' norms, bfloat16 rows and scale at granite's width 1536,
      deepseek's 5120 and MLA's latent 512 over 4000, 2048, 4 and 1 rows,
@@ -59,7 +67,8 @@ right after phase 5 (phases 14 and 15 run last, after phase 11):
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
      the serving path's shapes (flash at (4, 1000), (4, 1024) and (1, 2048),
-     and at granite's (4, 1000) heads, each with its bound); rmsnorm at the
+     at granite's (4, 1000) heads, and at the vlm's and whisper's ten
+     shapes in the dtype each path runs, each with its bound); rmsnorm at the
      decode rows with and without
      programmatic dependent launch (pdl), the decode chain (81 pairs of a
      residual add and a norm, as one glm4-9b forward, for the kernel with
@@ -161,7 +170,32 @@ right after phase 5 (phases 14 and 15 run last, after phase 11):
      answering phase 8's two requests, 32 new tokens each: tokens in range,
      logits finite, and exactly 32 flash per prefill and 65 rmsnorm per
      forward for granite, no flash and 13 rmsnorm per forward for
-     deepseek, no scan.
+     deepseek, no scan;
+ 16. the paper's remaining tables — each bench's ``run()`` ported
+     (``benchmarks/`` is not imported) and run on phase 5's library:
+     ``savings.json`` (the abstract's 89 % profiling saving),
+     ``freq_scaling.json``, ``binsize.json``, ``case_study.json`` (the
+     held-out workloads' profiles built on the card, where ``spike_hist``
+     and ``ema_scan`` must launch) and ``cdfs.json`` (the host simulator's
+     traces, their CDFs and p90s on the card), each exactly;
+ 17. vlm and enc-dec card vs host — the reduced llama-3.2-vision-11b and
+     whisper-medium with the same seeded weights and gates drawn in [0.5,
+     1.5] (``seed_gates``; zero at init) on the card and on the CPU,
+     float32 and bfloat16 parameters, float32 image embeddings or frames:
+     prefill logits and every prefill cache (self and cross) within the
+     parameters' tolerance, 8 teacher-forced decode steps and the bfloat16
+     decode caches within rtol 2e-2 + atol 5e-2, launches exactly as the
+     models dictate (flash per prefill / rmsnorm per forward: vlm 6 / 11,
+     whisper 10 / 0);
+ 18. vlm and enc-dec serving — llama-3.2-vision-11b at full width and
+     depth (40 layers, a gated cross-attention layer every 5th, 10.11 B
+     bfloat16 parameters, gates drawn as in phase 17) answers phase 8's
+     two requests with 1,600 image embeddings each, then, its engine
+     released, whisper-medium (24 + 24 layers, 0.81 B) answers 4 x 64 and
+     1 x 384 token prompts over 1,500 frames; 32 new tokens each: tokens
+     in range, logits finite, exactly 48 flash per prefill and 89 rmsnorm
+     per forward for the vlm, 72 flash and no rmsnorm for whisper, no scan;
+     first token, decode ms/step and peak memory of each request printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -174,10 +208,11 @@ commit and per blocked-EMA call of each form, which must be 1);
 build the kernels and run phase 3, 6 or 9 alone,
 without a result line (for work on a kernel); ``--session-only`` and
 ``--discovery-only`` build them and the 28-workload library and run phase
-12 or 13 alone; ``--moe-only`` builds them and runs phases 14 and 15
-alone (with ``--trace``, granite's traced request adds the device time of
-the MoE blocks' routing, dispatch and combine beside their expert
-products); ``--out DIR`` writes
+12 alone or phases 13 and 16; ``--moe-only`` builds them and runs phases
+14 and 15 alone (with ``--trace``, granite's traced request adds the
+device time of the MoE blocks' routing, dispatch and combine beside their
+expert products); ``--cross-only`` builds them and runs phases 17 and 18
+alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -1103,13 +1138,81 @@ def build_report(source: str, ops: tuple[str, ...]) -> dict:
     return dict(ptxas=ptxas, sass=by_kernel)
 
 
+# every flash shape (b, sq, skv, heads, causal) of phase 18's requests:
+# the vlm's causal self-attention (32 / 8 heads, dh 128) and its
+# cross-attention over 1,600 image tokens (sq > skv at 1 x 2048);
+# whisper's encoder over 1,500 frames (16 / 16 heads, dh 64), its
+# decoder's causal self-attention at the prompt lengths and its
+# cross-attention over the encoder's output
+VLM_HEADS = dict(H=32, KV=8, dh=128)
+WHISPER_HEADS = dict(H=16, KV=16, dh=64)
+VLM_WHISPER_FLASH = (
+    (4, 1000, 1000, VLM_HEADS, True), (1, 2048, 2048, VLM_HEADS, True),
+    (4, 1000, 1600, VLM_HEADS, False), (1, 2048, 1600, VLM_HEADS, False),
+    (4, 1500, 1500, WHISPER_HEADS, False),
+    (1, 1500, 1500, WHISPER_HEADS, False),
+    (4, 64, 64, WHISPER_HEADS, True), (1, 384, 384, WHISPER_HEADS, True),
+    (4, 64, 1500, WHISPER_HEADS, False),
+    (1, 384, 1500, WHISPER_HEADS, False))
+# each timed in the dtype its serving path runs it in: the float32 image
+# embeddings and frames promote every non-causal one to float32
+VLM_WHISPER_TIMED = tuple(
+    (b, sq, skv, heads, causal,
+     torch.bfloat16 if causal else torch.float32)
+    for b, sq, skv, heads, causal in VLM_WHISPER_FLASH)
+
+
+def time_flash(dev, flush, card: str, b, sq, skv, heads, causal,
+               dtype) -> dict:
+    """The kernel, its plain version and ``scaled_dot_product_attention``
+    at one shape, with the bound (4 dh flops per visible pair at the
+    dtype's peak: the tensor cores' for bf16, the SIMT float32 rate for
+    float32; or the bytes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import (attn_work, flash_attention,
+                                     flash_attention_plain)
+    q, k, v = attn_inputs(dev, b, sq, skv, dtype, 11 + sq + skv, **heads)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+    if causal and sq != skv:
+        raise ValueError("SDPA's causal mask is top-left when sq != skv")
+    close(sdpa().transpose(1, 2), flash_attention_plain(q, k, v, causal),
+          KERNEL_TOL[dtype], "scaled_dot_product_attention")
+    flops, nbytes = attn_work(b, sq, skv, heads["H"], heads["KV"],
+                              heads["dh"], q.element_size(), causal)
+    peak = PEAK_OPS["bf16_tensor" if dtype == torch.bfloat16 else "f32"]
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    r = dict(b=b, s=sq, skv=skv, **heads, causal=causal,
+             dtype=str(dtype).split(".")[1], flops=flops, bytes=nbytes,
+             bound_ms=max(t_ops, t_bytes) * 1e3,
+             bound_by="operations" if t_ops > t_bytes else "bytes",
+             ms=cuda_time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                             20, flush),
+             library_ms=cuda_time_ms(sdpa, 20, flush),
+             plain_ms=cuda_time_ms(
+                 lambda: flash_attention_plain(q, k, v, causal), 5, flush))
+    r["tflops"] = flops / r["ms"] * 1e-9
+    log(f"flash_attention {r['dtype']} b={b} sq={sq} skv={skv} "
+        f"H={heads['H']} KV={heads['KV']} dh={heads['dh']} "
+        f"{'causal' if causal else 'non-causal'} [{card}]: kernel "
+        f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound), "
+        f"scaled_dot_product_attention {r['library_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({flops:.4e} flop, {nbytes:.4e} B; {r['bound_by']})")
+    return r
+
+
 def lm_kernel_phase(dev, flush, card: str) -> dict:
     """Both LM kernels against their plain versions, then timings of the
     kernel, the plain version and the library call at the serving path's
     shapes (launches made here do not count)."""
     import torch.nn.functional as F
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import (attn_work, build, flash_attention,
+    from repro_torch.kernels import (build, flash_attention,
                                      flash_attention_plain, rmsnorm,
                                      rmsnorm_plain)
     cfg = ARCHS[GLM]
@@ -1140,17 +1243,25 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
              ((1, 2048, 2048, torch.bfloat16), GRANITE_HEADS),
              ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
              ((2, 1000, 1000, torch.bfloat16), dict(packed=True))]
+    # every shape the vlm and whisper serving paths give the kernel, in
+    # both dtypes (the float32 image embeddings and frames promote the
+    # cross-attention and whisper's encoder to float32)
+    cases += [((b, sq, skv, dtype), dict(heads, causal=causal))
+              for b, sq, skv, heads, causal in VLM_WHISPER_FLASH
+              for dtype in (torch.bfloat16, torch.float32)]
     for (b, sq, skv, dtype), kw in cases:
+        causal = kw.pop("causal", True)
         if kw.get("packed"):
             q, k, v = packed_attn_inputs(dev, b, sq, H, KV, dh, sq + 1)
         else:
             q, k, v = attn_inputs(dev, b, sq, skv, dtype, sq + skv, **kw)
-        got = flash_attention(q, k, v, causal=True)
+        got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         what = (f"flash_attention b={b} sq={sq} skv={skv} H={q.shape[2]} "
                 f"KV={k.shape[2]} dh={q.shape[3]} {dtype}"
+                f"{' causal' if causal else ' non-causal'}"
                 f"{' packed qkv strides' if kw.get('packed') else ''}")
-        err = close(got, flash_attention_plain(q, k, v, causal=True),
+        err = close(got, flash_attention_plain(q, k, v, causal=causal),
                     KERNEL_TOL[dtype], what)
         fa_err = max(fa_err, err)
         log(f"{what}: max|err| {err:.3e} vs plain")
@@ -1190,46 +1301,19 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         log(f"rmsnorm check d={dw} bf16 (rows 4000, 2048, 4, 1; pdl on and "
             f"off): max|err| {w_err:.3e} vs plain")
 
-    # timings at the serving path's prefill shapes: the kernel, the plain
-    # version (first shape only) and scaled_dot_product_attention; a first
-    # timing is thrown away (the first in a process reads high)
+    # timings at the serving path's prefill shapes (glm4-9b's, granite's,
+    # the vlm's and whisper's): the kernel, the plain version and
+    # scaled_dot_product_attention; a first timing is thrown away (the
+    # first in a process reads high)
     q, k, v = attn_inputs(dev, 4, 1000, 1000, torch.bfloat16, 6)
     cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush)
-    shapes = []
     glm = dict(H=H, KV=KV, dh=dh)
-    for b, s, heads in ((4, 1000, glm), (4, 1024, glm), (1, 2048, glm),
-                        (4, 1000, GRANITE_HEADS)):
-        q, k, v = attn_inputs(dev, b, s, s, torch.bfloat16, 7 + s, **heads)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True).transpose(1, 2)
-        close(lib, flash_attention_plain(q, k, v, causal=True),
-              KERNEL_TOL[torch.bfloat16], "scaled_dot_product_attention")
-        flops, nbytes = attn_work(b, s, s, heads["H"], heads["KV"],
-                                  heads["dh"], 2)
-        t_ops = flops / PEAK_OPS["bf16_tensor"]
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        r = dict(b=b, s=s, **heads, flops=flops, bytes=nbytes,
-                 bound_ms=max(t_ops, t_bytes) * 1e3,
-                 bound_by="operations" if t_ops > t_bytes else "bytes",
-                 ms=cuda_time_ms(lambda: flash_attention(q, k, v), 20, flush),
-                 library_ms=cuda_time_ms(
-                     lambda: F.scaled_dot_product_attention(
-                         qt, kt, vt, is_causal=True, enable_gqa=True),
-                     20, flush))
-        if not shapes or heads is GRANITE_HEADS:
-            r["plain_ms"] = cuda_time_ms(
-                lambda: flash_attention_plain(q, k, v), 5, flush)
-        r["tflops"] = flops / r["ms"] * 1e-9
-        log(f"flash_attention bf16 b={b} s={s} H={heads['H']} "
-            f"KV={heads['KV']} dh={heads['dh']} causal "
-            f"[{card}]: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
-            f"{r['bound_ms'] / r['ms']:.1%} of the bound), "
-            f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({flops:.4e} flop, {nbytes:.4e} B; "
-            f"{r['bound_by']})"
-            + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""))
-        shapes.append(r)
+    shapes = [time_flash(dev, flush, card, b, s, s, heads, True,
+                         torch.bfloat16)
+              for b, s, heads in ((4, 1000, glm), (4, 1024, glm),
+                                  (1, 2048, glm), (4, 1000, GRANITE_HEADS))]
+    shapes += [time_flash(dev, flush, card, *shape)
+               for shape in VLM_WHISPER_TIMED]
     first = shapes[0]
     fa = dict(err=fa_err, shape=[first["b"], first["s"], H, KV, dh],
               shapes=shapes, build=report,
@@ -1639,10 +1723,13 @@ def mamba_launches(cfg, n_requests: int) -> dict:
 
 
 def serve_phase(dev, card: str, cfg, requests, dictates,
-                trace_out: str | None, trace: bool) -> dict:
+                trace_out: str | None, trace: bool, inputs=None) -> dict:
     """``cfg`` at full width answers ``requests`` through
     ServeEngine.generate; the launch counts are reset just before and read
-    just after, and must equal ``dictates(cfg, len(requests))``."""
+    just after, and must equal ``dictates(cfg, len(requests))``.
+    ``inputs(cfg, b)`` adds a request's stub inputs (image embeddings,
+    frames) to its batch; a model with gates gets them drawn away from 0
+    after the seeded init (``seed_gates``)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import build
     from repro_torch.serve import ServeEngine
@@ -1654,21 +1741,33 @@ def serve_phase(dev, card: str, cfg, requests, dictates,
     engine = ServeEngine(cfg, max_len=max(s for _, s in requests)
                          + NEW_TOKENS + 4, device=dev)
     engine.init_params(0)
+    gates = seed_gates(engine.model)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in engine.model.parameters())
+    if gates:
+        log(f"{arch}: gates drawn in [0.5, 1.5] after the seeded init "
+            f"(zero there): {json.dumps(gates)}")
     rng = np.random.default_rng(12)
     prompts = [rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
                for b, s in requests]
+    batches = [dict({"tokens": tokens},
+                    **(inputs(cfg, tokens.shape[0]) if inputs else {}))
+               for tokens in prompts]
     torch.cuda.reset_peak_memory_stats(dev)
+    peak = 0
     build.reset_launches()
     results = []
-    for tokens in prompts:
+    for batch in batches:
+        tokens = batch["tokens"]
         before = dataclasses.replace(engine.stats)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        out = engine.generate({"tokens": tokens}, NEW_TOKENS)
+        out = engine.generate(batch, NEW_TOKENS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        request_peak = torch.cuda.max_memory_allocated(dev)
+        peak = max(peak, request_peak)
         b, s = tokens.shape
         if out.shape != (b, NEW_TOKENS) or out.min() < 0 or \
                 out.max() >= cfg.vocab_size:
@@ -1680,10 +1779,10 @@ def serve_phase(dev, card: str, cfg, requests, dictates,
                             first_token_ms=first * 1e3,
                             decode_ms_per_step=rest / (NEW_TOKENS - 1) * 1e3,
                             tokens_per_s=b * NEW_TOKENS / (first + rest),
+                            peak_gib=request_peak / 2**30,
                             first_tokens=out[:, :4].tolist()))
     want = dictates(cfg, len(requests))
     launches = {k: build.LAUNCHES[k] for k in want}
-    peak = torch.cuda.max_memory_allocated(dev)
     if launches != want:
         raise AssertionError(f"{arch} serving path launches {launches}, the "
                              f"model dictates {want}")
@@ -1694,12 +1793,13 @@ def serve_phase(dev, card: str, cfg, requests, dictates,
         log(f"  request {r['batch']} x {r['prompt']} -> {NEW_TOKENS} tokens "
             f"[{card}]: first token {r['first_token_ms']:.3f} ms, decode "
             f"{r['decode_ms_per_step']:.3f} ms/step, {r['tokens_per_s']:.2f} "
-            f"tokens/s, wall {r['wall_s']:.3f} s")
-    traced = trace_serve(engine, prompts[0], card, trace_out) if trace \
+            f"tokens/s, peak {r['peak_gib']:.3f} GiB, wall "
+            f"{r['wall_s']:.3f} s")
+    traced = trace_serve(engine, batches[0], card, trace_out) if trace \
         else None
     return dict(requests=results, launches=launches, peak_bytes=peak,
                 n_params=n_params, init_s=t_init, num_layers=cfg.num_layers,
-                trace=traced)
+                gates=gates, trace=traced)
 
 
 MOE_RANGES = ("forward", "_route", "_experts", "_shared")
@@ -1743,7 +1843,7 @@ def moe_device_times(ka) -> dict:
             "experts_ms": experts / 1e3, "shared_experts_ms": shared / 1e3}
 
 
-def trace_serve(engine, tokens, card: str, out: str | None) -> dict:
+def trace_serve(engine, batch: dict, card: str, out: str | None) -> dict:
     """One more request under ``torch.profiler``: device busy share and
     device time by kernel (table in ``out/trace_serve_<arch>.txt``); for a
     MoE model also the device time of the block's parts."""
@@ -1754,9 +1854,10 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> dict:
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate({"tokens": tokens}, NEW_TOKENS)
+        engine.generate(batch, NEW_TOKENS)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+    tokens = batch["tokens"]
     ka = prof.key_averages()
     # the device-side spans of moe_ranges' annotations are not kernels
     kernels = [e for e in ka
@@ -1767,6 +1868,7 @@ def trace_serve(engine, tokens, card: str, out: str | None) -> dict:
     for e in kernels:
         name = e.key.lower()
         group = ("flash_attention" if "fa_bf16" in name else
+                 "flash_attention f32" if "fa_f32" in name else
                  "rmsnorm" if "rmsnorm" in name else
                  "ssm_scan decode" if "ssm_scan_step" in name else
                  "ssm_scan" if "ssm_scan" in name else
@@ -2142,6 +2244,174 @@ def moe_serve_phase(dev, card: str, trace_out: str | None,
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 15 (MoE serving): {out['seconds']:.3f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 17-18: VLM and encoder-decoder serving
+# ---------------------------------------------------------------------------
+VLM = "llama-3.2-vision-11b"
+WHISPER = "whisper-medium"
+WHISPER_FRAMES = 1500        # whisper's 30 s window (arXiv:2212.04356)
+WHISPER_REQUESTS = ((4, 64), (1, 384))
+
+
+def seed_gates(model, seed: int = 21) -> list:
+    """Each vlm gate (zero at init, where ``tanh(0)`` leaves the cross
+    sublayers out of the output) set to a draw in [0.5, 1.5] from ``seed``,
+    in parameter order: test data, the same on the card and the host.
+    Returns the values."""
+    rng = np.random.default_rng(seed)
+    values = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                value = float(rng.uniform(0.5, 1.5))
+                p.fill_(value)
+                values.append(value)
+    return values
+
+
+def stub_inputs(cfg, b: int, memory: int | None = None,
+                seed: int = 13) -> dict:
+    """A request's stub input as the launchers draw it (``standard_normal
+    * 0.02``, float32): the vlm's image embeddings (b, num_image_tokens,
+    d) or the enc-dec's frames (b, memory, d)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"image_embeds": (rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+            * 0.02)}
+    return {"frames": rng.standard_normal(
+        (b, memory, cfg.d_model)).astype(np.float32) * 0.02}
+
+
+def vlm_launches(cfg, n_requests: int, new_tokens: int | None = None
+                 ) -> dict:
+    """What llama-3.2-vision-11b dictates: one flash launch per self- and
+    per cross-attention layer and prefill (decode attends in plain
+    PyTorch), one rmsnorm per norm and forward (two a layer, one a cross
+    sublayer, the final one), no scan."""
+    n_cross = cfg.num_layers // cfg.cross_attn_period
+    forwards = 1 + (NEW_TOKENS if new_tokens is None else new_tokens)
+    return {"flash_attention": (cfg.num_layers + n_cross) * n_requests,
+            "rmsnorm": (2 * cfg.num_layers + n_cross + 1) * forwards
+            * n_requests, "ssm_scan": 0}
+
+
+def encdec_launches(cfg, n_requests: int, new_tokens: int | None = None
+                    ) -> dict:
+    """What whisper-medium dictates: one flash launch per encoder layer and
+    per decoder self- and cross-attention layer and prefill; LayerNorm
+    everywhere, so no rmsnorm; no scan."""
+    return {"flash_attention": (cfg.num_encoder_layers + 2 * cfg.num_layers)
+            * n_requests, "rmsnorm": 0, "ssm_scan": 0}
+
+
+def cross_card_vs_host(dev, arch: str, dtype) -> dict:
+    """One reduced model with the same weights (gates drawn away from 0)
+    on the card (kernels) and on the CPU (plain versions): prefill logits
+    within the parameters' tolerance, the prefill's caches (self and
+    cross) too, 8 teacher-forced decode steps and the decode caches within
+    bf16's (the engine keeps them in bf16), launches exactly as the model
+    dictates."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    cfg = ARCHS[arch].reduced()
+    steps, prompt = 8, 100
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, prompt))}
+    batch.update(stub_inputs(cfg, 2, memory=150))
+    mem_len = batch["frames"].shape[1] if "frames" in batch else None
+    host = ServeEngine(cfg, max_len=prompt + steps + 4, device="cpu",
+                       dtype=dtype)
+    host.init_params(0)
+    gates = seed_gates(host.model)
+    card = ServeEngine(cfg, max_len=prompt + steps + 4, device=dev,
+                       dtype=dtype)
+    card.model.load_state_dict(host.model.state_dict())
+    tol, bf16 = LM_TOL[dtype], LM_TOL[torch.bfloat16]
+    lh, ch0 = host.model.prefill(batch)
+    ch = host._pad_caches(ch0, 2, memory_len=mem_len)
+    host_logits, fed = [lh], []
+    for i in range(steps):
+        fed.append(torch.argmax(host_logits[-1], dim=-1))
+        lh, ch = host.model.decode_step(ch, fed[-1], prompt + i)
+        host_logits.append(lh)
+    before = dict(build.LAUNCHES)
+    lc, cc0 = card.model.prefill(batch)
+    cc = card._pad_caches(cc0, 2, memory_len=mem_len)
+    card_logits = [lc]
+    for i in range(steps):
+        lc, cc = card.model.decode_step(cc, fed[i].to(dev), prompt + i)
+        card_logits.append(lc)
+    dictates = vlm_launches if cfg.family == "vlm" else encdec_launches
+    want = dictates(cfg, 1, new_tokens=steps)
+    got = {k: build.LAUNCHES[k] - before[k] for k in want}
+    build.LAUNCHES.update(before)
+    if got != want:
+        raise AssertionError(f"the reduced {arch} on the card launched "
+                             f"{got}, the model dictates {want}")
+    errs = {"prefill_logits": close(card_logits[0], host_logits[0], tol,
+                                    f"{arch} prefill logits {dtype}")}
+    errs["prefill_caches"] = max(
+        close(cc0[name][key], ch0[name][key], tol,
+              f"{arch} prefill cache {name}.{key} {dtype}")
+        for name in ch0 for key in ch0[name])
+    errs["decode_logits"] = max(
+        close(c, h, bf16, f"{arch} decode logits {dtype} step {i}")
+        for i, (c, h) in enumerate(zip(card_logits[1:], host_logits[1:])))
+    errs["decode_caches"] = max(
+        close(cc[name][key], ch[name][key], bf16,
+              f"{arch} decode cache {name}.{key} {dtype}")
+        for name in ch for key in ch[name])
+    return dict(launches=got, errors=errs, gates=gates,
+                caches=sorted(ch0))
+
+
+def cross_card_vs_host_phase(dev, card: str) -> dict:
+    """Phase 17: the reduced llama-3.2-vision-11b and whisper-medium, card
+    against host, float32 and bfloat16."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in (VLM, WHISPER):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = cross_card_vs_host(dev, arch, dtype)
+            tol = LM_TOL[dtype]
+            out[f"{arch} {str(dtype).split('.')[1]}"] = r
+            log(f"cross-attention card vs host: reduced {arch} {dtype} "
+                f"(gates {json.dumps([round(g, 4) for g in r['gates']])}), "
+                f"2 x 100 prompt: max|err| {json.dumps(r['errors'])} "
+                f"(prefill within rtol {tol['rtol']} + atol {tol['atol']}, "
+                f"decode and bf16 caches within the bf16 tolerance); "
+                f"launches {json.dumps(r['launches'])}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 (vlm and enc-dec card vs host): {out['seconds']:.3f} s "
+        f"[{card}]")
+    return out
+
+
+def cross_serve_phase(dev, card: str, trace_out: str | None,
+                      trace: bool) -> dict:
+    """Phase 18: llama-3.2-vision-11b at full width and depth answering
+    ``REQUESTS`` with 1,600 image embeddings each, then (its engine
+    released) whisper-medium answering ``WHISPER_REQUESTS`` over 1,500
+    frames."""
+    from repro_torch.configs import ARCHS
+    t0 = time.perf_counter()
+    out = {VLM: serve_phase(dev, card, ARCHS[VLM], REQUESTS, vlm_launches,
+                            trace_out, trace,
+                            inputs=lambda cfg, b: stub_inputs(cfg, b))}
+    torch.cuda.empty_cache()
+    out[WHISPER] = serve_phase(
+        dev, card, ARCHS[WHISPER], WHISPER_REQUESTS, encdec_launches,
+        trace_out, trace,
+        inputs=lambda cfg, b: stub_inputs(cfg, b, memory=WHISPER_FRAMES))
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 (vlm and enc-dec serving): {out['seconds']:.3f} s "
+        f"[{card}]")
     return out
 
 
@@ -3073,14 +3343,13 @@ def holdout_power_error(target, neighbor, quantile: str = "p90"):
     return abs(obs - pred), f, obs
 
 
+def degradation(profile, f: float) -> float:
+    base = profile.scaling[max(profile.scaling)].exec_time
+    return profile.scaling[nearest_freq(profile, f)].exec_time / base - 1.0
+
+
 def holdout_perf_error(target, neighbor):
     from repro_torch.core.algorithm1 import cap_perf_centric
-
-    def degradation(profile, f):
-        base = profile.scaling[max(profile.scaling)].exec_time
-        return profile.scaling[nearest_freq(profile, f)].exec_time / base \
-            - 1.0
-
     f = cap_perf_centric(neighbor)
     pred = degradation(neighbor, f)
     obs = degradation(target, f)
@@ -3158,6 +3427,166 @@ def baseline_table(lib) -> dict:
     return {"rows": rows, "means": means}
 
 
+# the paper's remaining tables (phase 16), each ``run()`` of its bench on
+# the port; numbers are rounded on the host, as the benches round them
+def savings_table(lib) -> dict:
+    """``bench_savings.py``: one profile against a full sweep (§7.1.3)."""
+    from repro_torch.analysis.hardware import FREQ_SWEEP
+    from repro_torch.core.algorithm1 import profiling_savings
+    rows = {r.name: round(profiling_savings(r, list(FREQ_SWEEP)), 4)
+            for r in lib.profiles}
+    mean = float(np.mean(list(rows.values())))
+    return {"per_workload": rows, "mean": round(mean, 4),
+            "paper_claim": "89-90% for FAISS/Qwen1.5-MoE"}
+
+
+def freq_scaling_table(lib) -> dict:
+    """``bench_freq_scaling.py``: slowdown under each cap (Fig. 7)."""
+    rows = {}
+    for r in lib.profiles:
+        base = r.scaling[max(r.scaling)].exec_time
+        rows[r.name] = {str(f): round(r.scaling[f].exec_time / base - 1.0, 4)
+                        for f in sorted(r.scaling)}
+    return rows
+
+
+BIN_STUDY = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5, 0.75)   # bench_binsize.py's
+
+
+def binsize_table(lib) -> dict:
+    """``bench_binsize.py``: p90 error of the power neighbour per bin size,
+    normalised to 0.1 (§7.4, Fig. 12)."""
+    uniq_lib = unique_library(lib)
+    uniq = uniq_lib.profiles
+    clf = uniq_lib.classifier()
+    p90 = {r.name: r.p_quantile(90) for r in uniq}
+    errs = {}
+    for c in BIN_STUDY:
+        neighbors = clf.power_neighbors(uniq, bin_size=c)
+        errs[c] = float(np.mean([abs(p90[t.name] - p90[nn.name])
+                                 for t, (nn, _) in zip(uniq, neighbors)]))
+    base = errs[0.1] or 1e-9
+    return {"raw": {str(c): round(v, 4) for c, v in errs.items()},
+            "normalized_to_0.1": {str(c): round(errs[c] / base, 3)
+                                  for c in BIN_STUDY}}
+
+
+def case_study_table(lib, device) -> list:
+    """``bench_case_study.py``: Algorithm 1 on the held-out workloads, one
+    uncapped profile each built on ``device``, judged against their
+    ground-truth sweeps (Fig. 8, Table 2)."""
+    from repro_torch.analysis.hardware import FREQ_SWEEP
+    from repro_torch.core.algorithm1 import (PERF_BOUND, POWER_BOUND,
+                                             profiling_savings,
+                                             select_optimal_freq)
+    from repro_torch.telemetry import build_holdout_profiles
+    clf = lib.classifier()
+    observed, truth = build_holdout_profiles(with_truth=True, device=device)
+    truth_by_name = {t.name: t for t in truth}
+    rows = []
+    for obs in observed:
+        tru = truth_by_name[obs.name]
+        sel = select_optimal_freq(obs, clf)
+        obs_p90 = tru.scaling[nearest_freq(tru, sel.f_pwr)].p90
+        obs_degr = degradation(tru, sel.f_perf)
+        rows.append({
+            "target": obs.name,
+            "power_neighbor": sel.power_neighbor,
+            "cos_distance": round(sel.power_distance, 4),
+            "perf_neighbor": sel.util_neighbor,
+            "eucl_distance": round(sel.util_distance, 4),
+            "bin_size": sel.bin_size,
+            "f_pwr": sel.f_pwr, "f_perf": sel.f_perf,
+            "observed_p90_at_cap": round(obs_p90, 4),
+            "power_bound_violation": round(max(obs_p90 - POWER_BOUND, 0.0),
+                                           4),
+            "observed_degr_at_cap": round(obs_degr, 4),
+            "perf_bound_violation": round(max(obs_degr - PERF_BOUND, 0.0),
+                                          4),
+            "profiling_savings": round(profiling_savings(
+                tru, list(FREQ_SWEEP)), 4),
+        })
+    return rows
+
+
+CDF_CAPS = (1.0, 0.8, 0.6)                           # bench_cdf.py's
+CDF_WORKLOADS = ("sgemm-25k", "pagerank-pannotia", "lsms-like",
+                 "command-r-35b:train_4k", "command-r-35b:decode_32k",
+                 "deepseek-v2-236b:train_4k")
+
+
+def cdf_table(device) -> dict:
+    """``bench_cdf.py``: per-class power CDFs and their shift under caps
+    (Figs. 5-6).  The traces are the host simulator's (seed 11, 2 s); the
+    CDF and the p90 run on ``device``."""
+    from repro_torch.analysis.hardware import V5E
+    from repro_torch.core import spikes
+    from repro_torch.telemetry import TPUPowerModel, simulate
+    from repro_torch.telemetry.workloads import reference_streams
+    model = TPUPowerModel()
+    tdp = V5E.tdp_w
+    grid = np.linspace(0.0, 2.0, 101)
+    streams = {s.name: s for s in reference_streams()}
+    out = {"grid": grid.tolist(), "cdfs": {}}
+    shift = {}
+    for name in CDF_WORKLOADS:
+        out["cdfs"][name] = {}
+        p90s = {}
+        for f in CDF_CAPS:
+            tr = simulate(streams[name], f, model, seed=11,
+                          target_duration=2.0)
+            power = torch.from_numpy(tr.power_filtered).to(device)
+            _, cdf = spikes.spike_cdf(power, tdp, grid)
+            out["cdfs"][name][str(f)] = np.round(cdf.cpu().numpy(),
+                                                 4).tolist()
+            p90s[f] = spikes.p_quantile(power, tdp, 90)
+        shift[name] = p90s[1.0] - p90s[0.6]
+    return {"shift": shift, **out}
+
+
+TABLES = ("savings.json", "freq_scaling.json", "binsize.json",
+          "case_study.json", "cdfs.json")
+
+
+def tables_phase(dev, card: str, lib) -> dict:
+    """Phase 16: the paper's remaining tables on phase 5's library, each
+    held to its json exactly; the held-out profiles are built on the card,
+    where ``spike_hist`` and ``ema_scan`` must launch."""
+    t_phase = time.perf_counter()
+    take_launches()
+    got = {"savings.json": savings_table(lib),
+           "freq_scaling.json": freq_scaling_table(lib),
+           "binsize.json": binsize_table(lib)}
+    sync(dev)
+    t0 = time.perf_counter()
+    got["case_study.json"] = case_study_table(lib, dev)
+    sync(dev)
+    case_s = time.perf_counter() - t0
+    launches = take_launches()
+    check_launches("case study (held-out profiles)", launches)
+    cdfs = cdf_table(dev)
+    for name in TABLES:
+        check_json(name, {k: v for k, v in cdfs.items() if k != "shift"}
+                   if name == "cdfs.json" else got[name])
+    rows = got["case_study.json"]
+    out = {"savings_mean": got["savings.json"]["mean"],
+           "binsize_normalized": got["binsize.json"]["normalized_to_0.1"],
+           "case_study": [{k: r[k] for k in (
+               "target", "power_neighbor", "f_pwr", "f_perf",
+               "power_bound_violation", "perf_bound_violation",
+               "profiling_savings")} for r in rows],
+           "p90_shift": cdfs["shift"], "case_study_s": case_s,
+           "launches": launches}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"savings.json (mean {out['savings_mean']}), freq_scaling.json, "
+        f"binsize.json, case_study.json, cdfs.json exactly on the port "
+        f"[{card}]: held-out profiles on the card in {case_s:.3f} s, "
+        f"launches {json.dumps(launches)}; p90 shift "
+        f"{json.dumps(cdfs['shift'])}")
+    log(f"phase 16 (the paper's tables): {out['seconds']:.3f} s [{card}]")
+    return out
+
+
 def kmeans_card_vs_host(lib, dev) -> int:
     """Every (k, restart) of Fig. 4's silhouette sweep on the library's
     utilization points (k = 3..17, four kmeans++ starts each): the float32
@@ -3183,9 +3612,14 @@ def kmeans_card_vs_host(lib, dev) -> int:
 
 
 def check_json(name: str, got: dict, keys=None) -> None:
-    """``results/<name>`` exactly, key by key."""
+    """``results/<name>`` exactly, key by key (a list as a whole)."""
     with open(os.path.join(ROOT, "results", name)) as f:
         want = json.load(f)
+    if isinstance(want, list):
+        if got != want:
+            raise AssertionError(f"{name} differs from the reference's "
+                                 f"results: {got!r} != {want!r}")
+        return
     for key in keys or want:
         if got[key] != want[key]:
             raise AssertionError(f"{name}: {key} differs from the reference's "
@@ -3293,13 +3727,19 @@ def main() -> int:
                          "result line")
     ap.add_argument("--discovery-only", action="store_true",
                     help="build the kernels and the 28-workload library and "
-                         "run phase 13 alone (discovery, K-Means, holdout, "
-                         "baselines); prints no result line")
+                         "run phases 13 and 16 alone (discovery, K-Means, "
+                         "holdout, baselines; the paper's remaining "
+                         "tables); prints no result line")
     ap.add_argument("--moe-only", action="store_true",
                     help="build the kernels and run phases 14 and 15 alone "
                          "(MoE, MLA and hybrid models card vs host; "
                          "granite-moe and 4-layer deepseek-v2 serving); "
                          "prints no result line")
+    ap.add_argument("--cross-only", action="store_true",
+                    help="build the kernels and run phases 17 and 18 alone "
+                         "(vlm and enc-dec card vs host; full-width "
+                         "llama-3.2-vision-11b and whisper-medium "
+                         "serving); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -3365,6 +3805,15 @@ def main() -> int:
                 json.dump({"card": card, "moe": moe}, f, indent=1)
         log("phases 14 and 15 alone (--moe-only): no result line")
         return 0
+    if args.cross_only:
+        cross = dict(card_vs_host=cross_card_vs_host_phase(dev, card),
+                     serve=cross_serve_phase(dev, card, args.out,
+                                             args.trace))
+        if args.out is not None:
+            with open(os.path.join(args.out, "cross.json"), "w") as f:
+                json.dump({"card": card, "cross": cross}, f, indent=1)
+        log("phases 17 and 18 alone (--cross-only): no result line")
+        return 0
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         return run_phases(args, dev, card, kind, flush, workdir)
@@ -3374,8 +3823,9 @@ def main() -> int:
 
 def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                workdir: str) -> int:
-    """Phases 3-13 (the whole run, or phase 12 or 13 alone with
-    ``--session-only`` / ``--discovery-only``); prints the result lines."""
+    """Phases 3-18 (the whole run, or phase 12 alone or phases 13 and 16
+    with ``--session-only`` / ``--discovery-only``); prints the result
+    lines."""
     from repro_torch.configs import ARCHS
     with open(os.path.join(ROOT, "results", "fleet_scale.json")) as f:
         want = json.load(f)
@@ -3391,10 +3841,11 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         else:
             name, phase = "discovery", discovery_phase(dev, card, lib, want,
                                                        workdir)
+            phase["tables"] = tables_phase(dev, card, lib)
         if args.out is not None:
             with open(os.path.join(args.out, f"{name}.json"), "w") as f:
                 json.dump({"card": card, name: phase}, f, indent=1)
-        log(f"phase {12 if args.session_only else 13} alone "
+        log(f"phase {12 if args.session_only else '13 and 16'} alone "
             f"(--{name}-only): no result line")
         return 0
     kp = kernel_phase(dev, flush)
@@ -3423,6 +3874,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     log(f"quarantine on vs off [{card}]: 10,000 jobs at "
         f"{dis['scale_quarantine']['jobs_per_s']:.1f} jobs/s with "
         f"discovery=True, {ses['scale']['plain']['jobs_per_s']:.1f} without")
+    tab = tables_phase(dev, card, lib)
     sp = serve_phase(dev, card, ARCHS[GLM], REQUESTS, attn_launches,
                      args.out, args.trace)
     torch.cuda.empty_cache()        # the glm4-9b engine is gone: release it
@@ -3431,6 +3883,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     torch.cuda.empty_cache()        # the falcon-mamba-7b engine is gone too
     moe_host = moe_card_vs_host_phase(dev, card)
     moe_sp = moe_serve_phase(dev, card, args.out, args.trace)
+    cross_host = cross_card_vs_host_phase(dev, card)
+    cross_sp = cross_serve_phase(dev, card, args.out, args.trace)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -3485,10 +3939,11 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         rec["launches_session"].update(
             {f"discovery_{part}": n[rec["name"]]
              for part, n in dis["launches"].items()})
+        rec["launches_tables"] = tab["launches"][rec["name"]]
     kernels[2]["shapes"] = [            # flash at every timed prefill shape
-        {k: r[k] for k in ("b", "s", "H", "KV", "dh", "ms", "library_ms",
-                           "bound_ms", "bound_by") + (
-                               ("plain_ms",) if "plain_ms" in r else ())}
+        {k: r[k] for k in ("b", "s", "skv", "H", "KV", "dh", "causal",
+                           "dtype", "ms", "library_ms", "bound_ms",
+                           "bound_by", "plain_ms") if k in r}
         for r in lp["flash_attention"]["shapes"]]
     pre = ssp["prefill"]              # the first request's prefill scan
     kernels.append({
@@ -3507,6 +3962,12 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         rec["launches_moe_card_vs_host"] = {
             k: v["launches"][rec["name"]] for k, v in moe_host.items()
             if k != "seconds"}
+        rec["launches_cross_serving"] = {
+            arch: cross_sp[arch]["launches"][rec["name"]]
+            for arch in (VLM, WHISPER)}
+        rec["launches_cross_card_vs_host"] = {
+            k: v["launches"][rec["name"]] for k, v in cross_host.items()
+            if k != "seconds"}
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -3523,11 +3984,12 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     if args.out is not None:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels, "main_path": mp,
-                       "session": ses, "discovery": dis,
+                       "session": ses, "discovery": dis, "tables": tab,
                        "fleet_trace": fleet_trace,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
-                       "serve_moe": moe_sp}, f, indent=1)
+                       "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
+                       "serve_cross": cross_sp}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,7 @@ from repro_torch.core.algorithm1 import (FreqSelection, cap_perf_centric,
 from repro_torch.core.baselines import (mean_power_neighbor,
                                         util_only_neighbor)
 from repro_torch.core.classify import (FreqPoint, MinosClassifier,
-                                       WorkloadProfile,
+                                       WorkloadProfile, app_utilization,
                                        count_classifier_calls)
 from repro_torch.core.clustering import (best_k_by_silhouette,
                                          cosine_distance_matrix, cut, cut_k,

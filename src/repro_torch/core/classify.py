@@ -71,6 +71,20 @@ class WorkloadProfile:
         return np.array([self.dram_util, self.sm_util], np.float64)
 
 
+def app_utilization(kernels: list[tuple[float, float, float]]
+                    ) -> tuple[float, float]:
+    """Duration-weighted (sm, dram) utilization from per-kernel rows
+    (duration, sm_util, dram_util), paper Eqs. (1)/(2).  Host rows, summed
+    with NumPy as the reference sums them."""
+    t = np.array([k[0] for k in kernels], np.float64)
+    sm = np.array([k[1] for k in kernels], np.float64)
+    dr = np.array([k[2] for k in kernels], np.float64)
+    tot = t.sum()
+    if tot <= 0:
+        return 0.0, 0.0
+    return float((t * sm).sum() / tot), float((t * dr).sum() / tot)
+
+
 class MinosClassifier:
     """Power-spike (hierarchical/cosine) + utilization classifier.
 

@@ -137,6 +137,27 @@ def spike_vector(power: torch.Tensor, tdp: float,
     return h / tot
 
 
+def spike_cdf(power, tdp: float, grid=None, device=DEFAULT_DEVICE):
+    """Cumulative power distribution relative to TDP (paper Figs. 2/5/6):
+    ``(grid, cdf)``, both float64 tensors on the trace's device, the
+    fraction of samples at or below each grid point.  ``power`` is a tensor
+    (kept where it lies) or a NumPy array (moved to ``device``); ``grid``
+    defaults to ``linspace(0, SPIKE_HI, 201)``, drawn with NumPy as the
+    reference draws it.  Counts come from a sorted float64 trace, so they
+    are exact on every device."""
+    if isinstance(power, torch.Tensor):
+        p = power.to(torch.float64)
+    else:
+        p = torch.as_tensor(np.asarray(power, np.float64),
+                            device=resolve_device(device))
+    r = torch.sort(p / scalar(tdp, p)).values
+    if grid is None:
+        grid = np.linspace(0.0, SPIKE_HI, 201)
+    g = torch.as_tensor(np.asarray(grid, np.float64), device=p.device)
+    counts = torch.searchsorted(r, g, right=True).to(torch.float64)
+    return g, counts / scalar(max(len(r), 1), counts)
+
+
 def p_quantiles(traces: torch.Tensor, q: float) -> list[float]:
     """Row-wise ``np.percentile(traces, q, axis=1)`` (linear method),
     bit-identical to NumPy: rows are sorted on their device, and the two

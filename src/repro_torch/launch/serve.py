@@ -6,11 +6,19 @@
         --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
         --smoke --device cpu --prompt-len 16 --tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-11b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 The full configuration runs on the card by default, with the port's seeded
-init (no checkpoint); ``--smoke`` takes the reduced configuration.  The
-dense, moe (MoE and MLA: granite-moe-3b-a800m, deepseek-v2-236b), ssm and
-hybrid (jamba-1.5-large-398b) families are ported.  A configuration whose
+init (no checkpoint); ``--smoke`` takes the reduced configuration.  Every
+family is ported: dense, moe (MoE and MLA: granite-moe-3b-a800m,
+deepseek-v2-236b), ssm, hybrid (jamba-1.5-large-398b), vlm
+(llama-3.2-vision-11b, whose batch carries ``image_embeds`` (batch,
+num_image_tokens, d_model)) and audio (the whisper-medium encoder-decoder,
+``frames`` (batch, prompt_len, d_model)); both stub inputs are
+``standard_normal * 0.02`` from the seed's generator, as the reference's
+launcher draws them.  A configuration whose
 bfloat16 weights exceed the device's memory (deepseek-v2-236b and
 jamba-1.5-large-398b at full size) is refused before anything is
 allocated.
@@ -69,6 +77,14 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (args.batch, cfg.num_image_tokens, cfg.d_model)).astype(
+                np.float32) * 0.02
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(
+                np.float32) * 0.02
     sync = torch.cuda.synchronize if engine.device.type == "cuda" \
         else (lambda: None)
     sync()

@@ -10,6 +10,15 @@ without the jnp path's bfloat16 rounding of ``q * scale`` and of the
 softmax weights.  ``decode_attention`` is jnp in the reference and plain
 PyTorch here, rounding where the reference rounds.
 
+A cross-attention block (``is_cross``: the vlm's gated layers, the
+enc-dec decoder's) projects k and v from a fixed ``memory`` (image
+embeddings, the encoder's output) without RoPE and attends to all of it
+through the kernel, non-causal with sq != skv; its decode projects q alone
+and reads the memory's cache, which it leaves as it is.  A float32 memory
+through bfloat16 weights promotes the projections to float32, as jnp does,
+and the attention then runs in float32 on q widened exactly, the output
+cast back to q's dtype.
+
 MLA's prefill attends with a q/k width (``qk_nope + qk_rope``) other than
 its value width; the reference runs it through ``chunked_attention``, which
 allows that, while its Pallas kernel (and the port's) takes one head dim
@@ -28,7 +37,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, ParamModule, ParamStore
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, matmul
 
 _NEG = -1e30
 
@@ -62,10 +71,6 @@ class Attention(ParamModule):
                  causal: bool = True, is_cross: bool = False, *, device,
                  dtype=None):
         super().__init__()
-        if is_cross:
-            raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP queue 1: VLM "
-                "and enc-dec serving)")
         self.name, self.d_model = name, d_model
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim, self.layout = head_dim, layout
@@ -102,35 +107,44 @@ class Attention(ParamModule):
     def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """einsum("bsd,dhk->bshk") as one matmul."""
         d, h, k = w.shape
-        return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+        return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
-    def _qkv(self, x: torch.Tensor):
+    def _q(self, x: torch.Tensor) -> torch.Tensor:
         q = self._proj(x, self.wq)
-        k = self._proj(x, self.wk)
-        v = self._proj(x, self.wv)
+        return q + self.bq if self.qkv_bias else q
+
+    def _qkv(self, x: torch.Tensor, memory: torch.Tensor | None = None):
+        src = memory if self.is_cross else x
+        k = self._proj(src, self.wk)
+        v = self._proj(src, self.wv)
         if self.qkv_bias:
-            q = q + self.bq
             k = k + self.bk
             v = v + self.bv
-        return q, k, v
+        return self._q(x), k, v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
         H, dh, d = self.wo.shape
-        out = o.flatten(-2) @ self.wo.reshape(H * dh, d)
+        out = matmul(o.flatten(-2), self.wo.reshape(H * dh, d))
         if self.out_bias:
             out = out + self.bo
         return out
 
     # -- full-sequence forward (prefill) ---------------------------------
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                return_kv: bool = False):
-        """x (b, s, d), positions (s,) -> (b, s, d) [and (k, v)]."""
-        q, k, v = self._qkv(x)
-        if self.use_rope:
+                return_kv: bool = False, memory: torch.Tensor | None = None):
+        """x (b, s, d), positions (s,) [, memory (b, sm, d) for a cross
+        block] -> (b, s, d) [and (k, v)]."""
+        if self.is_cross and memory is None:
+            raise ValueError(f"{self.name}: a cross-attention block needs "
+                             f"memory")
+        q, k, v = self._qkv(x, memory)
+        if self.use_rope and not self.is_cross:
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
-        o = ops.flash_attention(q, k, v, causal=self.causal)
-        out = self._out(o)
+        dt = torch.promote_types(q.dtype, k.dtype)
+        o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                                causal=self.causal and not self.is_cross)
+        out = self._out(o.to(q.dtype))
         if return_kv:
             return out, (k, v)
         return out
@@ -140,7 +154,14 @@ class Attention(ParamModule):
                v_cache: torch.Tensor, update_cache: bool = True):
         """x (b, d) at position t.  Writes this token's k and v into the
         caches (b, S, KV, dh) in place at position t, then attends to
-        positions <= t.  Returns (out (b, d), (k_cache, v_cache))."""
+        positions <= t.  A cross block projects q alone and attends to
+        the whole memory cache, left as it is.  Returns (out (b, d),
+        (k_cache, v_cache))."""
+        if self.is_cross:
+            q = self._q(x[:, None])
+            o = decode_attention(q[:, 0], k_cache, v_cache,
+                                 k_cache.shape[1] - 1)
+            return self._out(o), (k_cache, v_cache)
         q, k, v = self._qkv(x[:, None])
         if self.use_rope:
             pos = torch.full((1,), t, dtype=torch.int64, device=x.device)

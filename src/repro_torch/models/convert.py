@@ -1,10 +1,13 @@
 """Carry the reference's parameters into the port's ``LM``.
 
 ``params_from_jax(tree)`` takes the nested dict that the reference's
-``LM.init_params`` returns, with every leaf turned into a numpy array
-(``np.asarray``), and returns a state dict for ``LM.load_state_dict``:
-paths joined with ".", and every ``layers/...`` leaf, stacked over periods
-in the reference, split along axis 0 into ``layers.<i>....``.  A JAX
+``LM.init_params`` (or ``EncDecLM.init_params``) returns, with every leaf
+turned into a numpy array (``np.asarray``), and returns a state dict for
+the port's ``load_state_dict``: paths joined with ".", and every leaf
+stacked in the reference (``layers/...`` over periods, ``enc_layers/...``
+and ``dec_layers/...`` over the encoder's and the decoder's layers) split
+along axis 0 into ``<stack>.<i>....``; a vlm period's ``gate`` comes with
+its layer.  A JAX
 bfloat16 leaf arrives as a numpy array of the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` rejects; it is recognised by its dtype's name and
 reinterpreted bit for bit through uint16, so neither JAX nor ``ml_dtypes``
@@ -16,6 +19,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+
+STACKED = ("layers", "enc_layers", "dec_layers")   # the reference's stacks
 
 
 def to_tensor(a: Any) -> torch.Tensor:
@@ -45,10 +51,10 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     state = {}
     for path, leaf in _flatten(tree).items():
         t = to_tensor(leaf)
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
+        stack, _, rest = path.partition(".")
+        if stack in STACKED:
             for i in range(t.shape[0]):
-                state[f"layers.{i}.{rest}"] = t[i].clone()
+                state[f"{stack}.{i}.{rest}"] = t[i].clone()
         else:
             state[path] = t
     return state

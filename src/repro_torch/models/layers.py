@@ -14,6 +14,16 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ParamDef, ParamModule, ParamStore
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as jnp promotes a
+    float32 activation through a bfloat16 weight (the vlm's image
+    embeddings, the enc-dec's frames)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 class Norm(ParamModule):
     def __init__(self, name: str, dim: int, kind: str = "rmsnorm",
                  eps: float = 1e-5, *, device, dtype=None):
@@ -78,13 +88,13 @@ class Mlp(ParamModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.activation == "swiglu":
-            g = x @ self.w_gate
-            u = x @ self.w_up
+            g = matmul(x, self.w_gate)
+            u = matmul(x, self.w_up)
             h = F.silu(g.to(torch.float32)).to(x.dtype) * u
         else:
-            u = x @ self.w_up
+            u = matmul(x, self.w_up)
             h = F.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
-        return h @ self.w_down
+        return matmul(h, self.w_down)
 
 
 class Embedding(ParamModule):

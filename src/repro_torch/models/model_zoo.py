@@ -3,13 +3,13 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ONE_DEVICE, Topo
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ModelConfig, topo: Topo = ONE_DEVICE,
-                kind: str = "train", *, device="cuda", dtype=None) -> LM:
+                kind: str = "train", *, device="cuda",
+                dtype=None) -> LM | EncDecLM:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "the encoder-decoder model is not ported yet (ROADMAP queue 1: "
-            "VLM and enc-dec serving)")
+        return EncDecLM(cfg, topo, kind, device=device, dtype=dtype)
     return LM(cfg, topo, kind, device=device, dtype=dtype)

@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense, moe, ssm and hybrid families.
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families.
 
 The reference scans a repeating *period* of sublayers over stacked
 parameters; the port keeps the period (``build_period``) and unrolls the
@@ -9,19 +9,23 @@ reference's tree: ``embed.table``, ``final_norm.scale``,
 
 Entry points:
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
-    stacked over periods as in the reference;
+    stacked over periods as in the reference; a vlm's batch carries its
+    ``image_embeds`` (b, num_image_tokens, d), the memory of its
+    cross-attention layers;
   * ``decode_step(caches, tokens, t)``: one new token per sequence; writes
     its k and v (an MLA layer's latent and rope key, a Mamba layer's state
     and conv window) into the caches in place and returns ``(logits,
-    caches)``;
+    caches)``; a cross layer reads its memory cache and leaves it;
   * ``apply_sublayer`` / ``decode_sublayer``: one sublayer's block on its
     normed input, as ``prefill`` and ``decode_step`` run it, for a
     comparison layer by layer.
 
-A MoE sublayer's load-balancing loss is dropped in serving, as the
-reference's ``prefill`` and ``decode_step`` drop it.  The vlm family raises
-``NotImplementedError`` naming its ROADMAP item; training (``loss``) is
-not ported yet.
+The vlm's cross-attention sublayer (the last layer of each period of
+``cross_attn_period``) is gated: its output times ``tanh(gate)``, taken in
+float32 and cast to the output's dtype; the gate is zero at init, as in the
+reference.  A MoE sublayer's load-balancing loss is dropped in serving, as
+the reference's ``prefill`` and ``decode_step`` drop it.  Training
+(``loss``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,33 +35,41 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, MLAttention
-from repro_torch.models.common import ONE_DEVICE, ParamStore, Topo, init_param_
+from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamStore,
+                                       Topo, init_param_)
 from repro_torch.models.layers import Embedding, Mlp, Norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
 
-# the ROADMAP item of the family still to port (the rest of item 3c)
-_LATER = "VLM and enc-dec serving"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: "
-                               f"{item})")
-
 
 class SubLayer(nn.Module):
-    def __init__(self, name: str, kind: str, norm: Norm, block: nn.Module):
+    """A norm and a block; ``gated`` adds the vlm's (1,) residual gate."""
+
+    def __init__(self, name: str, kind: str, norm: Norm, block: nn.Module,
+                 gated: bool = False, *, device=None, dtype=None):
         super().__init__()
-        self.name, self.kind = name, kind
+        self.name, self.kind, self.gated = name, kind, gated
         self.norm, self.core = norm, block
+        if gated:
+            self.defs = {"gate": ParamDef((1,), (None,), init="zeros")}
+            self.gate = nn.Parameter(torch.empty(
+                1, dtype=dtype or torch.bfloat16, device=device),
+                requires_grad=False)
+
+    def gate_out(self, out: torch.Tensor) -> torch.Tensor:
+        if not self.gated:
+            return out
+        return torch.tanh(self.gate.to(torch.float32)).to(out.dtype) * out
 
 
-def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor):
-    """One sublayer's block on its normed input over a prompt: ``(out, its
-    cache entry)``, the entry ``None`` for a MoE or MLP block."""
-    if sub.kind == "attn":
-        out, (k, v) = sub.core(x, positions, return_kv=True)
-        return out, {"k": k, "v": v}
+def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor,
+                   memory: torch.Tensor | None = None):
+    """One sublayer's block on its normed input over a prompt (a cross
+    block over ``memory``): ``(out, its cache entry)``, the entry ``None``
+    for a MoE or MLP block; a gated block's output is gated."""
+    if sub.kind in ("attn", "cross"):
+        out, (k, v) = sub.core(x, positions, return_kv=True, memory=memory)
+        return sub.gate_out(out), {"k": k, "v": v}
     if sub.kind == "mla":
         out, (ckv, krope) = sub.core(x, positions, return_kv=True)
         return out, {"ckv": ckv, "krope": krope}
@@ -72,9 +84,11 @@ def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor):
 def decode_sublayer(sub: SubLayer, x: torch.Tensor, t: int,
                     entry: dict) -> torch.Tensor:
     """One sublayer's block on its normed input at decode position ``t``;
-    ``entry`` holds this period's cache slices, written in place."""
-    if sub.kind == "attn":
-        return sub.core.decode(x, t, entry["k"], entry["v"])[0]
+    ``entry`` holds this period's cache slices, written in place (a cross
+    block's only read)."""
+    if sub.kind in ("attn", "cross"):
+        return sub.gate_out(sub.core.decode(x, t, entry["k"],
+                                            entry["v"])[0])
     if sub.kind == "mla":
         return sub.core.decode(x, t, entry["ckv"], entry["krope"])[0]
     if sub.kind == "mamba":
@@ -103,13 +117,12 @@ def _moe_placement(cfg: ModelConfig, topo: Topo, kind: str) -> str:
 
 def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                  dtype=None) -> tuple[list[SubLayer], int]:
-    """Sublayers of one period + number of periods (dense, moe, ssm and
-    hybrid families)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise _not_ported(f"the {cfg.family!r} family", _LATER)
+    """Sublayers of one period + number of periods."""
     layout = _attn_layout(cfg, topo, kind)
     if cfg.family == "hybrid":
         period_len = cfg.attn_period
+    elif cfg.family == "vlm":
+        period_len = cfg.cross_attn_period
     elif cfg.layers_per_period and \
             cfg.num_layers % cfg.layers_per_period == 0:
         period_len = cfg.layers_per_period
@@ -146,6 +159,14 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                 cfg.head_dim, layout=layout, rope_theta=cfg.rope_theta,
                 use_rope=cfg.rope_theta > 0, qkv_bias=cfg.qkv_bias,
                 out_bias=cfg.attn_out_bias, device=device, dtype=dtype)))
+        # ---- vlm cross-attention on the last layer of each period ----
+        if cfg.family == "vlm" and j == period_len - 1:
+            n = f"l{j}_cross"
+            subs.append(SubLayer(n, "cross", norm(n), Attention(
+                f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, layout=layout, use_rope=False, is_cross=True,
+                causal=False, device=device, dtype=dtype), gated=True,
+                device=device, dtype=dtype))
         # ---- ffn ----
         if cfg.is_moe_layer(j):
             n = f"l{j}_moe"
@@ -164,7 +185,32 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
     return subs, cfg.num_layers // period_len
 
 
-class LM(nn.Module):
+class ModelBase(nn.Module):
+    """What ``LM`` and the enc-dec model share: the device of their
+    embedding table, their defs by state-dict name, the seeded init."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def param_defs(self) -> ParamStore:
+        """Every parameter's def under its state-dict name."""
+        store = ParamStore()
+        for mod_name, mod in self.named_modules():
+            for path, d in getattr(mod, "defs", {}).items():
+                store.add(f"{mod_name}.{path}" if mod_name else path, d)
+        return store
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """Seeded init in place, parameters in sorted name order."""
+        params = dict(self.named_parameters())
+        defs = self.param_defs().defs
+        for name in sorted(params):
+            init_param_(params[name], defs[name], generator)
+
+
+class LM(ModelBase):
     """Decoder-only language model, the periods unrolled into layers.
 
     ``dtype`` overrides every parameter's dtype (the reference's defs are
@@ -191,34 +237,19 @@ class LM(nn.Module):
         self.final_norm = Norm("final_norm", cfg.d_model, cfg.norm_type,
                                cfg.norm_eps, device=dev, dtype=dtype)
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed.table.device
-
     # ------------------------------------------------------------------
-    def param_defs(self) -> ParamStore:
-        """Every parameter's def under its state-dict name."""
-        store = ParamStore()
-        for mod_name, mod in self.named_modules():
-            for path, d in getattr(mod, "defs", {}).items():
-                store.add(f"{mod_name}.{path}" if mod_name else path, d)
-        return store
+    def _memory(self, batch: dict) -> torch.Tensor | None:
+        """The vlm's image embeddings on the model's device, else None."""
+        mem = batch.get("image_embeds")
+        return None if mem is None else torch.as_tensor(mem,
+                                                        device=self.device)
 
-    @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> None:
-        """Seeded init in place, parameters in sorted name order."""
-        params = dict(self.named_parameters())
-        defs = self.param_defs().defs
-        for name in sorted(params):
-            init_param_(params[name], defs[name], generator)
-
-    # ------------------------------------------------------------------
     def _apply_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor, memory=None):
         kvs = {}
         for name, _ in self.period_kinds:
             sub = layer[name]
-            out, kv = apply_sublayer(sub, sub.norm(h), positions)
+            out, kv = apply_sublayer(sub, sub.norm(h), positions, memory)
             if kv is not None:
                 kvs[name] = kv
             h = h + out
@@ -226,17 +257,19 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict):
-        """batch {"tokens": (b, s)} -> (logits (b, padded_vocab) float32,
-        caches {sublayer: {"k", "v": (n_periods, b, s, KV, dh)},
+        """batch {"tokens": (b, s)[, "image_embeds": (b, m, d)]} ->
+        (logits (b, padded_vocab) float32, caches {sublayer: {"k", "v":
+        (n_periods, b, s, KV, dh)} (a cross layer's over m),
         {"ckv": (n_periods, b, s, lora), "krope": (n_periods, b, s, rope)}
         or {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
         di)}})."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         h = self.embed.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
+        memory = self._memory(batch)
         per_layer = []
         for layer in self.layers:
-            h, kvs = self._apply_layer(layer, h, positions)
+            h, kvs = self._apply_layer(layer, h, positions, memory)
             per_layer.append(kvs)
         h = self.final_norm(h)
         logits = self.embed.logits(h[:, -1])
@@ -272,7 +305,8 @@ class LM(nn.Module):
 
     def cache_shape_structs(self, batch: int, seq: int) -> dict:
         """(shape, dtype) of every decode cache, stacked over periods, as in
-        the reference's ``cache_shape_structs``: k and v bfloat16, an MLA
+        the reference's ``cache_shape_structs``: k and v bfloat16 (a cross
+        layer's over the ``num_image_tokens`` of its memory), an MLA
         layer's latent and rope key bfloat16, a Mamba layer's state float32
         and its conv window bfloat16."""
         cfg, n = self.cfg, self.n_periods
@@ -282,6 +316,11 @@ class LM(nn.Module):
             if kind == "attn":
                 out[name] = {"k": (kvd, torch.bfloat16),
                              "v": (kvd, torch.bfloat16)}
+            elif kind == "cross":
+                kvx = (n, batch, cfg.num_image_tokens, cfg.num_kv_heads,
+                       cfg.head_dim)
+                out[name] = {"k": (kvx, torch.bfloat16),
+                             "v": (kvx, torch.bfloat16)}
             elif kind == "mla":
                 out[name] = {
                     "ckv": ((n, batch, seq, cfg.kv_lora_rank),

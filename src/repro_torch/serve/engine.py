@@ -3,10 +3,13 @@
 The reference's engine holds a ``prefill`` model and a ``decode`` model
 that share parameter values and differ only in how they shard them.  On one
 card the two layouts name the same tensors, so the port's engine holds one
-``LM`` (its parameters live on ``device``) and runs both steps on it.  The
+model (its parameters live on ``device``) and runs both steps on it.  The
 decode caches take the reference's dtypes (k and v, an MLA layer's latent
 and rope key: bfloat16, padded along the sequence to ``max_len``; a Mamba
 layer's state float32 and conv window bfloat16) and are updated in place.
+A cross-attention cache (the vlm's over its ``num_image_tokens``, the
+enc-dec's over ``memory_len = frames.shape[1]``) is cast, never padded: a
+zero key past the memory would be attended to at decode.
 """
 from __future__ import annotations
 
@@ -47,16 +50,21 @@ class ServeEngine:
         self.model.init_params(
             torch.Generator(device=self.device).manual_seed(seed))
 
-    def _pad_caches(self, caches: dict, batch: int) -> dict:
+    def _pad_caches(self, caches: dict, batch: int,
+                    memory_len: int | None = None) -> dict:
+        if self.cfg.is_encoder_decoder:
+            structs = self.model.cache_shape_structs(
+                batch, self.max_len, memory_len=memory_len)
+        else:
+            structs = self.model.cache_shape_structs(batch, self.max_len)
         out = {}
-        for name, entry in self.model.cache_shape_structs(
-                batch, self.max_len).items():
+        for name, entry in structs.items():
             out[name] = {}
             for key, (shape, dtype) in entry.items():
                 c = caches[name][key]
                 buf = torch.zeros(shape, dtype=dtype, device=c.device)
                 if key in ("k", "v", "ckv", "krope"):   # (n, b, seq, ...)
-                    buf[:, :, :c.shape[2]] = c
+                    buf[:, :, :c.shape[2]] = c  # a cross cache: all of it
                 else:                       # Mamba state and conv window
                     buf.copy_(c)
                 out[name][key] = buf
@@ -64,7 +72,8 @@ class ServeEngine:
 
     def generate(self, batch: dict, num_tokens: int, greedy: bool = True,
                  generator: torch.Generator | None = None) -> np.ndarray:
-        """batch {"tokens": (b, s)} -> (b, num_tokens) int32 token ids."""
+        """batch {"tokens": (b, s)[, "image_embeds" (vlm) or "frames"
+        (enc-dec)]} -> (b, num_tokens) int32 token ids."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         if s + num_tokens > self.max_len:
@@ -75,7 +84,8 @@ class ServeEngine:
                              "greedy=True")
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(batch)
-        caches = self._pad_caches(caches, b)
+        mem_len = batch["frames"].shape[1] if "frames" in batch else None
+        caches = self._pad_caches(caches, b, memory_len=mem_len)
         self.stats.prefill_tokens += b * s
         self.stats.requests += 1
         out = []

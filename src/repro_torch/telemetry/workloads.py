@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.analysis.hardware import FREQ_SWEEP
 from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.telemetry import kernel_stream as kstream
 from repro_torch.telemetry.power_model import TPUPowerModel
 
@@ -123,3 +125,39 @@ def fleet_job_mix(n_jobs: int, seed: int = 0,
         out.append((stream, int(chips_choices[int(
             rng.integers(len(chips_choices)))])))
     return out
+
+
+def build_reference_set(model: TPUPowerModel | None = None,
+                        freqs=FREQ_SWEEP, seed: int = 0,
+                        target_duration: float = 4.0,
+                        device=DEFAULT_DEVICE):
+    """Profiles with full frequency sweeps (the shipped reference library),
+    built on ``device``."""
+    from repro_torch.pipeline.builder import stream_profile_workload
+    model = model or TPUPowerModel()
+    tdp = model.spec.tdp_w
+    return [stream_profile_workload(s, model, freqs, tdp, seed=seed + i,
+                                    target_duration=target_duration,
+                                    device=device)
+            for i, s in enumerate(reference_streams())]
+
+
+def build_holdout_profiles(model: TPUPowerModel | None = None, seed: int = 77,
+                           with_truth: bool = False, freqs=FREQ_SWEEP,
+                           device=DEFAULT_DEVICE):
+    """Held-out workloads: one uncapped profile each (what Minos sees) and,
+    with ``with_truth``, apart from it the ground-truth sweep used only to
+    evaluate predictions; built on ``device``."""
+    from repro_torch.pipeline.builder import (stream_profile_once,
+                                              stream_profile_workload)
+    model = model or TPUPowerModel()
+    tdp = model.spec.tdp_w
+    observed, truth = [], []
+    for i, s in enumerate(holdout_streams()):
+        observed.append(stream_profile_once(s, model, tdp, seed=seed + i,
+                                            device=device))
+        if with_truth:
+            truth.append(stream_profile_workload(s, model, freqs, tdp,
+                                                 seed=seed + i,
+                                                 device=device))
+    return (observed, truth) if with_truth else observed

@@ -312,6 +312,12 @@ def _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype):
     (1, 2048, 2048, 16, 2, 128, True),
     (1, 2048, 2048, 8, 8, 32, True),
     (2, 129, 1000, 8, 1, 128, False),
+    # the vlm's cross-attention (sq > skv too) and whisper's encoder,
+    # decoder cross-attention at a GQA ratio of 1
+    (1, 2048, 1600, 32, 8, 128, False),
+    (4, 1000, 1600, 32, 8, 128, False),
+    (2, 1500, 1500, 16, 16, 64, False),
+    (4, 64, 1500, 16, 16, 64, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_close_to_plain(cuda, b, sq, skv, H, KV, dh, causal,
@@ -476,6 +482,52 @@ def test_reduced_lm_on_card_matches_host(cuda):
     assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
     assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 5
     want, _ = host.prefill({"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,flash", [("llama-3.2-vision-11b", 6),
+                                        ("whisper-medium", 10)])
+def test_reduced_vlm_and_enc_dec_on_card_match_host(cuda, arch, flash):
+    """float32, the gates drawn away from 0: one flash launch per self and
+    cross attention of the prefill (the vlm: 4 + 2; whisper: 2 encoder + 4
+    decoder self + 4 cross) and a decode step on the cross caches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    cfg = ARCHS[arch].reduced()
+    host = build_model(cfg, kind="prefill", device="cpu",
+                       dtype=torch.float32)
+    host.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, p in host.named_parameters():
+            if name.endswith(".gate"):
+                p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, 1)))
+    card = build_model(cfg, kind="prefill", device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 70))}
+    memory = "image_embeds" if cfg.family == "vlm" else "frames"
+    batch[memory] = rng.standard_normal(
+        (2, cfg.num_image_tokens or 90, cfg.d_model)).astype(np.float32)
+    before = dict(build.LAUNCHES)
+    got, caches = card.prefill(batch)
+    assert build.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + flash
+    want, host_caches = host.prefill(batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cross = "cross" if memory == "frames" else "l1_cross"
+    for key in ("k", "v"):
+        torch.testing.assert_close(caches[cross][key].cpu(),
+                                   host_caches[cross][key], rtol=1e-4,
+                                   atol=1e-4)
+    pad = {name: {key: torch.cat([c, torch.zeros_like(c[:, :, :1])], 2)
+                  if "cross" not in name else c for key, c in e.items()}
+           for name, e in caches.items()}
+    host_pad = {name: {key: c.cpu() for key, c in e.items()}
+                for name, e in pad.items()}
+    tok = torch.tensor([3, 4])
+    got, _ = card.decode_step(pad, tok.to(cuda), 70)
+    want, _ = host.decode_step(host_pad, tok, 70)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 

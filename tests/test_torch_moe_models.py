@@ -366,9 +366,20 @@ def test_engine_defaults_to_the_card(arch):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-medium"])
 def test_vlm_and_enc_dec_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError,
-                       match="VLM and enc-dec serving"):
-        build_model(ARCHS[arch].reduced(), kind="prefill", device="cpu")
+    """The vlm and enc-dec families, once refused with their ROADMAP item,
+    now serve: the engine answers a request of the reduced model on the
+    CPU with its stub input (image embeddings or frames)."""
+    cfg = ARCHS[arch].reduced()
+    eng = ServeEngine(cfg, max_len=12, device="cpu")
+    eng.init_params(1)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, 5))}
+    memory = "image_embeds" if cfg.family == "vlm" else "frames"
+    batch[memory] = rng.standard_normal(
+        (1, cfg.num_image_tokens or 7, cfg.d_model)).astype(np.float32)
+    out = eng.generate(batch, 4)
+    assert out.shape == (1, 4) and out.max() < cfg.vocab_size
+    assert (eng.stats.prefill_tokens, eng.stats.decode_steps) == (5, 4)
 
 
 # ---------------------------------------------------------------------------
