@@ -1101,14 +1101,35 @@ def packed_attn_inputs(dev, b, s, H, KV, dh, seed):
 
 def build_report(source: str, ops: tuple[str, ...]) -> dict:
     """ptxas's registers / shared memory / spills for the library built
-    from ``source`` and, per kernel, the count of each opcode in ``ops`` in
-    its SASS (``cuobjdump -sass``; an opcode counts with any suffix, so
-    LDS counts every width but not LDSM)."""
+    from ``source``, as lines and per kernel (``ptxas_by_kernel``:
+    registers, stack, spill store and load bytes) and, per kernel, the
+    count of each opcode in ``ops`` in its SASS (``cuobjdump -sass``; an
+    opcode counts with any suffix, so LDS counts every width but not
+    LDSM)."""
     from repro_torch.kernels import build
-    ptxas = [ln.strip() for ln in
-             str(build.BUILD_INFO.get(f"{source}_ptxas", "")).splitlines()
+    log_lines = str(build.BUILD_INFO.get(f"{source}_ptxas", "")).splitlines()
+    ptxas = [ln.strip() for ln in log_lines
              if any(w in ln for w in ("Used", "spill", "Compiling entry",
                                       "arning", "Performance"))]
+    by_entry, entry = {}, None
+    for ln in log_lines:
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", ln)
+        if m is not None:
+            entry = m.group(1)
+            by_entry.setdefault(entry, {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m is not None:
+            by_entry[entry].update(stack=int(m.group(1)),
+                                   spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m is not None:
+            by_entry[entry]["registers"] = int(m.group(1))
     bindir = os.path.dirname(build._nvcc())
     sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass",
                            build.build_all()[source]],
@@ -1128,14 +1149,18 @@ def build_report(source: str, ops: tuple[str, ...]) -> dict:
             if m.group(1) == key or m.group(1).startswith(key + "."):
                 by_kernel[name][key] += 1
     filt = os.path.join(bindir, "cu++filt")
-    if os.path.exists(filt) and by_kernel:
-        names = list(by_kernel)
+
+    def demangled(table: dict) -> dict:
+        if not os.path.exists(filt) or not table:
+            return table
+        names = list(table)
         plain = subprocess.run([filt, *names], capture_output=True,
                                text=True, timeout=60).stdout.splitlines()
-        if len(plain) == len(names):
-            by_kernel = {p.strip(): by_kernel[n]
-                         for n, p in zip(names, plain)}
-    return dict(ptxas=ptxas, sass=by_kernel)
+        if len(plain) != len(names):
+            return table
+        return {p.strip(): table[n] for n, p in zip(names, plain)}
+    return dict(ptxas=ptxas, ptxas_by_kernel=demangled(by_entry),
+                sass=demangled(by_kernel))
 
 
 # every flash shape (b, sq, skv, heads, causal) of phase 18's requests:
@@ -1206,6 +1231,18 @@ def time_flash(dev, flush, card: str, b, sq, skv, heads, causal,
     return r
 
 
+F32_SASS_OPS = ("FFMA", "FMUL", "FADD", "LDS")
+# (b, sq, skv, H, KV, dh, causal): tests/test_torch_cuda.py's float32 edges
+F32_EDGES = (
+    (1, 63, 63, 8, 1, 128, True), (2, 64, 64, 8, 2, 64, False),
+    (1, 65, 65, 4, 4, 32, True), (2, 65, 129, 8, 2, 128, True),
+    (1, 1, 65, 8, 1, 64, True), (2, 129, 63, 8, 8, 32, False),
+    (3, 127, 65, 96, 12, 128, False), (3, 128, 64, 96, 24, 64, False),
+    (3, 129, 129, 96, 96, 128, True),
+    (3, 128, 191, 96, 24, 128, True),
+    (3, 1, 63, 96, 12, 64, True), (3, 200, 127, 96, 12, 64, False))
+
+
 def lm_kernel_phase(dev, flush, card: str) -> dict:
     """Both LM kernels against their plain versions, then timings of the
     kernel, the plain version and the library call at the serving path's
@@ -1217,9 +1254,9 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                                      rmsnorm_plain)
     cfg = ARCHS[GLM]
     H, KV, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    report = build_report("flash_attention", ("HGMMA",))
-    report["hgmma_by_kernel"] = {k: c["HGMMA"]
-                                 for k, c in report.pop("sass").items()}
+    report = build_report("flash_attention", ("HGMMA",) + F32_SASS_OPS)
+    sass = report.pop("sass")
+    report["hgmma_by_kernel"] = {k: c["HGMMA"] for k, c in sass.items()}
     report["hgmma"] = sum(report["hgmma_by_kernel"].values())
     for ln in report["ptxas"]:
         log(f"  flash_attention ptxas: {ln}")
@@ -1228,6 +1265,28 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
     if report["hgmma"] == 0:
         raise AssertionError("the flash_attention library has no HGMMA "
                              "(wgmma) instruction")
+    # the float32 kernel: each instantiation's registers and spills, and
+    # its SASS mix (its products must be FFMA, not FMUL + FADD)
+    report["f32_ptxas"] = {k: r for k, r in
+                           report["ptxas_by_kernel"].items()
+                           if "fa_f32_kernel" in k}
+    report["f32_sass"] = {k: {op: c[op] for op in F32_SASS_OPS}
+                          for k, c in sass.items() if "fa_f32_kernel" in k}
+
+    def short(name: str) -> str:           # fa_f32_kernel<(int)DH, (int)BM>
+        m = re.search(r"fa_f32_kernel<[^>]*>", name)
+        return m.group(0) if m else name
+    for name, r in report["f32_ptxas"].items():
+        log(f"  {short(name)} ptxas: "
+            f"{r.get('registers')} registers, {r.get('stack')} bytes stack "
+            f"frame, {r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    for name, c in report["f32_sass"].items():
+        log(f"  {short(name)} SASS: {json.dumps(c)}")
+    if not report["f32_sass"] or \
+            any(c["FFMA"] == 0 for c in report["f32_sass"].values()):
+        raise AssertionError(f"fa_f32_kernel has no FFMA: "
+                             f"{json.dumps(report['f32_sass'])}")
     before = dict(build.LAUNCHES)
     fa_err, rn_err = 0.0, 0.0
     # glm4-9b's heads at the serving shapes, a cached-prefill sq < skv case,
@@ -1243,6 +1302,13 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
              ((1, 2048, 2048, torch.bfloat16), GRANITE_HEADS),
              ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
              ((2, 1000, 1000, torch.bfloat16), dict(packed=True))]
+    # the float32 kernel around its 64-key tiles and its 64- and 128-row
+    # blocks (128 at dh 128 from b H ceil(sq / 128) >= the SM count: b 3 x
+    # H 96), dh 32 / 64 / 128, GQA 1 / 4 / 8, causal sq < skv, one query
+    # row, non-causal sq > skv
+    cases += [((b, sq, skv, torch.float32), dict(H=H_, KV=KV_, dh=dh_,
+                                                  causal=c))
+              for b, sq, skv, H_, KV_, dh_, c in F32_EDGES]
     # every shape the vlm and whisper serving paths give the kernel, in
     # both dtypes (the float32 image embeddings and frames promote the
     # cross-attention and whisper's encoder to float32)
@@ -1864,7 +1930,7 @@ def trace_serve(engine, batch: dict, card: str, out: str | None) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("moe.")]
     device_us = sum(e.self_device_time_total for e in kernels)
-    shares = {}
+    shares, counts = {}, {}
     for e in kernels:
         name = e.key.lower()
         group = ("flash_attention" if "fa_bf16" in name else
@@ -1877,7 +1943,9 @@ def trace_serve(engine, batch: dict, card: str, out: str | None) -> dict:
                                                     "nvjet")) else
                  "other")
         shares[group] = shares.get(group, 0.0) + e.self_device_time_total
-    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%})"
+        counts[group] = counts.get(group, 0) + e.count
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%}, "
+                      f"{counts[k]} launches)"
                       for k, v in sorted(shares.items(), key=lambda x: -x[1]))
     if moe:
         moe_ms = moe_device_times(ka)
@@ -1896,6 +1964,7 @@ def trace_serve(engine, batch: dict, card: str, out: str | None) -> dict:
                     f"\n")
     return dict(elapsed_s=elapsed, device_busy_s=device_us / 1e6,
                 by_kernel_ms={k: v / 1e3 for k, v in shares.items()},
+                launches_by_kernel=counts,
                 **({"moe_ms": moe_device_times(ka)} if moe else {}))
 
 

@@ -57,10 +57,28 @@
 //     so that one's softmax runs while the other's products do.  The turns
 //     are mbarriers, not named barriers: with bar.sync ptxas serialised the
 //     wgmma for want of registers (C7512) and spilled.
-// Design, float32 (checks and float32 models): a plain SIMT kernel, one warp
-// per query row and one lane per key of a 32-key tile, float32 throughout
-// (expf, no tensor cores), so it matches the exact softmax to float32
-// rounding.
+// Design, float32 (the vlm's cross-attention and whisper's encoder, which
+// their float32 memory promotes; checks), after FlashAttention-2 with the
+// products register-tiled as in a SIMT SGEMM.  float32 throughout: TF32
+// tensor cores keep ~3 digits, so the bound is FFMA's 67 TFLOP/s.
+//   * A CTA owns 128 query rows of one head at dh 128 (256 threads, one
+//     an SM), else 64 (128 threads, three an SM at dh <= 64; at dh 128
+//     when 128-row blocks would leave SMs idle).
+//     Q^T is staged once; K and V tiles of 64 keys come through a cp.async
+//     ring as one stream (K_0, V_0, K_1, ...), each load started a compute
+//     phase before it is read.
+//   * Each thread owns an 8 x 4 micro-tile of S and 8 x DH/16 of O.  S's
+//     loop reads, per 4 columns of DH, 4 float4 of K and 8 of Q^T for 128
+//     FMAs (2.7 a float loaded); O += P V reads, per key, 2 float4 of P^T
+//     and DH/16 floats of V for 8 DH/16 FMAs (4 a float at DH 128).  Every
+//     product is an explicit __fmaf_rn (the library is built with
+//     --fmad=false).
+//   * The 16 threads sharing a row sit in one half-warp, so the row's max
+//     and sum are xor-shuffles; a tile takes two __syncthreads, each
+//     before the tile's K or V is read.
+//   * Softmax in the log2 domain (one fma, exp2f), the mask only on tiles
+//     that cross skv or the block's diagonal, tiles above it skipped; a
+//     row's sum is kept per thread and reduced once at the end.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,8 +88,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Layout {           // strides in elements of (b, s, heads); dh is 1
@@ -702,86 +718,273 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// float32: SIMT, one warp per query row, one lane per key of a 32-key tile
+// float32: register-tiled SIMT (FlashAttention-2 with SGEMM-style products)
 // ---------------------------------------------------------------------------
-constexpr int kTileSimt = 32;
+constexpr int kF32Rows = 128;        // query rows of a CTA at dh 128 (256
+constexpr int kF32RowsSmall = 64;    // threads), else 64 (128 threads)
+constexpr int kF32SmallBelow = 1;    // dh 128 takes 64 rows if b H
+                                     // ceil(sq / 128) < this x SMs
+constexpr int kF32Keys = 64;         // keys of a K or V tile
+constexpr int kF32Stages = 2;        // ring slots, each a K or a V tile
+constexpr int kF32MicroRows = 8;     // S and O rows of a thread
+constexpr int kF32Lanes = 16;        // threads sharing those rows
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of a CTA, in floats: Q^T (DH x kQS), the ring of K and V
+// tiles (kF32Keys x kKS each), P^T (kF32Keys x kQS).  Both strides are 4
+// mod 32, so that the fragment reads below are conflict-free.
+template <int DH, int BM>
+struct F32Geo {
+  static constexpr int kThreads = BM / kF32MicroRows * kF32Lanes;
+  static constexpr int kQS = BM + 4;
+  static constexpr int kKS = DH + 4;
+  static constexpr int kSlot = kF32Keys * kKS;
+  static constexpr int kSmem =
+      4 * (DH * kQS + kF32Stages * kSlot + kF32Keys * kQS);
+  // CTAs an SM asked of __launch_bounds__, which caps the registers: at
+  // dh 128 one (64 O floats a thread; shared memory allows no second), at
+  // dh <= 64 three of 128 threads (168 registers, 70 KB each)
+  static constexpr int kMinBlocks = DH > 64 ? 1 : 3;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// W (2 or 4) consecutive floats of shared memory in one load
+template <int W>
+__device__ __forceinline__ void lds(float* dst, const float* src) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x; dst[1] = t.y;
+  }
+}
+
+// A CTA owns BM query rows of one (head, batch) and walks the K and V
+// tiles.  Thread (rg, cg) = (tid / 16, tid % 16) owns rows rg * 8 + i of
+// the block: S at keys cg + 16 j of a tile, O at columns g * 16 VW + cg VW
+// + e.  The 16 threads of a row group share a half-warp, so a row's max
+// and sum are xor-shuffles.
+template <int DH, int BM>
+__global__ void __launch_bounds__(F32Geo<DH, BM>::kThreads,
+                                  F32Geo<DH, BM>::kMinBlocks)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int sq,
               int skv, int qper, Layout lq, Layout lk, Layout lv, Layout lo,
-              int causal, float scale) {
-  constexpr int kPerLane = DH / 32;        // output dims of one lane
-  __shared__ float qs[kWarps][DH];
-  __shared__ float ks[kTileSimt][DH + 1];  // +1: lane j reads row j
-  __shared__ float vs[kTileSimt][DH];
+              int causal, float scale_log2) {
+  using G = F32Geo<DH, BM>;
+  constexpr int RM = kF32MicroRows, BN = kF32Keys, NL = kF32Lanes;
+  constexpr int KPT = BN / NL;             // S keys of a thread
+  constexpr int OC = DH / NL;              // O columns of a thread,
+  constexpr int VW = OC < 4 ? OC : 4;      // read VW at a time
+  constexpr int QS = G::kQS, KS = G::kKS, T = G::kThreads;
+  static_assert(RM % 4 == 0 && BN % NL == 0 && (BN * DH / 4) % T == 0 &&
+                (BM * DH / 4) % T == 0, "float32 flash tile sizes");
+  extern __shared__ float4 smem_f4[];
+  float* qt = reinterpret_cast<float*>(smem_f4);
+  float* ring = qt + DH * QS;
+  float* pt = ring + kF32Stages * G::kSlot;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / qper;
+  const int rg = tid / NL, cg = tid % NL;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / qper;
+  const int q0 = blockIdx.x * BM;
   const int off = skv - sq;
-  const int q0 = blockIdx.x * kWarps;
-  const int row = q0 + warp;
-  const bool live = row < sq;
-
+  int kend = skv;                          // keys any row of the block sees
+  if (causal) kend = min(skv, q0 + BM + off);
+  const int n_tiles = kend > 0 ? (kend + BN - 1) / BN : 0;
   const float* kb = k + b * lk.b + kvh * lk.h;
   const float* vb = v + b * lv.b + kvh * lv.h;
-  for (int d = lane; d < DH; d += 32)
-    qs[warp][d] = live ? q[b * lq.b + row * lq.s + h * lq.h + d] : 0.0f;
 
-  float acc[kPerLane];
+  // load n of the stream K_0, V_0, K_1, V_1, ... into slot n % kF32Stages,
+  // rows past skv as zeros; one commit group a load (empty past the end)
+  auto fetch = [&](int n) {
+    if (n < 2 * n_tiles) {
+      const float* base = (n & 1) ? vb : kb;
+      const long long rs = (n & 1) ? lv.s : lk.s;
+      const int key0 = (n >> 1) * BN;
+      const uint32_t slot = smem_u32(ring + (n % kF32Stages) * G::kSlot);
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  int kend = skv;
-  if (causal) kend = min(skv, q0 + kWarps + off);
-  const int n_tiles = kend > 0 ? (kend + kTileSimt - 1) / kTileSimt : 0;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kTileSimt;
-    __syncthreads();
-    for (int e = tid; e < kTileSimt * DH; e += kThreads) {
-      const int j = e / DH, d = e % DH;
-      const bool in = key0 + j < skv;
-      ks[j][d] = in ? kb[(key0 + j) * lk.s + d] : 0.0f;
-      vs[j][d] = in ? vb[(key0 + j) * lv.s + d] : 0.0f;
+      for (int i = 0; i < BN * DH / 4 / T; ++i) {
+        const int e = tid + i * T;
+        const int r = e / (DH / 4), c4 = e % (DH / 4);
+        const bool in = key0 + r < skv;
+        cp_async16(slot + 4 * (r * KS + c4 * 4),
+                   base + (in ? (key0 + r) * rs : 0) + c4 * 4, in);
+      }
     }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < kF32Stages - 1; ++n) fetch(n);
+
+  // Q^T, once: consecutive threads take consecutive rows, so the
+  // transposing stores are conflict-free; rows past sq as zeros
+  const float* qb = q + b * lq.b + h * lq.h;
+#pragma unroll 4
+  for (int i = 0; i < BM * DH / 4 / T; ++i) {
+    const int e = tid + i * T;
+    const int r = e % BM, c4 = e / BM;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < sq)
+      x = __ldg(reinterpret_cast<const float4*>(qb + (q0 + r) * lq.s +
+                                                c4 * 4));
+    qt[(c4 * 4 + 0) * QS + r] = x.x;
+    qt[(c4 * 4 + 1) * QS + r] = x.y;
+    qt[(c4 * 4 + 2) * QS + r] = x.z;
+    qt[(c4 * 4 + 3) * QS + r] = x.w;
+  }
+
+  float acc[RM][OC];
+  float m[RM], l[RM];                      // l: this thread's share
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.0f;
+  }
+  const float* qf = qt + rg * RM;
+  const float* pf = pt + rg * RM;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * BN;
+    // K_t has landed, and every thread is done with the slot of load
+    // 2t - 1, which the next load refills
+    cp_async_wait<kF32Stages - 2>();
     __syncthreads();
-    if (!live) continue;                   // whole warps skip together
-    const int key = key0 + lane;
-    float dot = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) dot += qs[warp][d] * ks[lane][d];
-    const bool keep = key < skv && (!causal || key <= row + off);
-    const float sc = keep ? dot * scale : -INFINITY;
-    float mt = sc;
-    for (int sh = 16; sh > 0; sh >>= 1)
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, sh));
-    const float mn = fmaxf(m, mt);
-    const float use = mn == -INFINITY ? 0.0f : mn;
-    const float corr = expf(m - use);
-    const float p = expf(sc - use);
-    float ps = p;
-    for (int sh = 16; sh > 0; sh >>= 1)
-      ps += __shfl_xor_sync(0xffffffffu, ps, sh);
-    m = mn;
-    l = l * corr + ps;
+    fetch(2 * t + kF32Stages - 1);
+    const float* kt = ring + ((2 * t) % kF32Stages) * G::kSlot + cg * KS;
+
+    // S = Q K^T: per 4 columns of DH, KPT float4 of K and 2 RM float4 of
+    // Q^T (broadcasts within the half-warp) feed 4 RM KPT FMAs
+    float s[RM][KPT];
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[i] *= corr;
-    for (int j = 0; j < kTileSimt; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) acc[i] += pj * vs[j][lane + 32 * i];
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float kf[KPT][4];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) lds<4>(kf[j], kt + j * NL * KS + d);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        float qv[RM];
+#pragma unroll
+        for (int r4 = 0; r4 < RM; r4 += 4)
+          lds<4>(qv + r4, qf + (d + dd) * QS + r4);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < KPT; ++j)
+            s[i][j] = __fmaf_rn(qv[i], kf[j][dd], s[i][j]);
+      }
+    }
+
+    // the mask only where the tile crosses skv or the block's diagonal
+    if (key0 + BN > skv || (causal && key0 + BN - 1 > q0 + off)) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          const int key = key0 + cg + j * NL, row = q0 + rg * RM + i;
+          if (key >= skv || (causal && key > row + off)) s[i][j] = -INFINITY;
+        }
+    }
+
+    // online softmax in the log2 domain; P^T to shared memory
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KPT; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int sh = NL / 2; sh > 0; sh >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float mn = fmaxf(m[i], mx);
+      // a row with no visible key yet keeps m = -inf; subtract 0 instead
+      const float use = mn == -INFINITY ? 0.0f : mn * scale_log2;
+      const float corr = exp2f(__fmaf_rn(m[i], scale_log2, -use));
+      m[i] = mn;
+      float ls = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] = exp2f(__fmaf_rn(s[i][j], scale_log2, -use));
+        ls += s[i][j];
+      }
+      l[i] = __fmaf_rn(l[i], corr, ls);
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < KPT; ++j)
+#pragma unroll
+      for (int r4 = 0; r4 < RM; r4 += 4)
+        *reinterpret_cast<float4*>(pt + (cg + j * NL) * QS + rg * RM + r4) =
+            make_float4(s[r4][j], s[r4 + 1][j], s[r4 + 2][j], s[r4 + 3][j]);
+
+    // V_t has landed (and P is visible), and every thread is done with
+    // K_t's slot
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    fetch(2 * t + kF32Stages);
+    const float* vt =
+        ring + ((2 * t + 1) % kF32Stages) * G::kSlot + cg * VW;
+
+    // O += P V: per key, 2 RM / 4 float4 of P^T (broadcasts) and OC / VW
+    // vectors of V feed RM OC FMAs
+#pragma unroll 4
+    for (int kk = 0; kk < BN; ++kk) {
+      float pv[RM], vv[OC];
+#pragma unroll
+      for (int r4 = 0; r4 < RM; r4 += 4) lds<4>(pv + r4, pf + kk * QS + r4);
+#pragma unroll
+      for (int g = 0; g < OC / VW; ++g)
+        lds<VW>(vv + g * VW, vt + kk * KS + g * NL * VW);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < OC; ++c)
+          acc[i][c] = __fmaf_rn(pv[i], vv[c], acc[i][c]);
     }
   }
-  if (!live) return;
-  const float inv = l > 0.0f ? 1.0f / l : 0.0f;
-  float* ob = o + b * lo.b + row * lo.s + h * lo.h;
+
+  // epilogue: the row sums over the half-warp, divide (a row that sees no
+  // key gives 0), store VW floats at a time
+  float* ob = o + b * lo.b + h * lo.h;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) ob[lane + 32 * i] = acc[i] * inv;
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int sh = NL / 2; sh > 0; sh >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+    const int row = q0 + rg * RM + i;
+    const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int g = 0; g < OC / VW; ++g) {
+      float* dst = ob + row * lo.s + g * NL * VW + cg * VW;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][g * 4] * inv, acc[i][g * 4 + 1] * inv,
+                        acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[i][g * 2] * inv, acc[i][g * 2 + 1] * inv);
+    }
+  }
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (so
@@ -863,6 +1066,55 @@ int launch_bf16(cudaStream_t stream, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, int BM>
+int launch_f32(cudaStream_t stream, const float* q, const float* k,
+               const float* v, float* o, int b, int sq, int skv, int H,
+               int qper, Layout lq, Layout lk, Layout lv, Layout lo,
+               int causal, float scale_log2) {
+  using G = F32Geo<DH, BM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fa_f32_kernel<DH, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // query blocks fastest, then heads: the qper heads that share a KV head
+  // run next to each other and read its K and V from L2
+  const dim3 grid((sq + BM - 1) / BM, H, b);
+  fa_f32_kernel<DH, BM><<<grid, G::kThreads, G::kSmem, stream>>>(
+      q, k, v, o, sq, skv, qper, lq, lk, lv, lo, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 64-row blocks at dh <= 64, three an SM (at whisper's (1, 1500) encoder
+// 384 blocks fill the card once, where 128-row blocks left it short); at
+// dh 128 128-row blocks, or 64-row ones when the 128-row grid would leave
+// SMs idle
+template <int DH>
+int launch_f32_rows(cudaStream_t stream, const float* q, const float* k,
+                    const float* v, float* o, int b, int sq, int skv, int H,
+                    int qper, Layout lq, Layout lk, Layout lv, Layout lo,
+                    int causal, float scale_log2) {
+  if constexpr (DH <= 64) {
+    return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, b, sq, skv, H,
+                                         qper, lq, lk, lv, lo, causal,
+                                         scale_log2);
+  } else {
+    int device = 0, sms = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess)
+      return static_cast<int>(cudaGetLastError());
+    const long long blocks =
+        static_cast<long long>(b) * H * ((sq + kF32Rows - 1) / kF32Rows);
+    if (blocks < static_cast<long long>(kF32SmallBelow) * sms)
+      return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, b, sq, skv,
+                                           H, qper, lq, lk, lv, lo, causal,
+                                           scale_log2);
+    return launch_f32<DH, kF32Rows>(stream, q, k, v, o, b, sq, skv, H,
+                                    qper, lq, lk, lv, lo, causal,
+                                    scale_log2);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_attention_bf16(
@@ -901,8 +1153,7 @@ extern "C" int flash_attention_f32(
   if (b <= 0 || sq <= 0 || H <= 0) return 0;
   const Layout lq{qsb, qss, qsh}, lk{ksb, kss, ksh}, lv{vsb, vss, vsh},
       lo{osb, oss, osh};
-  const dim3 grid((sq + kWarps - 1) / kWarps, H, b);
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(dh));
   auto s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);
@@ -911,19 +1162,15 @@ extern "C" int flash_attention_f32(
   const int qper = H / KV;
   switch (dh) {
     case 32:
-      fa_f32_kernel<32><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, sq, skv,
-          qper, lq, lk, lv, lo, causal, scale);
-      break;
+      return launch_f32_rows<32>(s, qp, kp, vp, op, b, sq, skv, H, qper, lq,
+                                 lk, lv, lo, causal, scale_log2);
     case 64:
-      fa_f32_kernel<64><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, sq, skv,
-          qper, lq, lk, lv, lo, causal, scale);
-      break;
+      return launch_f32_rows<64>(s, qp, kp, vp, op, b, sq, skv, H, qper, lq,
+                                 lk, lv, lo, causal, scale_log2);
     case 128:
-      fa_f32_kernel<128><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, sq, skv,
-          qper, lq, lk, lv, lo, causal, scale);
-      break;
+      return launch_f32_rows<128>(s, qp, kp, vp, op, b, sq, skv, H, qper,
+                                  lq, lk, lv, lo, causal, scale_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -318,6 +318,24 @@ def _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype):
     (4, 1000, 1600, 32, 8, 128, False),
     (2, 1500, 1500, 16, 16, 64, False),
     (4, 64, 1500, 16, 16, 64, False),
+    # the float32 kernel's 64-key tiles and its two row blocks: 64 rows
+    # at dh <= 64, and at dh 128 when b H ceil(sq / 128) is below the SM
+    # count; 128 rows at dh 128 otherwise (the vlm's cross, (1, 1000,
+    # 1000) above and b 3 x H 96 below, on a 132-SM H100); one less
+    # than, equal to and one more than each tile, dh 32 / 64 / 128, GQA
+    # 1 / 4 / 8
+    (1, 63, 63, 8, 1, 128, True),
+    (2, 64, 64, 8, 2, 64, False),
+    (1, 65, 65, 4, 4, 32, True),
+    (2, 65, 129, 8, 2, 128, True),       # causal sq < skv
+    (1, 1, 65, 8, 1, 64, True),          # one query row
+    (2, 129, 63, 8, 8, 32, False),       # non-causal sq > skv
+    (3, 127, 65, 96, 12, 128, False),
+    (3, 128, 64, 96, 24, 64, False),
+    (3, 129, 129, 96, 96, 128, True),
+    (3, 128, 191, 96, 24, 128, True),    # causal sq < skv
+    (3, 1, 63, 96, 12, 64, True),        # one query row
+    (3, 200, 127, 96, 12, 64, False),    # non-causal sq > skv
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_close_to_plain(cuda, b, sq, skv, H, KV, dh, causal,
@@ -332,12 +350,16 @@ def test_flash_attention_close_to_plain(cuda, b, sq, skv, H, KV, dh, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_attention_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("dtype,shape,causal", [
+    (torch.bfloat16, (4, 1000, 1000, 32, 2, 128), True),
+    (torch.float32, (4, 1000, 1000, 32, 2, 128), True),
+    (torch.float32, (4, 1000, 1600, 32, 8, 128), False),   # vlm cross
+])
+def test_flash_attention_is_deterministic(cuda, dtype, shape, causal):
     """No atomics and no order that varies: two calls give equal bits."""
-    q, k, v = _attn_inputs(cuda, 4, 1000, 1000, 32, 2, 128, dtype)
-    first = flash_attention(q, k, v, causal=True)
-    assert torch.equal(flash_attention(q, k, v, causal=True), first)
+    q, k, v = _attn_inputs(cuda, *shape, dtype)
+    first = flash_attention(q, k, v, causal=causal)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), first)
 
 
 @pytest.mark.cuda

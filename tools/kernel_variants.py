@@ -3,7 +3,8 @@
     python3 tools/kernel_variants.py tools/kernel_variants.json --out DIR
 
 The JSON file maps a kernel source (``rmsnorm``, ``spike_hist``,
-``ssm_scan``, ``ema_scan``) to named lists of text substitutions of
+``ssm_scan``, ``ema_scan``, ``flash_attention``) to named lists of text
+substitutions of
 ``src/repro_torch/kernels/csrc/<source>.cu``
 (``{"rmsnorm": {"name": [[old, new], ...]}}``), or to
 ``{"subs": [...], "set": {"_NAME": value}}`` to also set constants of the
@@ -21,10 +22,13 @@ falcon-mamba-7b's prefill (4, 1024) and (1, 2048) and a decode step) and
 of the fleet path (spike_hist: the engine's blocks, ``ops.spike_hist``'s
 trace and a builder commit; ema_scan: the blocked float64 EMA's group
 advance, snapshot and builder ingest, ``chip_smoke.ema_forms``, and rows
-of 16 blocks).  ``--sources`` runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of a (4, 4096)
-tensor (the timing's floor) and a ``copy_`` of (4000, 4096) bf16 (the
-bytes of the prefill norm) are timed once, and the SM clock is read while
-each source's base runs its first case.  Results go to
+of 16 blocks; flash_attention: the float32 kernel at the vlm's
+cross-attention and whisper's encoder and cross-attention shapes, with
+``scaled_dot_product_attention`` timed once beside them).  ``--sources``
+runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of
+a (4, 4096) tensor (the timing's floor) and a ``copy_`` of (4000, 4096)
+bf16 (the bytes of the prefill norm) are timed once, and the SM clock is
+read while each source's base runs its first case.  Results go to
 ``DIR/kernel_variants.json``.
 """
 from __future__ import annotations
@@ -172,6 +176,47 @@ def ema_scan_cases(dev):
     return cases
 
 
+def f32_flash_inputs(dev):
+    """(label, q, k, v, causal) at the float32 shapes of the vlm's and
+    whisper's serving paths (``chip_smoke.VLM_WHISPER_TIMED``): the vlm's
+    cross-attention, whisper's encoder and cross-attention."""
+    for b, sq, skv, heads, causal, dtype in cs.VLM_WHISPER_TIMED:
+        if dtype == torch.float32:
+            yield (f"({b}, {sq}) x {skv} dh {heads['dh']}",
+                   *cs.attn_inputs(dev, b, sq, skv, dtype, 11 + sq + skv,
+                                   **heads), causal)
+
+
+def flash_attention_cases(dev):
+    """(label, run, check) at ``f32_flash_inputs``; the check is phase 6's
+    tolerance against the plain version."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    cases = []
+    for label, q, k, v, causal in f32_flash_inputs(dev):
+        want = flash_attention_plain(q, k, v, causal)
+
+        def run(q=q, k=k, v=v, causal=causal):
+            return flash_attention(q, k, v, causal=causal)
+
+        def ok(run=run, want=want):
+            return bool(torch.allclose(run(), want,
+                                       **cs.KERNEL_TOL[torch.float32]))
+        cases.append((label, run, ok))
+    return cases
+
+
+def sdpa_times(dev, flush) -> dict:
+    """``scaled_dot_product_attention`` at ``f32_flash_inputs``, the
+    yardstick beside the flash variants."""
+    out = {}
+    for label, q, k, v, causal in f32_flash_inputs(dev):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out[label] = cs.cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 30, flush)
+    return out
+
+
 def clock_under_load(run) -> str:
     """The SM clock, its maximum and the power draw while ``run`` is
     queued back to back for about half a second."""
@@ -226,7 +271,13 @@ def main() -> int:
         result[f"rms_norm ({n}, {D})"] = t
         print(f"F.rms_norm ({n}, {D}) bf16 {t:.4f} ms", flush=True)
     makers = {"rmsnorm": rmsnorm_cases, "spike_hist": spike_hist_cases,
-              "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases}
+              "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases,
+              "flash_attention": flash_attention_cases}
+    if "flash_attention" in spec:
+        result["sdpa_f32_ms"] = sdpa_times(dev, flush)
+        print("scaled_dot_product_attention float32: " + "  ".join(
+            f"{k} {t:.4f}" for k, t in result["sdpa_f32_ms"].items()),
+            flush=True)
     for source, variants in spec.items():
         shipped = build.library(source)
         module = importlib.import_module(f"repro_torch.kernels.{source}")
