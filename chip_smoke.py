@@ -4,8 +4,8 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17 and 18 run last, after phase
-11):
+16 right after phase 5 (phases 14, 15, 17, 18, 19 and 20 run last, after
+phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -195,7 +195,35 @@ that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
      1 x 384 token prompts over 1,500 frames; 32 new tokens each: tokens
      in range, logits finite, exactly 48 flash per prefill and 89 rmsnorm
      per forward for the vlm, 72 flash and no rmsnorm for whisper, no scan;
-     first token, decode ms/step and peak memory of each request printed.
+     first token, decode ms/step and peak memory of each request printed;
+ 19. training checks — the backward kernels against their plain twins on
+     unit-scale inputs and gradients: ``flash_attention_bwd`` (and the
+     forward's ``lse`` within the forward's tolerance) at glm4-9b's heads
+     (4, 1024) and (1, 4096) causal, dh 64 and 32, non-causal 300 x 700,
+     each in bfloat16 and float32; ``rmsnorm_bwd`` at (4096, 4096) with
+     every pair of bfloat16 / float32 x and scale; dq, dk, dv, dx, dscale
+     within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two launches
+     bitwise equal; the two glm4-9b bf16 causal shapes and the bf16 norm
+     timed beside their plain twins, their bounds (10 dh flops a visible
+     pair; x and dy read, dx written) and the library calls' forward +
+     backward through autograd (``scaled_dot_product_attention`` with the
+     KV heads repeated, ``F.rms_norm``).  Then the reduced glm4-9b in
+     float32, 3 ``Trainer`` steps on the card and on the host from one
+     seeded checkpoint: losses within 1e-5 relative, grad norms and
+     parameters after step 3 within 1e-4, and the card's launches per step
+     exactly 2L flash, L ``flash_attention_bwd``, 4L + 1 rmsnorm and
+     2L + 1 ``rmsnorm_bwd`` (remat, one microbatch).  Last, ``python -m
+     repro_torch.launch.train --arch glm4-9b --smoke --steps 6
+     --minos-cap powercentric`` on the card must print the reference's cap
+     (``MINOS_CAP``);
+ 20. training glm4-9b at full width on 8 of its 40 layers (2.873 B
+     parameters, bfloat16, float32 AdamW moments, seeded init,
+     ``SyntheticTokens``): 6 ``Trainer`` steps at 4 x 1024 with
+     checkpoints at steps 3 and 6, a fresh ``Trainer`` resumed from step
+     3 (steps 4-6 within rtol 1e-5 of the uninterrupted run; whether bit
+     for bit is printed), then 6 steps at 1 x 4096; finite losses, the
+     launches of every run exactly as phase 19's rule dictates, step ms
+     (median of steps 2-6), tokens/s and peak GiB printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -212,7 +240,8 @@ without a result line (for work on a kernel); ``--session-only`` and
 14 and 15 alone (with ``--trace``, granite's traced request adds the
 device time of the MoE blocks' routing, dispatch and combine beside their
 expert products); ``--cross-only`` builds them and runs phases 17 and 18
-alone; ``--out DIR`` writes
+alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
+``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -2206,7 +2235,8 @@ def moe_card_vs_host(dev, arch: str, dtype) -> dict:
     per = MOE_REDUCED_LAUNCHES[arch]
     want = {"flash_attention": per["flash_attention"],
             "rmsnorm": 9 * per["rmsnorm"], "ssm_scan": 9 * per["ssm_scan"],
-            "spike_hist": 0, "ema_scan": 0}
+            "spike_hist": 0, "ema_scan": 0, "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0}
     if got != want:
         raise AssertionError(f"reduced {arch} {dtype} on the card launched "
                              f"{got}; 1 prefill + 8 decode steps dictate "
@@ -3771,11 +3801,465 @@ def discovery_phase(dev, card: str, lib, want_scale: dict, workdir: str,
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: training
+# ---------------------------------------------------------------------------
+# the backward kernels' checks: (b, sq, skv, heads, causal); glm4-9b's heads
+# unless given, each in bfloat16 and float32
+TRAIN_FLASH = (
+    (4, 1024, 1024, None, True), (1, 4096, 4096, None, True),
+    (2, 512, 512, dict(H=16, KV=4, dh=64), True),
+    (2, 512, 512, dict(H=8, KV=2, dh=32), True),
+    (2, 300, 700, None, False),                 # non-causal, sq != skv
+)
+TRAIN_NORM = (4096, 4096)
+BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+TRAIN_LAYERS = 8               # of glm4-9b's 40: 2.873 B parameters
+RESUME_LAYERS = 2              # of 40 for the resume: 1.649 B, 16.5 GB a
+                               # checkpoint, two of them in a run
+TRAIN_SHAPES = ((4, 1024), (1, 4096))      # (batch, tokens); 1 x 4096 is
+TRAIN_STEPS = 6                            # the train_4k sequence length
+TRAIN_RESUME_AT = 3
+# the reference's launcher prints this cap for --arch glm4-9b --smoke
+# --steps 6 --minos-cap powercentric:  PYTHONPATH=src JAX_PLATFORMS=cpu
+# python -m repro.launch.train --arch glm4-9b --smoke --steps 6
+# --minos-cap powercentric
+MINOS_CAP = 0.95
+
+
+def train_launches(num_layers: int) -> dict:
+    """Launches of one train step of a dense LM with remat and one
+    microbatch: each layer's forward runs twice (the step, the
+    recomputation), two norms a layer plus the final one."""
+    L = num_layers
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+            "ssm_scan": 0, "spike_hist": 0, "ema_scan": 0}
+
+
+def check_train_launches(what: str, got: dict, num_layers: int,
+                         steps: int) -> None:
+    want = {k: v * steps for k, v in train_launches(num_layers).items()}
+    if got != want:
+        raise AssertionError(f"{what}: {steps} train steps launched {got}; "
+                             f"{num_layers} layers with remat dictate {want}")
+
+
+def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
+                    dtype, timed: bool) -> dict:
+    """The backward kernel against its plain twin (and the forward's lse
+    against the plain one) at one shape, two launches bitwise equal; with
+    ``timed``, its time beside the plain twin, the bound (10 dh flops a
+    visible pair) and SDPA's forward + backward through autograd."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import (attn_work, flash_attention_bshd,
+                                     flash_attention_bwd,
+                                     flash_attention_bwd_plain,
+                                     flash_attention_plain, ops)
+    from repro_torch.kernels import build
+    heads = heads or dict(H=32, KV=2, dh=128)
+    q, k, v = attn_inputs(dev, b, sq, skv, dtype, 31 + sq + skv, **heads)
+    g = torch.Generator(device=dev).manual_seed(7)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal, with_lse=True)
+    err_lse = close(lse, want_lse, KERNEL_TOL[dtype], "flash lse")
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    err = max(close(a, w, BWD_TOL[dtype], f"flash_attention_bwd d{n}")
+              for n, a, w in zip("qkv", got, want))
+    del want
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    if not all(torch.equal(a, x) for a, x in zip(got, again)):
+        raise AssertionError("flash_attention_bwd: two launches differ")
+    r = dict(b=b, s=sq, skv=skv, **heads, causal=causal,
+             dtype=str(dtype).split(".")[1], err=err, lse_err=err_lse)
+    if timed:
+        flops, nbytes = attn_work(b, sq, skv, heads["H"], heads["KV"],
+                                  heads["dh"], q.element_size(), causal)
+        flops *= 2.5          # 10 dh a pair: q k^T, do v^T, dV, dK, dQ
+        nbytes = nbytes * 2 + b * heads["H"] * sq * 4    # + o, do, grads
+        peak = PEAK_OPS["bf16_tensor" if dtype == torch.bfloat16 else "f32"]
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        rep = heads["H"] // heads["KV"]
+
+        def sdpa_fwd_bwd():
+            qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+            y = F.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(rep, 1),
+                vt.repeat_interleave(rep, 1), is_causal=causal)
+            y.backward(do.transpose(1, 2))
+
+        def ours_fwd_bwd():
+            ops.flash_attention(*leaves, causal=causal).backward(do)
+
+        r.update(
+            flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            ms=cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal), 5, flush),
+            fwd_lse_ms=cuda_time_ms(lambda: flash_attention_bshd(
+                q, k, v, causal, with_lse=True), 10, flush),
+            fwd_ms=cuda_time_ms(lambda: flash_attention_bshd(
+                q, k, v, causal), 10, flush),
+            fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 5, flush),
+            library_ms=cuda_time_ms(sdpa_fwd_bwd, 5, flush),
+            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal), 3, flush))
+        r["tflops"] = flops / r["ms"] * 1e-9
+        log(f"flash_attention_bwd {r['dtype']} b={b} s={sq} H={heads['H']} "
+            f"KV={heads['KV']} dh={heads['dh']} [{card}]: kernel "
+            f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); forward + backward through autograd: ours "
+            f"{r['fwd_bwd_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms; forward with lse "
+            f"{r['fwd_lse_ms']:.4f} ms, without {r['fwd_ms']:.4f} ms")
+    return r
+
+
+def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
+                      timed: bool) -> dict:
+    """The backward kernel against its plain twin, two launches bitwise
+    equal; with ``timed``, its time beside the plain twin, the bound (x and
+    dy read, dx written) and ``F.rms_norm``'s forward + backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, rmsnorm_bwd, rmsnorm_bwd_plain
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x, dy = (torch.randn((n, d), generator=g, device=dev).to(xdtype)
+             for _ in range(2))
+    sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(sdtype)
+    dx, ds = rmsnorm_bwd(x, sc, dy, 1e-5)
+    wx, ws = rmsnorm_bwd_plain(x, sc, dy, 1e-5)
+    tol_s = BWD_TOL[torch.bfloat16 if torch.bfloat16 in (xdtype, sdtype)
+                    else torch.float32]
+    err = max(close(dx, wx, BWD_TOL[xdtype], "rmsnorm_bwd dx"),
+              close(ds, ws, tol_s, "rmsnorm_bwd dscale"))
+    dx2, ds2 = rmsnorm_bwd(x, sc, dy, 1e-5)
+    if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+        raise AssertionError("rmsnorm_bwd: two launches differ")
+    r = dict(n=n, d=d, dtype=str(xdtype).split(".")[1],
+             scale_dtype=str(sdtype).split(".")[1], err=err)
+    if timed:
+        nbytes = 3 * n * d * x.element_size() + 2 * d * sc.element_size()
+        xl = x.detach().clone().requires_grad_()
+        sl = sc.detach().clone().requires_grad_()
+
+        def lib_fwd_bwd():
+            F.rms_norm(xl, (d,), weight=sl, eps=1e-5).backward(dy)
+
+        def ours_fwd_bwd():
+            ops.rmsnorm(xl, sl, 1e-5).backward(dy)
+
+        r.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes",
+                 ms=cuda_time_ms(lambda: rmsnorm_bwd(x, sc, dy, 1e-5), 20,
+                                 flush),
+                 fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 20, flush),
+                 library_ms=cuda_time_ms(lib_fwd_bwd, 20, flush),
+                 plain_ms=cuda_time_ms(
+                     lambda: rmsnorm_bwd_plain(x, sc, dy, 1e-5), 10, flush))
+        log(f"rmsnorm_bwd {r['dtype']} x, {r['scale_dtype']} scale "
+            f"({n}, {d}) [{card}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes); "
+            f"forward + backward through autograd: ours "
+            f"{r['fwd_bwd_ms']:.4f} ms, F.rms_norm {r['library_ms']:.4f} ms")
+    return r
+
+
+def seed_checkpoint(cfg, dtype, directory: str, seed: int = 0) -> None:
+    """A train state of ``cfg`` at step 0, drawn on the host from ``seed``
+    (the port's init, zero moments), as a checkpoint in ``directory``."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_state, state_tree
+    model = build_model(cfg, kind="train", device="cpu", dtype=dtype)
+    state = init_state(model, RunConfig(),
+                       torch.Generator().manual_seed(seed))
+    ckpt.save(state_tree(state), directory, 0)
+
+
+def train_run(cfg, shape, run_cfg, dev, dtype=None, steps=None):
+    """``Trainer.run`` with every launch count reset just before and read
+    just after, the metrics of each step and its peak device memory."""
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+    metrics = []
+    trainer = Trainer(cfg, shape, run_cfg, device=dev, dtype=dtype,
+                      telemetry_hook=lambda s, dt, m: metrics.append(m))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    res = trainer.run(num_steps=steps)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if dev.type == "cuda" else None
+    return trainer, res, metrics, launches, peak
+
+
+def train_card_vs_host(dev, workdir: str) -> dict:
+    """The reduced glm4-9b in float32, 3 ``Trainer`` steps on the card and
+    on the host from one seeded checkpoint: losses within 1e-5 relative,
+    grad norms and the parameters after the last step within 1e-4; the
+    launches of the card's steps exactly as the model dictates."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    cfg = ARCHS[GLM].reduced(num_layers=2)
+    shape = ShapeConfig("smoke", 128, 4, "train")
+    seed = os.path.join(workdir, "seed")
+    seed_checkpoint(cfg, torch.float32, seed)
+    out = {}
+    for where, device in (("host", torch.device("cpu")), ("card", dev)):
+        d = os.path.join(workdir, where)
+        shutil.copytree(seed, d)
+        run_cfg = RunConfig(total_steps=3, warmup_steps=1,
+                            checkpoint_every=3, checkpoint_dir=d,
+                            learning_rate=3e-3)
+        out[where] = train_run(cfg, shape, run_cfg, device, torch.float32)
+    (th, rh, mh, _, _), (tc, rc, mc, launches, _) = out["host"], out["card"]
+    for i, (a, w) in enumerate(zip(rc.losses, rh.losses)):
+        if abs(a - w) > 1e-5 * abs(w):
+            raise AssertionError(f"train step {i + 1}: card loss {a!r}, "
+                                 f"host {w!r}")
+    err_norm = max(abs(a["grad_norm"] - w["grad_norm"]) for a, w in
+                   zip(mc, mh))
+    if err_norm > 1e-4 * max(1.0, max(w["grad_norm"] for w in mh)):
+        raise AssertionError(f"grad_norm card vs host: {err_norm:.3e}")
+    err_p = 0.0
+    for name, p in tc._state["params"].items():
+        err_p = max(err_p, close(p.detach(), th._state["params"][name]
+                                 .detach(), dict(rtol=1e-4, atol=1e-4),
+                                 f"param {name} after step 3"))
+    if dev.type == "cuda":
+        check_train_launches("reduced glm4-9b on the card", launches,
+                             cfg.num_layers, 3)
+    r = dict(losses_card=rc.losses, losses_host=rh.losses,
+             grad_norm_err=err_norm, param_err=err_p,
+             launches_per_step={k: v // 3 for k, v in launches.items()})
+    log(f"reduced glm4-9b float32, 3 steps card vs host: losses "
+        f"{rc.losses} vs {rh.losses}, grad_norm within {err_norm:.2e}, "
+        f"parameters within {err_p:.2e}; launches per step "
+        f"{r['launches_per_step']}")
+    return r
+
+
+def train_launcher_cap(workdir: str) -> dict:
+    """``python -m repro_torch.launch.train --arch glm4-9b --smoke --steps 6
+    --minos-cap powercentric`` on the card (the library's profiling runs
+    the fleet kernels there): its cap must be the reference's."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", GLM,
+         "--smoke", "--steps", "6", "--minos-cap", "powercentric",
+         "--ckpt-dir", os.path.join(workdir, "launcher_ckpt"),
+         "--minos-store", os.path.join(workdir, "launcher_store")],
+        capture_output=True, text=True, env=env, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train failed:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    minos = [ln for ln in proc.stdout.splitlines() if "-> cap=" in ln]
+    m = re.search(r"-> cap=([0-9.]+)", minos[0]) if minos else None
+    if m is None or float(m.group(1)) != MINOS_CAP or \
+            "ran 6 steps" not in proc.stdout:
+        raise AssertionError(f"launch.train printed no cap of {MINOS_CAP} "
+                             f"and 6 steps:\n{proc.stdout}")
+    log(f"launch.train --minos-cap on the card ({seconds:.1f} s): "
+        f"{minos[0].strip()}")
+    return dict(cap=float(m.group(1)), line=minos[0].strip(),
+                seconds=seconds)
+
+
+def train_kernel_checks(dev, flush, card: str) -> dict:
+    """Phase 19's kernel part: every backward shape in both dtypes (the
+    first, glm4-9b's training shape, timed in bfloat16), rmsnorm's
+    backward at (4096, 4096) in every pair of dtypes (bf16 timed)."""
+    from repro_torch.kernels import build
+    before = dict(build.LAUNCHES)
+    flash = [flash_bwd_check(dev, flush, card, b, sq, skv, heads, causal,
+                             dtype, timed=dtype == torch.bfloat16
+                             and heads is None and causal)
+             for b, sq, skv, heads, causal in TRAIN_FLASH
+             for dtype in (torch.bfloat16, torch.float32)]
+    norms = [rmsnorm_bwd_check(dev, flush, card, *TRAIN_NORM, x, s,
+                               timed=x == s == torch.bfloat16)
+             for x in (torch.bfloat16, torch.float32)
+             for s in (torch.bfloat16, torch.float32)]
+    build.LAUNCHES.update(before)          # check/timing launches do not count
+    log(f"backward kernels vs plain [{card}]: flash max err "
+        f"{max(r['err'] for r in flash):.3e} over {len(flash)} cases, lse "
+        f"{max(r['lse_err'] for r in flash):.3e}; rmsnorm "
+        f"{max(r['err'] for r in norms):.3e} over {len(norms)}")
+    return dict(flash=flash, rmsnorm=norms)
+
+
+def train_check_phase(dev, flush, card: str, workdir: str) -> dict:
+    """Phase 19: the backward kernels against their plain twins, the
+    reduced model card vs host, the launcher's Minos cap."""
+    t0 = time.perf_counter()
+    r = dict(kernels=train_kernel_checks(dev, flush, card),
+             card_vs_host=train_card_vs_host(dev, os.path.join(workdir,
+                                                               "cvh")),
+             launcher=train_launcher_cap(workdir))
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+TRAIN_GROUPS = (("flash_attention_bwd", ("fa_bwd",)),
+                ("flash_attention", ("fa_bf16", "fa_f32")),
+                ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_colsum")),
+                ("rmsnorm", ("rmsnorm",)),
+                ("gemm", ("gemm", "xmma", "cutlass", "gemv", "splitk",
+                          "nvjet")))
+
+
+def trace_train(dev, card: str, out: str | None) -> dict:
+    """One glm4-9b (8 layers, 4 x 1024) train step under
+    ``torch.profiler`` after a warm-up step: device busy share and device
+    time by kernel group (the table in ``out/trace_train.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.train import Trainer, init_state
+    cfg = dataclasses.replace(ARCHS[GLM], num_layers=TRAIN_LAYERS)
+    (b, s), = TRAIN_SHAPES[:1]
+    run_cfg = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
+                        checkpoint_dir=None)
+    trainer = Trainer(cfg, ShapeConfig("trace", s, b, "train"), run_cfg,
+                      device=dev)
+    state = init_state(trainer.model, run_cfg,
+                       torch.Generator(device=dev).manual_seed(0))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                trainer.data.batch_at(i).items()} for i in range(2)]
+    state, m = trainer.step_fn(state, batches[0])
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = trainer.step_fn(state, batches[1])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    del trainer, state
+    torch.cuda.empty_cache()
+    ka = prof.key_averages()
+    kernels = [e for e in ka
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    shares, counts = {}, {}
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in TRAIN_GROUPS
+                      if any(k in name for k in keys)), "other")
+        shares[group] = shares.get(group, 0.0) + e.self_device_time_total
+        counts[group] = counts.get(group, 0) + e.count
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%}, "
+                      f"{counts[k]} launches)"
+                      for k, v in sorted(shares.items(), key=lambda x: -x[1]))
+    log(f"trace train glm4-9b {TRAIN_LAYERS}/40 layers {b} x {s} [{card}]: "
+        f"one step in {elapsed:.3f} s under the profiler, device busy "
+        f"{device_us / 1e6:.3f} s = {device_us / 1e6 / elapsed:.2%}; by "
+        f"kernel: {parts}")
+    if out is not None:
+        with open(os.path.join(out, "trace_train.txt"), "w") as f:
+            f.write(f"{card}\n{elapsed:.3f} s traced, device busy "
+                    f"{device_us / 1e6:.3f} s\n{parts}\n\n"
+                    f"{ka.table(sort_by='self_device_time_total', row_limit=30)}"
+                    f"\n")
+    return dict(elapsed_s=elapsed, device_busy_s=device_us / 1e6,
+                by_kernel_ms={k: v / 1e3 for k, v in shares.items()},
+                launches_by_kernel=counts)
+
+
+def train_full_phase(dev, card: str, workdir: str) -> dict:
+    """Phase 20: glm4-9b at full width on 8 of its 40 layers (bf16
+    parameters, float32 moments), 6 ``Trainer`` steps at 4 x 1024 and at
+    1 x 4096 without checkpoints: finite losses, launches, step ms,
+    tokens/s, peak GiB.  Then the resume at full width on 2 layers: 6
+    uninterrupted steps, 3 steps with a checkpoint at step 3, and a fresh
+    ``Trainer`` resumed from it (steps 4-6 within rtol 1e-5 of the
+    uninterrupted run).  A checkpoint of the 8-layer state is 28.7 GB, so
+    the run's disk writes are held to the 2-layer state's two checkpoints,
+    33 GB, which fits a host that caps a run's writes at 45 GiB."""
+    import gc
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    out = dict(layers=TRAIN_LAYERS, resume_layers=RESUME_LAYERS, runs=[])
+
+    def run(layers, b, s, steps, directory, every=TRAIN_RESUME_AT):
+        cfg = dataclasses.replace(ARCHS[GLM], num_layers=layers)
+        run_cfg = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
+                            checkpoint_every=every, checkpoint_dir=directory)
+        shape = ShapeConfig(f"train_{b}x{s}", s, b, "train")
+        t0 = time.perf_counter()
+        trainer, res, metrics, launches, peak = train_run(
+            cfg, shape, run_cfg, dev, steps=steps)
+        seconds = time.perf_counter() - t0
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(np.isfinite(res.losses)):
+            raise AssertionError(f"glm4-9b {b} x {s}: losses {res.losses}")
+        check_train_launches(f"glm4-9b ({layers} layers) {b} x {s}",
+                             launches, layers, res.steps_run)
+        durations = res.step_durations
+        step_ms = float(np.median(durations[1:] if len(durations) > 1
+                                  else durations)) * 1e3
+        r = dict(layers=layers, params=cfg.param_count(), batch=b, tokens=s,
+                 steps=res.steps_run, restored_from=res.restored_from,
+                 checkpoints=directory is not None, losses=res.losses,
+                 grad_norms=[m["grad_norm"] for m in metrics],
+                 step_ms=step_ms, step_ms_all=[d * 1e3 for d in durations],
+                 tokens_per_s=b * s / step_ms * 1e3, peak_gib=peak,
+                 launches=launches, seconds=seconds)
+        log(f"glm4-9b {layers}/40 layers ({cfg.param_count() / 1e9:.3f} B) "
+            f"train {b} x {s}, steps {res.final_step - res.steps_run + 1}-"
+            f"{res.final_step}{'' if directory else ', no checkpoints'} "
+            f"[{card}]: losses {[round(x, 4) for x in res.losses]}, step "
+            f"{step_ms:.1f} ms (median of steps 2-), "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak "
+            f"{'not measured' if peak is None else f'{peak:.2f} GiB'}, "
+            f"{seconds:.1f} s in all")
+        out["runs"].append(r)
+        return r
+
+    for b, s in TRAIN_SHAPES:
+        run(TRAIN_LAYERS, b, s, TRAIN_STEPS, None)
+    b, s = TRAIN_SHAPES[0]
+    whole = run(RESUME_LAYERS, b, s, TRAIN_STEPS, None)
+    directory = os.path.join(workdir, "glm_resume")
+    first = run(RESUME_LAYERS, b, s, TRAIN_RESUME_AT, directory)
+    resumed = run(RESUME_LAYERS, b, s, TRAIN_STEPS, directory)
+    shutil.rmtree(directory)
+    if resumed["restored_from"] != TRAIN_RESUME_AT:
+        raise AssertionError(f"resumed from {resumed['restored_from']}")
+    for what, got, want in (
+            ("steps 1-3", first["losses"], whole["losses"][:TRAIN_RESUME_AT]),
+            ("resumed steps 4-6", resumed["losses"],
+             whole["losses"][TRAIN_RESUME_AT:])):
+        if not np.allclose(got, want, rtol=1e-5, atol=0):
+            raise AssertionError(f"{what} {got} vs uninterrupted {want}")
+    out["resume_bitwise"] = \
+        first["losses"] + resumed["losses"] == whole["losses"]
+    log(f"resume from step {TRAIN_RESUME_AT} in a fresh Trainer [{card}]: "
+        f"steps 4-6 within rtol 1e-5 of the uninterrupted run, "
+        f"{'bit for bit' if out['resume_bitwise'] else 'not bit for bit'}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
-                    help="one more fleet drive and one more request of each "
-                         "served model under torch.profiler")
+                    help="one more fleet drive, one more request of each "
+                         "served model and one train step under "
+                         "torch.profiler")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json / trace_summary.txt")
     ap.add_argument("--ssm-kernel-only", action="store_true",
@@ -3809,6 +4293,12 @@ def main() -> int:
                          "(vlm and enc-dec card vs host; full-width "
                          "llama-3.2-vision-11b and whisper-medium "
                          "serving); prints no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build the kernels and run phases 19 and 20 alone "
+                         "(the backward kernels, the reduced model's "
+                         "training card vs host, the launcher's Minos cap; "
+                         "glm4-9b on 8 layers training and resuming); "
+                         "prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -3885,6 +4375,16 @@ def main() -> int:
         return 0
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
+        if args.train_only:
+            train = dict(check=train_check_phase(dev, flush, card, workdir),
+                         full=train_full_phase(dev, card, workdir))
+            if args.trace:
+                train["trace"] = trace_train(dev, card, args.out)
+            if args.out is not None:
+                with open(os.path.join(args.out, "train.json"), "w") as f:
+                    json.dump({"card": card, "train": train}, f, indent=1)
+            log("phases 19 and 20 alone (--train-only): no result line")
+            return 0
         return run_phases(args, dev, card, kind, flush, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3954,6 +4454,11 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     moe_sp = moe_serve_phase(dev, card, args.out, args.trace)
     cross_host = cross_card_vs_host_phase(dev, card)
     cross_sp = cross_serve_phase(dev, card, args.out, args.trace)
+    torch.cuda.empty_cache()        # the vlm and whisper engines are gone
+    train = dict(check=train_check_phase(dev, flush, card, workdir),
+                 full=train_full_phase(dev, card, workdir))
+    if args.trace:
+        train["trace"] = trace_train(dev, card, args.out)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -4037,6 +4542,39 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         rec["launches_cross_card_vs_host"] = {
             k: v["launches"][rec["name"]] for k, v in cross_host.items()
             if k != "seconds"}
+    # the training path (phase 20's uninterrupted 4 x 1024 run is its main
+    # path; the backward kernels replace no TPU kernel: "replaces" names
+    # the Pallas forward whose gradient each computes)
+    main_train = train["full"]["runs"][0]       # 8 layers, 4 x 1024
+    for rec in kernels[2:4]:
+        rec["launches_training"] = main_train["launches"][rec["name"]]
+    tk = train["check"]["kernels"]
+    kernels[2]["lse"] = {k: tk["flash"][0][k] for k in
+                         ("fwd_lse_ms", "fwd_ms", "lse_err")}
+    fb = tk["flash"][0]
+    nb = next(r for r in tk["rmsnorm"] if "ms" in r)
+    for name, replaces, r, errs in (
+            ("flash_attention_bwd", "src/repro/kernels/flash_attention.py:68",
+             fb, tk["flash"]),
+            ("rmsnorm_bwd", "src/repro/kernels/rmsnorm.py:18", nb,
+             tk["rmsnorm"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + ("flash_attention_bwd.cu" if name.startswith("flash")
+                         else "rmsnorm.cu"),
+            "replaces": replaces, "gradient_of": replaces,
+            "launches": main_train["launches"][name],
+            "max_abs_err": max(r2["err"] for r2 in errs), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_call": "forward + backward through autograd",
+            "fwd_bwd_ms": r["fwd_bwd_ms"]})
+    kernels[-2]["shapes"] = [
+        {k: r[k] for k in ("b", "s", "H", "KV", "dh", "dtype", "ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms")}
+        for r in tk["flash"] if "ms" in r]
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -4058,7 +4596,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
-                       "serve_cross": cross_sp}, f, indent=1)
+                       "serve_cross": cross_sp, "train": train}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,8 +8,9 @@ together) into ``_build/`` next to this file, or into
 ``$REPRO_TORCH_BUILD_DIR``.  A library is rebuilt when its source or flags
 change (the file name carries their hash).  Nothing here runs at import.
 
-``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+``LAUNCHES`` counts kernel launches per kernel name (the sources' names,
+and ``rmsnorm_bwd`` for the backward entry points of ``rmsnorm.cu``); each
+wrapper adds one where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -21,14 +22,17 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spike_hist", "ema_scan", "flash_attention", "rmsnorm",
-           "ssm_scan")
+SOURCES = ("spike_hist", "ema_scan", "flash_attention",
+           "flash_attention_bwd", "rmsnorm", "ssm_scan")
+KERNELS = SOURCES + ("rmsnorm_bwd",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_INFO: dict[str, object] = {}     # build seconds + ptxas report
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,13 +52,21 @@ _SIGNATURES = {
                            _P, _P, _D, _D, _P),
     },
     "flash_attention": {
-        f"flash_attention_{t}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 *(_I64,) * 12, _I, _P)
+        f"flash_attention_{t}": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, *(_I64,) * 12, _I, _P)
+        for t in ("bf16", "f32")
+    },
+    "flash_attention_bwd": {
+        f"flash_attention_bwd_{t}": (*(_P,) * 10, _I, _I, _I, _I, _I, _I,
+                                     _I, _P)
         for t in ("bf16", "f32")
     },
     "rmsnorm": {
-        f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)
-        for x in ("f32", "bf16") for s in ("f32", "bf16")
+        **{f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)
+           for x in ("f32", "bf16") for s in ("f32", "bf16")},
+        **{f"rmsnorm_bwd_{x}_{s}": (_P, _P, _P, _P, _P, _P, _I64, _I, _F, _I,
+                                    _I, _P)
+           for x in ("f32", "bf16") for s in ("f32", "bf16")},
     },
     "ssm_scan": {
         f"ssm_scan_{x}_{d}": (*(_P,) * 9, _I, _I, _I, _I, _P)
@@ -141,6 +153,31 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
+
+
+def wants_grad(*ts) -> bool:
+    """Grad mode is on and one of ``ts`` (tensors or None) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def on_card(what: str, ts) -> bool:
+    """False for tensors on the CPU (the plain twin's case), True for
+    tensors on one CUDA device; raises for anything else, and for CUDA
+    inputs that want a gradient: a kernel's output has no ``grad_fn`` and
+    would cut the graph (``ops`` routes those through the kernels'
+    ``autograd.Function``s)."""
+    devices = {t.device for t in ts}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu with every tensor on "
+                         f"one device, not {sorted(map(str, devices))}")
+    if wants_grad(*ts):
+        raise RuntimeError(f"{what}: an input requires grad, and the "
+                           f"kernel's output would cut the graph; call it "
+                           f"through repro_torch.kernels.ops")
+    return True
 
 
 def check(status: int, what: str) -> None:

@@ -5,6 +5,9 @@
 // sq == skv and the cached-prefill mask when sq < skv.  q, k, v and o are in
 // the model's (b, s, heads, dh) layout, read and written through their
 // strides (dh contiguous), so no transpose is copied.  Any sq and skv.
+// Given a non-null lse, each kernel also writes every row's log-sum-exp of
+// its scaled scores, in natural log, float32 (b, H, sq): what the backward
+// (flash_attention_bwd.cu) rebuilds the softmax from.  Serving passes null.
 // Hand-written for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention.py:68, flash_attention_bhsd,
@@ -89,6 +92,14 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// a row's log-sum-exp in natural log from its running max m (raw score
+// units) and its sum l of exp2((s - m) * scale_log2); -inf for a row that
+// sees no key
+__device__ __forceinline__ float row_lse(float m, float l, float scale_log2) {
+  return l > 0.0f ? __fmaf_rn(m, scale_log2, log2f(l)) * kLn2 : -INFINITY;
+}
 
 struct Layout {           // strides in elements of (b, s, heads); dh is 1
   long long b, s, h;
@@ -517,8 +528,9 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
 fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, int nb, int sq, int skv, int H,
-               int qper, Layout lo, int causal, float scale_log2) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int nb,
+               int sq, int skv, int H, int qper, Layout lo, int causal,
+               float scale_log2) {
   using G = Geo<DH>;
   constexpr int kO = DH / 2;              // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -694,7 +706,8 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
     n_kv += it.n_tiles;
 
-    // epilogue: divide by l (a row that sees no key gives 0), store bf16
+    // epilogue: divide by l (a row that sees no key gives 0), store bf16;
+    // with lse, a row's log-sum-exp (b, H, sq) from the quad's first lane
 #pragma unroll
     for (int sh = 1; sh <= 2; sh <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
@@ -704,6 +717,11 @@ fa_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
     __nv_bfloat16* ob = o + it.b * lo.b + it.h * lo.h;
     const int row1 = row0 + 8;
+    if (lse != nullptr && tig == 0) {
+      float* lb = lse + (static_cast<long long>(it.b) * H + it.h) * sq;
+      if (row0 < sq) lb[row0] = row_lse(m0, l0, scale_log2);
+      if (row1 < sq) lb[row1] = row_lse(m1, l1, scale_log2);
+    }
 #pragma unroll
     for (int j = 0; j < kO / 4; ++j) {
       const int d0 = j * 8 + tig * 2;
@@ -781,9 +799,9 @@ template <int DH, int BM>
 __global__ void __launch_bounds__(F32Geo<DH, BM>::kThreads,
                                   F32Geo<DH, BM>::kMinBlocks)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int sq,
-              int skv, int qper, Layout lq, Layout lk, Layout lv, Layout lo,
-              int causal, float scale_log2) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int sq, int skv, int qper, Layout lq,
+              Layout lk, Layout lv, Layout lo, int causal, float scale_log2) {
   using G = F32Geo<DH, BM>;
   constexpr int RM = kF32MicroRows, BN = kF32Keys, NL = kF32Lanes;
   constexpr int KPT = BN / NL;             // S keys of a thread
@@ -963,7 +981,8 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // epilogue: the row sums over the half-warp, divide (a row that sees no
-  // key gives 0), store VW floats at a time
+  // key gives 0), store VW floats at a time; with lse, a row's log-sum-exp
+  // (b, H, sq) from the half-warp's first thread
   float* ob = o + b * lo.b + h * lo.h;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -973,6 +992,9 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + rg * RM + i;
     const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
     if (row >= sq) continue;
+    if (lse != nullptr && cg == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] =
+          row_lse(m[i], l[i], scale_log2);
 #pragma unroll
     for (int g = 0; g < OC / VW; ++g) {
       float* dst = ob + row * lo.s + g * NL * VW + cg * VW;
@@ -1037,7 +1059,8 @@ bool make_map(CUtensorMap* map, const void* base, int b, int s, int heads,
 
 template <int DH>
 int launch_bf16(cudaStream_t stream, const void* q, const void* k,
-                const void* v, __nv_bfloat16* o, int b, int sq, int skv,
+                const void* v, __nv_bfloat16* o, float* lse, int b, int sq,
+                int skv,
                 int H, int KV, Layout lq, Layout lk, Layout lv, Layout lo,
                 int causal, float scale_log2) {
   CUtensorMap tq, tk, tv;
@@ -1062,14 +1085,14 @@ int launch_bf16(cudaStream_t stream, const void* q, const void* k,
       static_cast<long long>(H) * b * ((sq + kBlockQ - 1) / kBlockQ);
   const int grid = static_cast<int>(items < sms ? items : sms);
   fa_bf16_kernel<DH><<<grid, kThreadsWs, Geo<DH>::kSmem, stream>>>(
-      tq, tk, tv, o, b, sq, skv, H, H / KV, lo, causal, scale_log2);
+      tq, tk, tv, o, lse, b, sq, skv, H, H / KV, lo, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH, int BM>
 int launch_f32(cudaStream_t stream, const float* q, const float* k,
-               const float* v, float* o, int b, int sq, int skv, int H,
-               int qper, Layout lq, Layout lk, Layout lv, Layout lo,
+               const float* v, float* o, float* lse, int b, int sq, int skv,
+               int H, int qper, Layout lq, Layout lk, Layout lv, Layout lo,
                int causal, float scale_log2) {
   using G = F32Geo<DH, BM>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1080,7 +1103,7 @@ int launch_f32(cudaStream_t stream, const float* q, const float* k,
   // run next to each other and read its K and V from L2
   const dim3 grid((sq + BM - 1) / BM, H, b);
   fa_f32_kernel<DH, BM><<<grid, G::kThreads, G::kSmem, stream>>>(
-      q, k, v, o, sq, skv, qper, lq, lk, lv, lo, causal, scale_log2);
+      q, k, v, o, lse, sq, skv, qper, lq, lk, lv, lo, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1090,13 +1113,13 @@ int launch_f32(cudaStream_t stream, const float* q, const float* k,
 // SMs idle
 template <int DH>
 int launch_f32_rows(cudaStream_t stream, const float* q, const float* k,
-                    const float* v, float* o, int b, int sq, int skv, int H,
-                    int qper, Layout lq, Layout lk, Layout lv, Layout lo,
-                    int causal, float scale_log2) {
+                    const float* v, float* o, float* lse, int b, int sq,
+                    int skv, int H, int qper, Layout lq, Layout lk,
+                    Layout lv, Layout lo, int causal, float scale_log2) {
   if constexpr (DH <= 64) {
-    return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, b, sq, skv, H,
-                                         qper, lq, lk, lv, lo, causal,
-                                         scale_log2);
+    return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, lse, b, sq,
+                                         skv, H, qper, lq, lk, lv, lo,
+                                         causal, scale_log2);
   } else {
     int device = 0, sms = 0;
     if (cudaGetDevice(&device) != cudaSuccess ||
@@ -1106,11 +1129,11 @@ int launch_f32_rows(cudaStream_t stream, const float* q, const float* k,
     const long long blocks =
         static_cast<long long>(b) * H * ((sq + kF32Rows - 1) / kF32Rows);
     if (blocks < static_cast<long long>(kF32SmallBelow) * sms)
-      return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, b, sq, skv,
-                                           H, qper, lq, lk, lv, lo, causal,
-                                           scale_log2);
-    return launch_f32<DH, kF32Rows>(stream, q, k, v, o, b, sq, skv, H,
-                                    qper, lq, lk, lv, lo, causal,
+      return launch_f32<DH, kF32RowsSmall>(stream, q, k, v, o, lse, b, sq,
+                                           skv, H, qper, lq, lk, lv, lo,
+                                           causal, scale_log2);
+    return launch_f32<DH, kF32Rows>(stream, q, k, v, o, lse, b, sq, skv,
+                                    H, qper, lq, lk, lv, lo, causal,
                                     scale_log2);
   }
 }
@@ -1118,8 +1141,8 @@ int launch_f32_rows(cudaStream_t stream, const float* q, const float* k,
 }  // namespace
 
 extern "C" int flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int skv, int H, int KV, int dh, long long qsb, long long qss,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int sq, int skv, int H, int KV, int dh, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, void* stream) {
@@ -1129,15 +1152,16 @@ extern "C" int flash_attention_bf16(
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(dh));
   auto s = static_cast<cudaStream_t>(stream);
   auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
   switch (dh) {
     case 32:
-      return launch_bf16<32>(s, q, k, v, op, b, sq, skv, H, KV, lq, lk, lv,
+      return launch_bf16<32>(s, q, k, v, op, lp, b, sq, skv, H, KV, lq, lk, lv,
                              lo, causal, scale_log2);
     case 64:
-      return launch_bf16<64>(s, q, k, v, op, b, sq, skv, H, KV, lq, lk, lv,
+      return launch_bf16<64>(s, q, k, v, op, lp, b, sq, skv, H, KV, lq, lk, lv,
                              lo, causal, scale_log2);
     case 128:
-      return launch_bf16<128>(s, q, k, v, op, b, sq, skv, H, KV, lq, lk, lv,
+      return launch_bf16<128>(s, q, k, v, op, lp, b, sq, skv, H, KV, lq, lk, lv,
                               lo, causal, scale_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1145,8 +1169,8 @@ extern "C" int flash_attention_bf16(
 }
 
 extern "C" int flash_attention_f32(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int skv, int H, int KV, int dh, long long qsb, long long qss,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int sq, int skv, int H, int KV, int dh, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, void* stream) {
@@ -1159,16 +1183,17 @@ extern "C" int flash_attention_f32(
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(o);
+  auto* lp = static_cast<float*>(lse);
   const int qper = H / KV;
   switch (dh) {
     case 32:
-      return launch_f32_rows<32>(s, qp, kp, vp, op, b, sq, skv, H, qper, lq,
+      return launch_f32_rows<32>(s, qp, kp, vp, op, lp, b, sq, skv, H, qper, lq,
                                  lk, lv, lo, causal, scale_log2);
     case 64:
-      return launch_f32_rows<64>(s, qp, kp, vp, op, b, sq, skv, H, qper, lq,
+      return launch_f32_rows<64>(s, qp, kp, vp, op, lp, b, sq, skv, H, qper, lq,
                                  lk, lv, lo, causal, scale_log2);
     case 128:
-      return launch_f32_rows<128>(s, qp, kp, vp, op, b, sq, skv, H, qper,
+      return launch_f32_rows<128>(s, qp, kp, vp, op, lp, b, sq, skv, H, qper,
                                   lq, lk, lv, lo, causal, scale_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

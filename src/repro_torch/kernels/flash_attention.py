@@ -17,6 +17,17 @@ without a key and is refused.
 CPU tensor only; for a CUDA tensor it launches the kernel or raises.
 ``attn_work`` counts the work of one call (the visible (query, key) pairs
 the mask keeps), from which a bound on the card's time follows.
+
+The gradient: ``with_lse=True`` also returns each row's log-sum-exp of its
+scaled scores (float32 ``(b, H, sq)``, natural log), and
+``flash_attention_bwd(q, k, v, o, lse, do, causal)`` returns ``(dq, dk,
+dv)`` in q's dtype through ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's
+backward, SIMT, no atomics), or for CPU tensors through
+``flash_attention_bwd_plain``, the same formulas in plain PyTorch.
+``FlashAttentionFn`` is the ``torch.autograd.Function`` over the two, which
+``ops.flash_attention`` takes when a gradient is wanted.  Under grad mode
+the bare wrappers refuse a CUDA input that requires grad: a kernel's output
+carries no ``grad_fn``, and would cut the graph without an error.
 """
 from __future__ import annotations
 
@@ -69,34 +80,74 @@ def attn_work(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
         float(elem * (2 * b * sq * H * dh + 2 * b * skv * KV * dh))
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
-    """Exact softmax attention with GQA in float32 (``ref.py:8``)."""
-    _check(q, k, v, causal)
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """Scaled float32 scores (b, KV, qper, sq, skv), -inf where hidden."""
     b, sq, H, dh = q.shape
     skv, KV = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, KV, H // KV, dh).to(torch.float32)
     s = torch.einsum("bqkpd,bjkd->bkpqj", qg, k.to(torch.float32)) \
         * (dh ** -0.5)
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        s = s.masked_fill(~(qpos + (skv - sq) >= kpos), float("-inf"))
+        s = s.masked_fill(~_visible(sq, skv, q.device), float("-inf"))
+    return s
+
+
+def _visible(sq: int, skv: int, device) -> torch.Tensor:
+    """(sq, skv) bool: query i sees key j iff j <= i + (skv - sq)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    return qpos + (skv - sq) >= kpos
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, with_lse: bool = False):
+    """Exact softmax attention with GQA in float32 (``ref.py:8``); with
+    ``with_lse`` also the rows' log-sum-exp (b, H, sq)."""
+    _check(q, k, v, causal)
+    b, sq, H, dh = q.shape
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkpqj,bjkd->bqkpd", p, v.to(torch.float32))
-    return o.reshape(b, sq, H, dh).to(q.dtype)
+    o = o.reshape(b, sq, H, dh).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, H, sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True):
+    """The kernel's formulas in plain float32 PyTorch: P = exp(S - lse)
+    (0 where hidden), dV = P^T do and dK = dS^T q * scale summed over each
+    KV head's group, dS = P (do V^T - rowsum(do o)), dQ = dS K * scale.
+    Returns (dq, dk, dv) in q's dtype."""
+    _check(q, k, v, causal)
+    b, sq, H, dh = q.shape
+    KV = k.shape[2]
+    scale = dh ** -0.5
+    shape5 = (b, sq, KV, H // KV, dh)
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.reshape(b, KV, H // KV, sq, 1).to(torch.float32))
+    gf = do.reshape(shape5).to(torch.float32)
+    dsum = (gf * o.reshape(shape5).to(torch.float32)).sum(-1)   # b q k p
+    dp = torch.einsum("bqkpd,bjkd->bkpqj", gf, v.to(torch.float32))
+    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkpqj,bqkpd->bjkd", p, gf)
+    dq = torch.einsum("bkpqj,bjkd->bqkpd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bkpqj,bqkpd->bjkd", ds,
+                      q.reshape(shape5).to(torch.float32)) * scale
+    return (dq.reshape(b, sq, H, dh).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q (b, sq, H, dh); k, v (b, skv, KV, dh) -> (b, sq, H, dh)."""
+                         causal: bool = True, with_lse: bool = False):
+    """q (b, sq, H, dh); k, v (b, skv, KV, dh) -> (b, sq, H, dh), and with
+    ``with_lse`` the rows' log-sum-exp (b, H, sq) float32."""
     _check(q, k, v, causal)
-    devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
-        return flash_attention_plain(q, k, v, causal)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu with q, k, v "
-                         f"on one device, not {sorted(map(str, devices))}")
+    if not build.on_card("flash_attention", (q, k, v)):
+        return flash_attention_plain(q, k, v, causal, with_lse)
     if q.dtype not in _NAMES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -117,12 +168,78 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} exceeds the kernel's grid")
     out = torch.empty((b, sq, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     fn = getattr(build.library("flash_attention"),
                  f"flash_attention_{_NAMES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, sq, skv, H, KV, dh, *q.stride()[:3], *k.stride()[:3],
-                   *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
-                   stream), "flash_attention")
+                   0 if lse is None else lse.data_ptr(), b, sq, skv, H, KV,
+                   dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   *out.stride()[:3], int(bool(causal)), stream),
+                "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_bshd`` at (q, k, v) given its
+    output o, its lse and the output's gradient do; q's dtype."""
+    _check(q, k, v, causal)
+    b, sq, H, dh = q.shape
+    skv, KV = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (b, H, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if not build.on_card("flash_attention_bwd", (q, k, v, o, lse, do)):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    if q.dtype not in _NAMES or o.dtype != q.dtype or do.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16 q, "
+                        f"o, do and a float32 lse, got {q.dtype}, {o.dtype}, "
+                        f"{do.dtype}, {lse.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    if max(b, H, KV) > 65535:
+        raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} exceeds the kernel's grid")
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
+                             f"aligned")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    fn = getattr(build.library("flash_attention_bwd"),
+                 f"flash_attention_bwd_{_NAMES[q.dtype]}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                            dsum)),
+                   b, sq, skv, H, KV, dh, int(bool(causal)), stream),
+                "flash_attention_bwd")
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention whose forward saves (q, k, v, o, lse) and whose backward
+    is ``flash_attention_bwd`` (the kernel on the card, the plain twin on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None

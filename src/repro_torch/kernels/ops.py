@@ -2,14 +2,20 @@
 
 Each takes torch tensors and runs where the tensors lie: the CUDA kernel for
 tensors on the card, the plain PyTorch version for tensors on the CPU.
+``flash_attention`` and ``rmsnorm`` go through their
+``torch.autograd.Function``s when grad mode is on and an input requires
+grad (their backward is a kernel too); ``ssm_scan`` has no backward yet and
+refuses such inputs on the card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ema_scan import ema_scan_rows
-from repro_torch.kernels.flash_attention import flash_attention_bshd
-from repro_torch.kernels.rmsnorm import rmsnorm_rows
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_bshd)
+from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_rows
 from repro_torch.kernels.spike_hist import spike_hist_batch
 from repro_torch.kernels.ssm_scan import ssm_scan_bsd
 
@@ -17,6 +23,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan_bsd
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (b, sq, H, dh); k/v: (b, skv, KV, dh) -> (b, sq, H, dh)."""
+    if build.wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
     return flash_attention_bshd(q, k, v, causal=causal)
 
 
@@ -61,5 +69,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
     """RMSNorm over the last dim of ``x`` (any leading dims).  ``pdl``: see
     ``rmsnorm_rows``; only for a ``scale`` no kernel just before writes."""
     shape = x.shape
-    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps,
-                        pdl=pdl).reshape(shape)
+    x2 = x.reshape(-1, shape[-1])
+    if build.wants_grad(x, scale):
+        return RMSNormFn.apply(x2, scale, eps, pdl).reshape(shape)
+    return rmsnorm_rows(x2, scale, eps, pdl=pdl).reshape(shape)

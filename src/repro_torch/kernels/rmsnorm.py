@@ -8,6 +8,14 @@ vector.
 ``rmsnorm_plain`` is the same function in plain PyTorch, the twin of the
 reference's ``ref.rmsnorm_ref``.  The wrapper takes the plain version for a
 CPU tensor only; for a CUDA tensor it launches the kernel or raises.
+
+The gradient: ``rmsnorm_bwd(x, scale, dy, eps)`` returns ``(dx, dscale)``
+(dx in x's dtype; dscale summed over the rows in float32, in scale's dtype)
+through the backward entry points of ``csrc/rmsnorm.cu`` (launch counter
+``rmsnorm_bwd``), or ``rmsnorm_bwd_plain`` for CPU tensors.
+``RMSNormFn`` is the ``torch.autograd.Function`` over the two, which
+``ops.rmsnorm`` takes when a gradient is wanted; under grad mode
+``rmsnorm_rows`` refuses a CUDA input that requires grad.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from repro_torch.kernels import build
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIZES = {torch.float32: 4, torch.bfloat16: 2}
 _VEC_BYTES = 16
+_BWD_MAX_CHUNKS = 8 * 256          # rmsnorm.cu: kChunks x kThreads
 
 
 def _check(x, scale) -> None:
@@ -60,6 +69,22 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
             * scale.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
+                      dy: torch.Tensor, eps: float = 1e-5):
+    """The backward's formulas in plain PyTorch: with r = rsqrt(mean(x^2)
+    + eps), x^ = x r and g = dy scale, dx = r (g - x^ mean(g x^)) and
+    dscale = sum over rows of dy x^, in float32; cast to x's and scale's
+    dtypes."""
+    xf = x.to(torch.float32)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xh = xf * r
+    gy = dy.to(torch.float32)
+    g = gy * scale.to(torch.float32)
+    mean = torch.mean(g * xh, dim=-1, keepdim=True)
+    return ((r * (g - xh * mean)).to(x.dtype),
+            (gy * xh).sum(0).to(scale.dtype))
+
+
 def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
                  *, pdl: bool = False) -> torch.Tensor:
     """(n, d) float32/bfloat16 -> (n, d) of the same dtype.
@@ -71,12 +96,9 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     weight (``models.layers.Norm``); a decode step's chain of residual adds
     and norms is faster with it (``PERF.md``)."""
     _check(x, scale)
-    dev, sdev = x.device, scale.device
-    if dev.type == "cpu" and sdev.type == "cpu":
+    if not build.on_card("rmsnorm", (x, scale)):
         return rmsnorm_plain(x, scale, eps)
-    if dev.type != "cuda" or sdev != dev:
-        raise ValueError(f"rmsnorm runs on cuda or cpu with x and scale on "
-                         f"one device, not {dev} and {sdev}")
+    dev = x.device
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm needs contiguous x and scale")
     n, d = x.shape
@@ -93,3 +115,56 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
         int(vectorized), int(pdl), _raw_stream(dev)), "rmsnorm")
     build.LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5):
+    """(dx, dscale) of ``rmsnorm_rows`` at (x, scale) given the output's
+    gradient dy (n, d) in x's dtype."""
+    _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} does "
+                         f"not match x {tuple(x.shape)} {x.dtype}")
+    if not build.on_card("rmsnorm_bwd", (x, scale, dy)):
+        return rmsnorm_bwd_plain(x, scale, dy, eps)
+    x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
+    n, d = x.shape
+    vec = _VEC_BYTES // _SIZES[x.dtype]
+    vectorized = d % vec == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in (x, scale, dy))
+    if -(-d // (vec if vectorized else 1)) > _BWD_MAX_CHUNKS:
+        raise ValueError(f"rmsnorm_bwd keeps at most {_BWD_MAX_CHUNKS} "
+                         f"chunks of a row in registers, got d={d}")
+    dx = torch.empty_like(x)
+    if vectorized and dx.data_ptr() % _VEC_BYTES:
+        raise ValueError("rmsnorm_bwd: dx is not 16-byte aligned")
+    dscale = torch.empty_like(scale)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(n, 2 * sms))
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    fn = getattr(build.library("rmsnorm"),
+                 f"rmsnorm_bwd_{_NAMES[x.dtype]}_{_NAMES[scale.dtype]}")
+    build.check(fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                   dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), n, d,
+                   float(eps), int(vectorized), blocks,
+                   _raw_stream(x.device)), "rmsnorm_bwd")
+    build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm over the rows of (n, d) whose backward is ``rmsnorm_bwd``
+    (the kernel on the card, the plain twin on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float, pdl: bool):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_rows(x, scale, eps, pdl=pdl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None, None)

@@ -14,7 +14,10 @@ contiguous; it may be h0 itself) receives h_last in place.  Any s and di;
 
 ``ssm_scan_plain`` is the same function in plain PyTorch, the twin of the
 reference's ``ref.ssm_scan_ref``.  The wrapper takes it for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.  ``scan_work``
+only; for CUDA tensors it launches the kernel or raises.  The kernel has no
+backward yet (ROADMAP queue 1, item 3: ssm and hybrid training), so under
+grad mode the wrapper refuses CUDA inputs that require grad rather than
+return an output cut from the graph.  ``scan_work``
 counts the bytes, exps and other float32 operations of one call.
 """
 from __future__ import annotations
@@ -122,6 +125,10 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu with every tensor on "
                          f"one device, not {sorted(map(str, devices))}")
+    if build.wants_grad(*given):
+        raise RuntimeError("ssm_scan has no backward kernel yet (ROADMAP "
+                           "queue 1, item 3: ssm and hybrid training); an "
+                           "input requires grad")
     b, s, di = x.shape
     ds = A.shape[1]
     if b > 65535 or max(s, di) > 2**31 - 1:

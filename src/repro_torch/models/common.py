@@ -18,9 +18,10 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -151,3 +152,34 @@ class ParamModule(nn.Module):
 
     def register(self, store: ParamStore) -> None:
         raise NotImplementedError
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy over the tokens whose label lies in
+    [0, vocab_size), on float32 logits (the reference's
+    ``cross_entropy_loss``).  The reference takes the gold logit by a
+    one-hot contraction (for vocab-sharded logits); a gather of the same
+    element gives the same float32 value without a (tokens, vocab) one-hot.
+    """
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    inside = (labels >= 0) & (labels < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, labels, 0)[..., None])
+    gold = torch.where(inside, gold[..., 0], 0.0)
+    mask = ((labels >= 0) & (labels < vocab_size)).to(torch.float32)
+    loss = (lse - gold) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def maybe_remat(fn: Callable, enabled: bool) -> Callable:
+    """``fn`` recomputed in the backward instead of saving its activations
+    (the reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if not enabled:
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return remat

@@ -2,8 +2,9 @@
 
 Each layer is an ``nn.Module`` that owns the parameters the reference's
 ``register`` declares (same names, shapes and dtypes), on one device.  The
-RMSNorm goes through ``ops.rmsnorm`` (the CUDA kernel on the card); the rest
-is plain PyTorch, as it is jnp in the reference.
+RMSNorm goes through ``ops.rmsnorm`` (the CUDA kernel on the card, its
+backward a kernel too); the rest is plain PyTorch, as it is jnp in the
+reference.  ``chunked_ce_loss`` is the training loss over the logits head.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDef, ParamModule, ParamStore
+from repro_torch.models.common import (ParamDef, ParamModule, ParamStore,
+                                       cross_entropy_loss, maybe_remat)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -40,8 +42,11 @@ class Norm(ParamModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "rmsnorm":
-            # scale is a weight, written by no kernel of the step
-            return ops.rmsnorm(x, self.scale, self.eps, pdl=True)
+            # PDL loads the scale before the kernel ahead of it finishes: a
+            # frozen weight is safe, a trained one (the optimizer writes it
+            # between steps) is not
+            training = torch.is_grad_enabled() and self.scale.requires_grad
+            return ops.rmsnorm(x, self.scale, self.eps, pdl=not training)
         xf = x.to(torch.float32)
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
@@ -120,3 +125,29 @@ class Embedding(ParamModule):
         float32 on the card)."""
         w = self.table.T if self.tie else self.head
         return h.to(torch.float32) @ w.to(torch.float32)
+
+
+def chunked_ce_loss(embedding: Embedding, h: torch.Tensor,
+                    labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Cross-entropy over sequence chunks (the reference's choice of 512,
+    256, 128 or 64 tokens), each chunk's float32 logits recomputed in the
+    backward rather than saved, so they never exist at full length; the
+    chunks' means summed in order and divided by their count."""
+    s = h.shape[1]
+    chunk = s
+    for c in (512, 256, 128, 64):
+        if s % c == 0 and s > c:
+            chunk = c
+            break
+    nc = s // chunk
+
+    def body(h_c, l_c):
+        return cross_entropy_loss(embedding.logits(h_c), l_c, vocab_size)
+
+    body = maybe_remat(body, True)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + body(h[:, sl], labels[:, sl])
+    # a tensor divisor: a Python one becomes a reciprocal multiply on the card
+    return total / torch.tensor(nc, dtype=torch.float32, device=h.device)

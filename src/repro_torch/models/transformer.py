@@ -8,6 +8,10 @@ reference's tree: ``embed.table``, ``final_norm.scale``,
 (``models.convert.params_from_jax`` maps one onto the other).
 
 Entry points:
+  * ``loss(batch)``: training, ``(loss + 0.01 aux, {"loss", "aux_loss"})``
+    for the dense and moe families (MoE and MLA), each layer recomputed in
+    the backward when ``cfg.remat`` and ``kind == "train"``; the ssm,
+    hybrid and vlm families raise (``TRAINING_NOT_PORTED``);
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference; a vlm's batch carries its
     ``image_embeds`` (b, num_image_tokens, d), the memory of its
@@ -24,8 +28,8 @@ The vlm's cross-attention sublayer (the last layer of each period of
 ``cross_attn_period``) is gated: its output times ``tanh(gate)``, taken in
 float32 and cast to the output's dtype; the gate is zero at init, as in the
 reference.  A MoE sublayer's load-balancing loss is dropped in serving, as
-the reference's ``prefill`` and ``decode_step`` drop it.  Training
-(``loss``) is not ported yet.
+the reference's ``prefill`` and ``decode_step`` drop it, and summed over
+the layers in ``loss``.
 """
 from __future__ import annotations
 
@@ -36,10 +40,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamStore,
-                                       Topo, init_param_)
-from repro_torch.models.layers import Embedding, Mlp, Norm
+                                       Topo, init_param_, maybe_remat)
+from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
+
+
+# families whose training is not ported: their forward reaches a kernel
+# with no backward yet (ssm_scan), or is not held against the reference's
+# loss yet (the vlm's gated cross-attention)
+TRAINING_NOT_PORTED = {
+    "ssm": "the ssm_scan kernel has no backward yet",
+    "hybrid": "the ssm_scan kernel has no backward yet",
+    "vlm": "vlm training is not held against the reference yet",
+}
 
 
 class SubLayer(nn.Module):
@@ -254,6 +268,48 @@ class LM(ModelBase):
                 kvs[name] = kv
             h = h + out
         return h, kvs
+
+    def _train_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
+                     positions: torch.Tensor):
+        """One layer's sublayers over the residual stream: (h, the layer's
+        MoE load-balancing loss, float32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for name, kind in self.period_kinds:
+            sub = layer[name]
+            x = sub.norm(h)
+            if kind == "moe":
+                out, aux_i = sub.core(x)
+                aux = aux + aux_i
+            elif kind in ("attn", "mla"):
+                out = sub.core(x, positions)
+            else:                                            # mlp
+                out = sub.core(x)
+            h = h + out
+        return h, aux
+
+    def loss(self, batch: dict):
+        """batch {"tokens", "labels": (b, s)} -> (loss + 0.01 aux, {"loss":
+        the mean cross-entropy, "aux_loss": the MoE layers' summed
+        load-balancing loss}), float32 scalars with their graph."""
+        cfg = self.cfg
+        if cfg.family in TRAINING_NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not ported "
+                f"({TRAINING_NOT_PORTED[cfg.family]}; ROADMAP queue 1, item "
+                f"3)")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        h = self.embed.embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        layer_fn = maybe_remat(self._train_layer,
+                               cfg.remat and self.kind == "train")
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer in self.layers:
+            h, aux_i = layer_fn(layer, h, positions)
+            aux = aux + aux_i
+        h = self.final_norm(h)
+        loss = chunked_ce_loss(self.embed, h, labels, cfg.vocab_size)
+        return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
     @torch.no_grad()
     def prefill(self, batch: dict):

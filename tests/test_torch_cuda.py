@@ -1012,3 +1012,146 @@ def test_mla_on_card_matches_host(cuda, dtype):
     torch.testing.assert_close(got.cpu(), want, **LM_TOL[torch.bfloat16])
     for a, w in zip(caches[1], caches[0]):
         torch.testing.assert_close(a.cpu(), w, **LM_TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels, their Functions and the guards
+# ---------------------------------------------------------------------------
+BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", [
+    (2, 256, 256, 8, 2, 128, True),      # glm4-9b's heads, reduced
+    (1, 200, 200, 4, 4, 64, True),       # ragged tiles
+    (2, 65, 129, 8, 2, 128, True),       # causal sq < skv
+    (2, 100, 300, 4, 1, 32, False),      # non-causal sq != skv
+    (1, 129, 63, 8, 8, 64, False),       # non-causal sq > skv
+    (3, 1, 65, 6, 2, 128, True),         # one query row
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_close_to_plain(cuda, b, sq, skv, H, KV, dh,
+                                                 causal, dtype):
+    from repro_torch.kernels import (flash_attention_bshd,
+                                     flash_attention_bwd,
+                                     flash_attention_bwd_plain)
+    q, k, v = _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype)
+    do = torch.randn((b, sq, H, dh), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5)).to(dtype)
+    o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal))
+    _, want_lse = flash_attention_plain(q, k, v, causal, with_lse=True)
+    torch.testing.assert_close(lse, want_lse, **TOL[dtype])
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype])
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for g, a in zip(got, again):                     # no atomics
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4096, 4096), (7, 100), (300, 384),
+                                 (1, 4096), (33, 5120), (5, 8192)])
+@pytest.mark.parametrize("dtype,sdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+def test_rmsnorm_backward_close_to_plain(cuda, n, d, dtype, sdtype):
+    from repro_torch.kernels import rmsnorm_bwd, rmsnorm_bwd_plain
+    rng = np.random.default_rng(n + d)
+    x, dy = (torch.from_numpy(rng.standard_normal((n, d), np.float32))
+             .to(cuda, dtype) for _ in range(2))
+    sc = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, np.float32)).to(
+        cuda, sdtype)
+    before = build.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = rmsnorm_bwd(x, sc, dy, 1e-5)
+    assert build.LAUNCHES["rmsnorm_bwd"] == before + 1
+    torch.cuda.synchronize()
+    wx, ws = rmsnorm_bwd_plain(x, sc, dy, 1e-5)
+    assert dx.dtype == dtype and ds.dtype == sdtype
+    torch.testing.assert_close(dx.float(), wx.float(), **BWD_TOL[dtype])
+    tol = BWD_TOL[torch.bfloat16 if torch.bfloat16 in (dtype, sdtype)
+                  else torch.float32]
+    torch.testing.assert_close(ds.float(), ws.float(), **tol)
+    dx2, ds2 = rmsnorm_bwd(x, sc, dy, 1e-5)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+def test_outputs_under_grad_keep_their_graph_on_the_card(cuda):
+    """The kernels' outputs carry a grad_fn when a gradient is wanted; the
+    bare wrappers refuse such inputs rather than cut the graph; ssm_scan,
+    which has no backward yet, refuses them too."""
+    from repro_torch.kernels import flash_attention_bshd, rmsnorm_rows
+    q, k, v = (t.requires_grad_() for t in
+               _attn_inputs(cuda, 1, 64, 64, 4, 2, 64, torch.bfloat16))
+    o = flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is not None
+    before = build.LAUNCHES["flash_attention_bwd"]
+    o.float().sum().backward()
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 1
+    assert q.grad is not None and k.grad.shape == k.shape
+    with pytest.raises(RuntimeError, match="cut the graph"):
+        flash_attention_bshd(q, k, v, True)
+    x = torch.randn((8, 256), device=cuda, requires_grad=True)
+    sc = torch.ones(256, device=cuda, requires_grad=True)
+    y = rmsnorm(x, sc)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert x.grad is not None and sc.grad is not None
+    with pytest.raises(RuntimeError, match="cut the graph"):
+        rmsnorm_rows(x, sc)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+        assert rmsnorm(x, sc).grad_fn is None
+    xs = torch.randn((1, 8, 32), device=cuda, requires_grad=True)
+    dt = torch.rand((1, 8, 32), device=cuda)
+    A = -torch.rand((32, 4), device=cuda)
+    B, C = torch.randn((1, 8, 4), device=cuda), torch.randn((1, 8, 4),
+                                                            device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssm_scan(xs, dt, A, B, C, None)
+    with torch.no_grad():
+        ssm_scan(xs, dt, A, B, C, None)
+
+
+@pytest.mark.cuda
+def test_reduced_glm_loss_and_gradients_on_card_match_host(cuda):
+    """Float32 reduced glm4-9b: the loss and every gradient through the
+    kernels on the card against the plain twins on the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    cfg = ARCHS["glm4-9b"].reduced(num_layers=2)
+    host = build_model(cfg, kind="train", device="cpu", dtype=torch.float32)
+    host.init_params(torch.Generator().manual_seed(0))
+    card = build_model(cfg, kind="train", device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 129)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for model in (host, card):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        before = dict(build.LAUNCHES)
+        total, _ = model.loss(batch)
+        grads = torch.autograd.grad(total, list(params.values()))
+        launched = {k: build.LAUNCHES[k] - before[k] for k in before}
+        out.append((total.detach().cpu(), [g.cpu() for g in grads],
+                    launched))
+    (lh, gh, _), (lc, gc, launched) = out
+    L = cfg.num_layers
+    assert launched["flash_attention"] == 2 * L          # remat recomputes
+    assert launched["flash_attention_bwd"] == L
+    assert launched["rmsnorm"] == 4 * L + 1
+    assert launched["rmsnorm_bwd"] == 2 * L + 1
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for a, w in zip(gc, gh):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
