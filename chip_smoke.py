@@ -196,18 +196,22 @@ phase 11):
      in range, logits finite, exactly 48 flash per prefill and 89 rmsnorm
      per forward for the vlm, 72 flash and no rmsnorm for whisper, no scan;
      first token, decode ms/step and peak memory of each request printed;
- 19. training checks — the backward kernels against their plain twins on
-     unit-scale inputs and gradients: ``flash_attention_bwd`` (and the
+ 19. training checks — the flash backward library's ptxas registers and
+     spills of every kernel and its HGMMA count (a bf16 product kernel
+     without one fails); the backward kernels against their plain twins
+     on unit-scale inputs and gradients: ``flash_attention_bwd`` (and the
      forward's ``lse`` within the forward's tolerance) at glm4-9b's heads
-     (4, 1024) and (1, 4096) causal, dh 64 and 32, non-causal 300 x 700,
-     each in bfloat16 and float32; ``rmsnorm_bwd`` at (4096, 4096) with
+     (4, 1024) and (1, 4096) causal, granite-moe's (24 / 8, dh 64) at
+     (4, 1024), dh 64 and 32, non-causal 300 x 700, each in bfloat16 (the
+     wgmma kernels; each shape's plan printed: tiles, split, CTAs) and
+     float32 (the SIMT kernels); ``rmsnorm_bwd`` at (4096, 4096) with
      every pair of bfloat16 / float32 x and scale; dq, dk, dv, dx, dscale
      within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two launches
-     bitwise equal; the two glm4-9b bf16 causal shapes and the bf16 norm
-     timed beside their plain twins, their bounds (10 dh flops a visible
-     pair; x and dy read, dx written) and the library calls' forward +
-     backward through autograd (``scaled_dot_product_attention`` with the
-     KV heads repeated, ``F.rms_norm``).  Then the reduced glm4-9b in
+     bitwise equal; the three bf16 causal training shapes and the bf16
+     norm timed beside their plain twins, their bounds (10 dh flops a
+     visible pair; x and dy read, dx written) and the library calls'
+     forward + backward through autograd (``scaled_dot_product_attention``
+     with the KV heads repeated, ``F.rms_norm``).  Then the reduced glm4-9b in
      float32, 3 ``Trainer`` steps on the card and on the host from one
      seeded checkpoint: losses within 1e-5 relative, grad norms and
      parameters after step 3 within 1e-4, and the card's launches per step
@@ -526,7 +530,7 @@ def build_variants(source: str, variants: dict) -> dict:
             f.write(text)
         so = cu[:-3] + ".so"
         procs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+            build.nvcc_command(cu, so),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -540,7 +544,12 @@ def build_variants(source: str, variants: dict) -> dict:
             raise RuntimeError(f"variant {name} does not build:\n{text}")
         regs = sorted({ln.split("Used")[1].split(",")[0].strip()
                        for ln in text.splitlines() if "Used" in ln})
-        log(f"{source} variant {name}: built, {', '.join(regs)}")
+        spills = max([int(m.group(1)) for m in re.finditer(
+            r"(\d+) bytes spill stores", text)], default=0)
+        serial = text.count("C7512")       # wgmma serialised by ptxas
+        log(f"{source} variant {name}: built, {', '.join(regs)}, at most "
+            f"{spills} bytes of spill stores, {serial} kernels with wgmma "
+            f"serialised (C7512)")
         lib = ctypes.CDLL(so)
         for fn, argtypes in build._SIGNATURES[source].items():
             getattr(lib, fn).argtypes = list(argtypes)
@@ -3804,13 +3813,15 @@ def discovery_phase(dev, card: str, lib, want_scale: dict, workdir: str,
 # ---------------------------------------------------------------------------
 # phases 19 and 20: training
 # ---------------------------------------------------------------------------
-# the backward kernels' checks: (b, sq, skv, heads, causal); glm4-9b's heads
-# unless given, each in bfloat16 and float32
+# the backward kernels' checks: (b, sq, skv, heads, causal, timed); glm4-9b's
+# heads unless given, each in bfloat16 and float32, the timed ones timed in
+# bfloat16: glm4-9b's two training shapes and granite-moe's heads at 4 x 1024
 TRAIN_FLASH = (
-    (4, 1024, 1024, None, True), (1, 4096, 4096, None, True),
-    (2, 512, 512, dict(H=16, KV=4, dh=64), True),
-    (2, 512, 512, dict(H=8, KV=2, dh=32), True),
-    (2, 300, 700, None, False),                 # non-causal, sq != skv
+    (4, 1024, 1024, None, True, True), (1, 4096, 4096, None, True, True),
+    (4, 1024, 1024, GRANITE_HEADS, True, True),
+    (2, 512, 512, dict(H=16, KV=4, dh=64), True, False),
+    (2, 512, 512, dict(H=8, KV=2, dh=32), True, False),
+    (2, 300, 700, None, False, False),          # non-causal, sq != skv
 )
 TRAIN_NORM = (4096, 4096)
 BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -3857,7 +3868,7 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
                                      flash_attention_bwd,
                                      flash_attention_bwd_plain,
                                      flash_attention_plain, ops)
-    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import bwd_plan
     heads = heads or dict(H=32, KV=2, dh=128)
     q, k, v = attn_inputs(dev, b, sq, skv, dtype, 31 + sq + skv, **heads)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -3875,6 +3886,25 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
         raise AssertionError("flash_attention_bwd: two launches differ")
     r = dict(b=b, s=sq, skv=skv, **heads, causal=causal,
              dtype=str(dtype).split(".")[1], err=err, lse_err=err_lse)
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+            if dev.type == "cuda" else 132      # an H100's, on the host
+        plan = bwd_plan(b, sq, skv, heads["H"], heads["KV"], heads["dh"],
+                        sms, causal)
+        r.update(kernel="wgmma", split=plan.split,
+                 dkdv_ctas=plan.dkdv_ctas, dq_ctas=plan.dq_ctas,
+                 scratch_mib=plan.scratch_bytes / 2**20)
+        what = (f"wgmma kernels: dK/dV {plan.dkdv_ctas} CTAs of 128 keys in "
+                f"64-row steps, split {plan.split}; dQ {plan.dq_ctas} CTAs "
+                f"of 128 rows in 64-key steps; scratch "
+                f"{r['scratch_mib']:.2f} MiB")
+    else:
+        r.update(kernel="simt")
+        what = "SIMT kernels (64 x 64 tiles)"
+    log(f"flash_attention_bwd {r['dtype']} b={b} s={sq} skv={skv} "
+        f"H={heads['H']} KV={heads['KV']} dh={heads['dh']} causal={causal} "
+        f"[{card}]: {what}; max err {err:.3e}, lse {err_lse:.3e}, two "
+        f"launches bitwise equal")
     if timed:
         flops, nbytes = attn_work(b, sq, skv, heads["H"], heads["KV"],
                                   heads["dh"], q.element_size(), causal)
@@ -3899,13 +3929,13 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
             flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes",
             ms=cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                        causal), 5, flush),
+                                                        causal), 20, flush),
             fwd_lse_ms=cuda_time_ms(lambda: flash_attention_bshd(
                 q, k, v, causal, with_lse=True), 10, flush),
             fwd_ms=cuda_time_ms(lambda: flash_attention_bshd(
                 q, k, v, causal), 10, flush),
-            fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 5, flush),
-            library_ms=cuda_time_ms(sdpa_fwd_bwd, 5, flush),
+            fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 10, flush),
+            library_ms=cuda_time_ms(sdpa_fwd_bwd, 10, flush),
             plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal), 3, flush))
         r["tflops"] = flops / r["ms"] * 1e-9
@@ -4077,15 +4107,16 @@ def train_launcher_cap(workdir: str) -> dict:
 
 
 def train_kernel_checks(dev, flush, card: str) -> dict:
-    """Phase 19's kernel part: every backward shape in both dtypes (the
-    first, glm4-9b's training shape, timed in bfloat16), rmsnorm's
-    backward at (4096, 4096) in every pair of dtypes (bf16 timed)."""
+    """Phase 19's kernel part: the flash backward library's ptxas and
+    HGMMA report, every backward shape in both dtypes (the timed ones timed
+    in bfloat16), rmsnorm's backward at (4096, 4096) in every pair of
+    dtypes (bf16 timed)."""
     from repro_torch.kernels import build
+    report = flash_bwd_report()
     before = dict(build.LAUNCHES)
     flash = [flash_bwd_check(dev, flush, card, b, sq, skv, heads, causal,
-                             dtype, timed=dtype == torch.bfloat16
-                             and heads is None and causal)
-             for b, sq, skv, heads, causal in TRAIN_FLASH
+                             dtype, timed=timed and dtype == torch.bfloat16)
+             for b, sq, skv, heads, causal, timed in TRAIN_FLASH
              for dtype in (torch.bfloat16, torch.float32)]
     norms = [rmsnorm_bwd_check(dev, flush, card, *TRAIN_NORM, x, s,
                                timed=x == s == torch.bfloat16)
@@ -4096,7 +4127,34 @@ def train_kernel_checks(dev, flush, card: str) -> dict:
         f"{max(r['err'] for r in flash):.3e} over {len(flash)} cases, lse "
         f"{max(r['lse_err'] for r in flash):.3e}; rmsnorm "
         f"{max(r['err'] for r in norms):.3e} over {len(norms)}")
-    return dict(flash=flash, rmsnorm=norms)
+    return dict(flash=flash, rmsnorm=norms, flash_build=report)
+
+
+def flash_bwd_report() -> dict:
+    """The backward library's kernels: ptxas's registers (at entry: the
+    warp-specialised ones hand registers to their consumers with
+    setmaxnreg), stack and spill bytes for every instantiation, and the
+    HGMMA (wgmma) instructions of each; fails if a bf16 product kernel has
+    none."""
+    report = build_report("flash_attention_bwd", ("HGMMA",))
+
+    def short(name: str) -> str:           # fa_bwd_dq_bf16_kernel<(int)128>
+        m = re.search(r"fa_bwd_\w+(?:<[^>]*>)?", name)
+        return m.group(0).replace("(int)", "") if m else name
+    hgmma = {short(k): c["HGMMA"] for k, c in report.pop("sass").items()}
+    kernels = {}
+    for name, r in report["ptxas_by_kernel"].items():
+        kernels[short(name)] = dict(r, hgmma=hgmma.get(short(name), 0))
+    for name, r in sorted(kernels.items()):
+        log(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
+            f"bytes stack, {r.get('spill_stores')} / {r.get('spill_loads')} "
+            f"bytes spill stores / loads, {r['hgmma']} HGMMA")
+    wgmma = [k for k in kernels if "_bf16_kernel" in k
+             and ("dkdv" in k or "dq" in k)]
+    if not wgmma or any(kernels[k]["hgmma"] == 0 for k in wgmma):
+        raise AssertionError(f"flash_attention_bwd: a bf16 product kernel "
+                             f"has no HGMMA: {kernels}")
+    return kernels
 
 
 def train_check_phase(dev, flush, card: str, workdir: str) -> dict:
@@ -4111,6 +4169,9 @@ def train_check_phase(dev, flush, card: str, workdir: str) -> dict:
     return r
 
 
+# the flash backward's launches by kernel, within its group
+FLASH_BWD_PARTS = (("dK/dV", "dkdv"), ("dQ", "_dq_"), ("reduction", "reduce"),
+                   ("prep", "prep"), ("prep", "dsum"))
 TRAIN_GROUPS = (("flash_attention_bwd", ("fa_bwd",)),
                 ("flash_attention", ("fa_bf16", "fa_f32")),
                 ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_colsum")),
@@ -4153,20 +4214,27 @@ def trace_train(dev, card: str, out: str | None) -> dict:
     kernels = [e for e in ka
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    shares, counts = {}, {}
+    shares, counts, bwd = {}, {}, {}
     for e in kernels:
         name = e.key.lower()
         group = next((g for g, keys in TRAIN_GROUPS
                       if any(k in name for k in keys)), "other")
         shares[group] = shares.get(group, 0.0) + e.self_device_time_total
         counts[group] = counts.get(group, 0) + e.count
+        if group == "flash_attention_bwd":
+            part = next((p for p, key in FLASH_BWD_PARTS if key in name),
+                        name)
+            ms, n = bwd.get(part, (0.0, 0))
+            bwd[part] = (ms + e.self_device_time_total / 1e3, n + e.count)
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%}, "
                       f"{counts[k]} launches)"
                       for k, v in sorted(shares.items(), key=lambda x: -x[1]))
+    bwd_parts = ", ".join(f"{k} {ms:.3f} ms ({n} launches)"
+                          for k, (ms, n) in bwd.items())
     log(f"trace train glm4-9b {TRAIN_LAYERS}/40 layers {b} x {s} [{card}]: "
         f"one step in {elapsed:.3f} s under the profiler, device busy "
         f"{device_us / 1e6:.3f} s = {device_us / 1e6 / elapsed:.2%}; by "
-        f"kernel: {parts}")
+        f"kernel: {parts}; the flash backward by kernel: {bwd_parts}")
     if out is not None:
         with open(os.path.join(out, "trace_train.txt"), "w") as f:
             f.write(f"{card}\n{elapsed:.3f} s traced, device busy "
@@ -4175,7 +4243,8 @@ def trace_train(dev, card: str, out: str | None) -> dict:
                     f"\n")
     return dict(elapsed_s=elapsed, device_busy_s=device_us / 1e6,
                 by_kernel_ms={k: v / 1e3 for k, v in shares.items()},
-                launches_by_kernel=counts)
+                launches_by_kernel=counts,
+                flash_bwd_ms={k: ms for k, (ms, _) in bwd.items()})
 
 
 def train_full_phase(dev, card: str, workdir: str) -> dict:
@@ -4573,7 +4642,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     kernels[-2]["shapes"] = [
         {k: r[k] for k in ("b", "s", "H", "KV", "dh", "dtype", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
-                           "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms")}
+                           "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms", "kernel",
+                           "split", "dkdv_ctas", "dq_ctas")}
         for r in tk["flash"] if "ms" in r]
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "

@@ -5,8 +5,10 @@ library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  The first call that needs a kernel
 builds every source at once (one ``nvcc`` process per source, started
 together) into ``_build/`` next to this file, or into
-``$REPRO_TORCH_BUILD_DIR``.  A library is rebuilt when its source or flags
-change (the file name carries their hash).  Nothing here runs at import.
+``$REPRO_TORCH_BUILD_DIR``.  A library is rebuilt when its source, a header
+it includes (``#include "x.cuh"`` from ``csrc/``, followed recursively) or
+the flags change: the file name carries their hash.  Nothing here runs at
+import.
 
 ``LAUNCHES`` counts kernel launches per kernel name (the sources' names,
 and ``rmsnorm_bwd`` for the backward entry points of ``rmsnorm.cu``); each
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,10 +59,9 @@ _SIGNATURES = {
                                  _I, *(_I64,) * 12, _I, _P)
         for t in ("bf16", "f32")
     },
-    "flash_attention_bwd": {
-        f"flash_attention_bwd_{t}": (*(_P,) * 10, _I, _I, _I, _I, _I, _I,
-                                     _I, _P)
-        for t in ("bf16", "f32")
+    "flash_attention_bwd": {      # bf16 takes the dK/dV split too
+        "flash_attention_bwd_f32": (*(_P,) * 10, *(_I,) * 7, _P),
+        "flash_attention_bwd_bf16": (*(_P,) * 10, *(_I,) * 8, _P),
     },
     "rmsnorm": {
         **{f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)
@@ -100,10 +102,35 @@ def _nvcc() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> list[str]:
+    """``<name>.cu`` and every header it includes by quotes, recursively
+    (file names in ``CSRC``), the source first."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f not in files:
+            files.append(f)
+            with open(os.path.join(CSRC, f)) as fh:
+                todo.extend(_INCLUDE.findall(fh.read()))
+    return files
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources_of(name):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def nvcc_command(source: str, out: str) -> list[str]:
+    """nvcc with the port's flags, compiling ``source`` (a path) into the
+    shared library ``out``; ``CSRC`` is on the include path, so a copy of a
+    source elsewhere finds its headers."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", out, source]
 
 
 def build_all() -> dict[str, str]:
@@ -115,12 +142,11 @@ def build_all() -> dict[str, str]:
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
-    nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
     for name, path in todo.items():
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = nvcc_command(os.path.join(CSRC, f"{name}.cu"), tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)

@@ -82,12 +82,10 @@
 //   * Softmax in the log2 domain (one fma, exp2f), the mask only on tiles
 //     that cross skv or the block's diagonal, tiles above it skipped; a
 //     row's sum is kept per thread and reduced once at the end.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <string.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -101,151 +99,6 @@ __device__ __forceinline__ float row_lse(float m, float l, float scale_log2) {
   return l > 0.0f ? __fmaf_rn(m, scale_log2, log2f(l)) * kLn2 : -INFINITY;
 }
 
-struct Layout {           // strides in elements of (b, s, heads); dh is 1
-  long long b, s, h;
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(64 x 128) = [D +] A(64 x 16) B(16 x 128): A and B in shared memory,
-// both K-major (B given as its transpose, n rows of 16)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D(64 x 128) = A(64 x 16) B(16 x 128), the same operands, D only written
-// (so that it need not be live before)
-__device__ __forceinline__ void wgmma_ss_n128_set(float (&d)[64], uint64_t da,
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
-        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
-        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
-        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
-        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// D(64 x 32) = [D +] A(64 x 16) B(16 x 32): A in registers, B in shared
-// memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D(64 x 64) = [D +] A(64 x 16) B(16 x 64): A in registers, B in shared
-// memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// D(64 x 128) = [D +] A(64 x 16) B(16 x 128): A in registers, B in shared
-// memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on TMA-fed tiles, warp-specialised
 // ---------------------------------------------------------------------------
@@ -254,145 +107,17 @@ constexpr int kBlockQ = 64 * kConsumers;       // query rows of a CTA
 constexpr int kBlockK = 128;                   // keys of a tile
 constexpr int kStages = 2;                     // K/V ring depth
 constexpr int kThreadsWs = 128 * (kConsumers + 1);
-constexpr long long kWaitLimit = 1LL << 32;    // cycles (~2 s) before a trap
 
-// Shared-memory geometry of a (rows x DH) bfloat16 tile as TMA writes it
-// and wgmma reads it: DH split into column blocks of kSw bytes (128, or 64
-// at DH = 32), each block rows x kSw bytes, 16-byte chunks XOR-swizzled
-// within every 8 rows (TMA's 128- or 64-byte swizzle).
+// Shared-memory geometry of the forward's CTA on top of the tile's swizzle
+// (hopper.cuh): Q, the K ring, the V ring, then the barriers
 template <int DH>
-struct Geo {
-  static constexpr int kSw = DH * 2 < 128 ? DH * 2 : 128;
-  static constexpr int kCols = kSw / 2;                   // DH of a box
-  static constexpr int kBlocks = DH / kCols;
-  static constexpr int kMode = kSw == 128 ? 1 : 2;        // descriptor
+struct Geo : Swz<DH> {
   static constexpr int kQBytes = kBlockQ * DH * 2;
   static constexpr int kKVBytes = kBlockK * DH * 2;
-  // Q, the K ring, the V ring, then the barriers; +1 KB to align to 1 KB
+  // +1 KB to align to 1 KB
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (4 + 4 * kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(mode) << 62);
-}
-
-// k-step kk (16 columns of DH) of a K-major tile whose column blocks are
-// `rows` rows apart
-template <int DH>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int kk) {
-  constexpr int kSw = Geo<DH>::kSw;
-  const uint32_t off = (kk * 32 / kSw) * rows * kSw + (kk * 32) % kSw;
-  return gmma_desc(tile + off, 16, 8 * kSw, Geo<DH>::kMode);
-}
-
-// key chunk c (16 rows) of a row-major tile read MN-major (V as P.V's B):
-// LBO steps between column blocks, SBO between 8-row groups
-template <int DH>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int c) {
-  constexpr int kSw = Geo<DH>::kSw;
-  return gmma_desc(tile + c * 16 * kSw, rows * kSw, 8 * kSw,
-                   Geo<DH>::kMode);
-}
-
-// keep the compiler from moving accumulator accesses across wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until all but the last committed wgmma group have completed, or all
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (DH == 32) wgmma_rs_n32(d, a, db, 1);
-  else if constexpr (DH == 64) wgmma_rs_n64(d, a, db, 1);
-  else wgmma_rs_n128(d, a, db, 1);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-// wait until the phase of parity `parity` has completed; a wait that
-// outlasts kWaitLimit cycles (a lost arrival) traps instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > kWaitLimit) __trap();
-  } while (!done);
-}
-
-// one box (kCols of DH x rows) of a (dh, heads, s, b) tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(d0), "r"(head), "r"(row), "r"(batch) : "memory");
-}
-
-template <int DH>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int head, int row0,
-                                         int batch, int rows) {
-#pragma unroll
-  for (int cb = 0; cb < Geo<DH>::kBlocks; ++cb)
-    tma_load(dst + cb * rows * Geo<DH>::kSw, map, bar, cb * Geo<DH>::kCols,
-             head, row0, batch);
-}
 
 // S = Q K^T of one 64-row warpgroup against a 128-key tile, issued and
 // committed, not waited for.  The first k-step only writes S, so S need not
@@ -1007,54 +732,6 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
             make_float2(acc[i][g * 2] * inv, acc[i][g * 2 + 1] * inv);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (so
-// the library needs no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a (b, s, heads, DH) bfloat16 tensor with strides l as the 4-D tensor map
-// (DH, heads, s, b), boxes of kCols x 1 x rows x 1; rows past s read as 0
-template <int DH>
-bool make_map(CUtensorMap* map, const void* base, int b, int s, int heads,
-              const Layout& l, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(l.h) * 2,
-                                 static_cast<cuuint64_t>(l.s) * 2,
-                                 static_cast<cuuint64_t>(l.b) * 2};
-  const cuuint32_t box[4] = {Geo<DH>::kCols, 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Geo<DH>::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

@@ -21,15 +21,23 @@ the mask keeps), from which a bound on the card's time follows.
 The gradient: ``with_lse=True`` also returns each row's log-sum-exp of its
 scaled scores (float32 ``(b, H, sq)``, natural log), and
 ``flash_attention_bwd(q, k, v, o, lse, do, causal)`` returns ``(dq, dk,
-dv)`` in q's dtype through ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's
-backward, SIMT, no atomics), or for CPU tensors through
-``flash_attention_bwd_plain``, the same formulas in plain PyTorch.
+dv)`` in q's dtype through ``csrc/flash_attention_bwd.cu``, or for CPU
+tensors through ``flash_attention_bwd_plain``, the same formulas in plain
+PyTorch.  No atomics: two launches give the same bits.  bfloat16 runs
+FlashAttention-3's backward on ``wgmma`` and TMA at every head dim (a dK/dV
+kernel whose CTAs ``bwd_plan`` splits over a KV head's query heads and
+tiles, float32 partials summed in a fixed order, and a dQ kernel); float32
+runs FlashAttention-2's backward on the SIMT FMA pipes, which keep the
+digits the float32 card-vs-host checks hold.
 ``FlashAttentionFn`` is the ``torch.autograd.Function`` over the two, which
 ``ops.flash_attention`` takes when a gradient is wanted.  Under grad mode
 the bare wrappers refuse a CUDA input that requires grad: a kernel's output
 carries no ``grad_fn``, and would cut the graph without an error.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -38,6 +46,17 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 128)          # the kernel's instantiations
 BLOCK_Q = 128                      # query rows of one bf16 work item
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the bf16 backward's tiles: csrc/flash_attention_bwd.cu's kDkdvKeys,
+# kDkdvRows, kDqRows, kDqKeys and kRowPad
+BWD_KEYS = 128                     # keys of a dK/dV CTA
+BWD_ROWS = 64                      # query rows of a dK/dV step
+BWD_DQ_ROWS = 128                  # query rows of a dQ CTA
+BWD_DQ_KEYS = 64                   # keys of a dQ step
+BWD_ROW_PAD = 128                  # lse2 and D rows padded to
+# a dK/dV grid of fewer CTAs than SMs is split until it holds this many
+# CTAs an SM, in at most _MAX_SPLIT parts
+_SPLIT_WAVES = 2
+_MAX_SPLIT = 8
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -141,6 +160,110 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.to(q.dtype))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The bf16 backward's launch at one shape (``bwd_plan``): the dK/dV
+    grid is (key tile, KV head, batch, part) with the key tile slowest, each
+    part a run of its key tile's (group head, visible query tile) pairs;
+    the dQ grid is (query tile, head, batch) with the head fastest.  Under
+    the causal mask both put the heaviest CTAs first."""
+    b: int
+    sq: int
+    skv: int
+    H: int
+    KV: int
+    dh: int
+    split: int
+
+    @property
+    def sq_pad(self) -> int:
+        return _cdiv(self.sq, BWD_ROW_PAD) * BWD_ROW_PAD
+
+    @property
+    def key_tiles(self) -> int:
+        return _cdiv(self.skv, BWD_KEYS)
+
+    @property
+    def dkdv_ctas(self) -> int:
+        return self.key_tiles * self.KV * self.b * self.split
+
+    @property
+    def dq_ctas(self) -> int:
+        return _cdiv(self.sq, BWD_DQ_ROWS) * self.H * self.b
+
+    @property
+    def work_floats(self) -> int:
+        """float32 scratch: lse2 and D (b, H, sq_pad), then the dK/dV
+        parts (split, 2, b, skv, KV, dh) when split > 1."""
+        rows = self.b * self.H * self.sq_pad
+        parts = 2 * self.split * self.b * self.skv * self.KV * self.dh
+        return 2 * rows + (parts if self.split > 1 else 0)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.work_floats
+
+    def visible_query_tiles(self, key_tile: int, causal: bool) -> range:
+        """The dK/dV steps (query tiles of BWD_ROWS) with a row that sees a
+        key of ``key_tile``."""
+        first = max(0, key_tile * BWD_KEYS - (self.skv - self.sq)) \
+            // BWD_ROWS if causal else 0
+        return range(first, _cdiv(self.sq, BWD_ROWS))
+
+    def dkdv_order(self, causal: bool):
+        """The dK/dV CTAs in launch order: (key tile, KV head, batch, part,
+        [(head, query tile), ...])."""
+        qper = self.H // self.KV
+        for i in range(self.dkdv_ctas):
+            kt, rest = divmod(i, self.KV * self.b * self.split)
+            part, kvh, b = (rest % self.split, rest // self.split % self.KV,
+                            rest // (self.split * self.KV))
+            tiles = self.visible_query_tiles(kt, causal)
+            n = qper * len(tiles)
+            lo, hi = n * part // self.split, n * (part + 1) // self.split
+            yield kt, kvh, b, part, [
+                (kvh * qper + j // len(tiles), tiles[j % len(tiles)])
+                for j in range(lo, hi)]
+
+    def dq_order(self, causal: bool):
+        """The dQ CTAs in launch order: (query tile, head, batch, key tiles
+        of BWD_DQ_KEYS its rows see)."""
+        n_qt = _cdiv(self.sq, BWD_DQ_ROWS)
+        for i in range(self.dq_ctas):
+            qt = (n_qt - 1 - i // (self.H * self.b) if causal
+                  else i // (self.H * self.b))
+            end = min(self.skv, (qt + 1) * BWD_DQ_ROWS + self.skv - self.sq) \
+                if causal else self.skv
+            yield qt, i % self.H, i // self.H % self.b, \
+                _cdiv(max(end, 0), BWD_DQ_KEYS)
+
+
+def bwd_plan(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
+             sms: int, causal: bool = True) -> BwdPlan:
+    """The bf16 backward's plan on a card of ``sms`` SMs: a dK/dV grid that
+    would leave SMs idle is split over each KV head's (query head, query
+    tile) pairs into ``split`` parts, enough for ``_SPLIT_WAVES`` CTAs an
+    SM, at most ``_MAX_SPLIT`` and no more than the lightest key tile has
+    pairs (so that no part is empty)."""
+    plan = BwdPlan(b, sq, skv, H, KV, dh, 1)
+    base = plan.dkdv_ctas
+    if base == 0 or base >= sms:
+        return plan
+    lightest = H // KV * len(plan.visible_query_tiles(plan.key_tiles - 1,
+                                                      causal))
+    split = min(_cdiv(_SPLIT_WAVES * sms, base), _MAX_SPLIT, lightest)
+    return dataclasses.replace(plan, split=max(split, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """q (b, sq, H, dh); k, v (b, skv, KV, dh) -> (b, sq, H, dh), and with
@@ -186,7 +309,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = True):
     """(dq, dk, dv) of ``flash_attention_bshd`` at (q, k, v) given its
-    output o, its lse and the output's gradient do; q's dtype."""
+    output o, its lse and the output's gradient do; q's dtype.  On the card
+    bfloat16 takes the wgmma kernels with ``bwd_plan``'s split (float32
+    scratch for lse2, D and the dK/dV parts), float32 the SIMT ones."""
     _check(q, k, v, causal)
     b, sq, H, dh = q.shape
     skv, KV = k.shape[1], k.shape[2]
@@ -214,13 +339,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
                              f"aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        plan = bwd_plan(b, sq, skv, H, KV, dh,
+                        _sm_count(q.device.index or 0), causal)
+        work = torch.empty(plan.work_floats, dtype=torch.float32,
+                           device=q.device)
+        split = (plan.split,)
+    else:                                   # D (b, H, sq)
+        work = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+        split = ()
     fn = getattr(build.library("flash_attention_bwd"),
                  f"flash_attention_bwd_{_NAMES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
-                                            dsum)),
-                   b, sq, skv, H, KV, dh, int(bool(causal)), stream),
+                                            work)),
+                   b, sq, skv, H, KV, dh, int(bool(causal)), *split, stream),
                 "flash_attention_bwd")
     build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

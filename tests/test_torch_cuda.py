@@ -1029,6 +1029,13 @@ BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
     (2, 100, 300, 4, 1, 32, False),      # non-causal sq != skv
     (1, 129, 63, 8, 8, 64, False),       # non-causal sq > skv
     (3, 1, 65, 6, 2, 128, True),         # one query row
+    (1, 129, 129, 8, 2, 128, True),      # one row past the tiles
+    (1, 257, 257, 8, 2, 128, True),      # two key tiles and a row
+    (2, 256, 256, 24, 8, 64, True),      # granite-moe's heads
+    (2, 300, 300, 8, 8, 128, True),      # H == KV: no group to split
+    (1, 200, 200, 10, 2, 64, True),      # a group of 5 in 8 parts
+    (4, 512, 512, 32, 2, 64, True),      # 512 dQ CTAs, > 2 x 132
+    (2, 1, 300, 8, 2, 128, True),        # sq = 1 against skv = 300
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_backward_close_to_plain(cuda, b, sq, skv, H, KV, dh,

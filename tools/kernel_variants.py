@@ -3,13 +3,15 @@
     python3 tools/kernel_variants.py tools/kernel_variants.json --out DIR
 
 The JSON file maps a kernel source (``rmsnorm``, ``spike_hist``,
-``ssm_scan``, ``ema_scan``, ``flash_attention``) to named lists of text
-substitutions of
+``ssm_scan``, ``ema_scan``, ``flash_attention``, ``flash_attention_bwd``)
+to named lists of text substitutions of
 ``src/repro_torch/kernels/csrc/<source>.cu``
 (``{"rmsnorm": {"name": [[old, new], ...]}}``), or to
 ``{"subs": [...], "set": {"_NAME": value}}`` to also set constants of the
-kernel's Python module (``repro_torch.kernels.<source>``, e.g. a layout
-threshold) for that variant; the unmodified source runs as ``base``.  A
+kernel's Python module (``repro_torch.kernels.<source>``, and
+``repro_torch.kernels.flash_attention`` for ``flash_attention_bwd``: e.g. a
+layout threshold, or the backward plan's ``_SPLIT_WAVES``) for that
+variant; the unmodified source runs as ``base``.  A
 variant that needs code the shipped source lacks carries it in its
 substitution text.  Each source's variants are built at once with the
 port's nvcc flags (``chip_smoke.build_variants``), swapped in as the
@@ -24,7 +26,12 @@ trace and a builder commit; ema_scan: the blocked float64 EMA's group
 advance, snapshot and builder ingest, ``chip_smoke.ema_forms``, and rows
 of 16 blocks; flash_attention: the float32 kernel at the vlm's
 cross-attention and whisper's encoder and cross-attention shapes, with
-``scaled_dot_product_attention`` timed once beside them).  ``--sources``
+``scaled_dot_product_attention`` timed once beside them;
+flash_attention_bwd: the bf16 backward at phase 19's timed training
+shapes, glm4-9b's (4, 1024) and (1, 4096) and granite-moe's heads at
+(4, 1024), checked against the plain twin within phase 19's tolerance
+and for two launches bitwise equal, with SDPA's forward + backward timed
+once beside them).  ``--sources``
 runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of
 a (4, 4096) tensor (the timing's floor) and a ``copy_`` of (4000, 4096)
 bf16 (the bytes of the prefill norm) are timed once, and the SM clock is
@@ -205,6 +212,66 @@ def flash_attention_cases(dev):
     return cases
 
 
+def bwd_inputs(dev):
+    """(label, q, k, v, o, lse, do, causal) at phase 19's timed bf16
+    training shapes (``chip_smoke.TRAIN_FLASH``)."""
+    from repro_torch.kernels import flash_attention_bshd
+    for b, sq, skv, heads, causal, timed in cs.TRAIN_FLASH:
+        if not timed:
+            continue
+        heads = heads or dict(H=32, KV=2, dh=128)
+        q, k, v = cs.attn_inputs(dev, b, sq, skv, torch.bfloat16,
+                                 31 + sq + skv, **heads)
+        g = torch.Generator(device=dev).manual_seed(7)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
+        yield (f"({b}, {sq}) {heads['H']}/{heads['KV']} dh {heads['dh']}",
+               q, k, v, o, lse, do, causal)
+
+
+def flash_attention_bwd_cases(dev):
+    """(label, run, check) at ``bwd_inputs``; the check is phase 19's: the
+    plain twin within ``BWD_TOL`` and two launches bitwise equal."""
+    from repro_torch.kernels import (flash_attention_bwd,
+                                     flash_attention_bwd_plain)
+    cases = []
+    for label, q, k, v, o, lse, do, causal in bwd_inputs(dev):
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+
+        def run(args=(q, k, v, o, lse, do, causal)):
+            return flash_attention_bwd(*args)
+
+        def ok(run=run, want=want):
+            got, again = run(), run()
+            return all(torch.allclose(a.float(), w.float(),
+                                      **cs.BWD_TOL[torch.bfloat16])
+                       and torch.equal(a, x)
+                       for a, w, x in zip(got, want, again))
+        cases.append((label, run, ok))
+    return cases
+
+
+def sdpa_bwd_times(dev, flush) -> dict:
+    """``scaled_dot_product_attention``'s forward + backward through
+    autograd (KV heads repeated, as phase 19 times it) at ``bwd_inputs``,
+    the yardstick beside the backward's variants."""
+    out = {}
+    for label, q, k, v, _, _, do, causal in bwd_inputs(dev):
+        rep = q.shape[2] // k.shape[2]
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+        def fwd_bwd(leaves=leaves, rep=rep, do=do, causal=causal):
+            qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+            torch.nn.functional.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(rep, 1),
+                vt.repeat_interleave(rep, 1),
+                is_causal=causal).backward(do.transpose(1, 2))
+        for _ in range(3):            # the first calls pick their kernels
+            fwd_bwd()
+        out[label] = cs.cuda_time_ms(fwd_bwd, 10, flush)
+    return out
+
+
 def sdpa_times(dev, flush) -> dict:
     """``scaled_dot_product_attention`` at ``f32_flash_inputs``, the
     yardstick beside the flash variants."""
@@ -272,15 +339,24 @@ def main() -> int:
         print(f"F.rms_norm ({n}, {D}) bf16 {t:.4f} ms", flush=True)
     makers = {"rmsnorm": rmsnorm_cases, "spike_hist": spike_hist_cases,
               "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases,
-              "flash_attention": flash_attention_cases}
+              "flash_attention": flash_attention_cases,
+              "flash_attention_bwd": flash_attention_bwd_cases}
     if "flash_attention" in spec:
         result["sdpa_f32_ms"] = sdpa_times(dev, flush)
         print("scaled_dot_product_attention float32: " + "  ".join(
             f"{k} {t:.4f}" for k, t in result["sdpa_f32_ms"].items()),
             flush=True)
+    if "flash_attention_bwd" in spec:
+        result["sdpa_fwd_bwd_ms"] = sdpa_bwd_times(dev, flush)
+        print("scaled_dot_product_attention bf16 forward + backward: "
+              + "  ".join(f"{k} {t:.4f}"
+                          for k, t in result["sdpa_fwd_bwd_ms"].items()),
+              flush=True)
     for source, variants in spec.items():
         shipped = build.library(source)
-        module = importlib.import_module(f"repro_torch.kernels.{source}")
+        module = importlib.import_module(
+            "repro_torch.kernels."
+            + {"flash_attention_bwd": "flash_attention"}.get(source, source))
         settings, subs = {"base": {}}, {}
         for name, spec_v in variants.items():
             if isinstance(spec_v, dict):      # {"subs": [...], "set": {...}}
