@@ -198,22 +198,28 @@ phase 11):
      first token, decode ms/step and peak memory of each request printed;
  19. training checks — the flash backward library's ptxas registers and
      spills of every kernel and its HGMMA count (a bf16 product kernel
-     without one fails); the backward kernels against their plain twins
-     on unit-scale inputs and gradients: ``flash_attention_bwd`` (and the
-     forward's ``lse`` within the forward's tolerance) at glm4-9b's heads
-     (4, 1024) and (1, 4096) causal, granite-moe's (24 / 8, dh 64) at
+     without one fails), and the rmsnorm library's for every backward
+     instantiation (a spill fails); the backward kernels against their
+     plain twins on unit-scale inputs and gradients: ``flash_attention_bwd``
+     (and the forward's ``lse`` within the forward's tolerance) at glm4-9b's
+     heads (4, 1024) and (1, 4096) causal, granite-moe's (24 / 8, dh 64) at
      (4, 1024), dh 64 and 32, non-causal 300 x 700, each in bfloat16 (the
      wgmma kernels; each shape's plan printed: tiles, split, CTAs) and
-     float32 (the SIMT kernels); ``rmsnorm_bwd`` at (4096, 4096) with
-     every pair of bfloat16 / float32 x and scale; dq, dk, dv, dx, dscale
-     within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two launches
-     bitwise equal; the three bf16 causal training shapes and the bf16
-     norm timed beside their plain twins, their bounds (10 dh flops a
-     visible pair; x and dy read, dx written) and the library calls'
-     forward + backward through autograd (``scaled_dot_product_attention``
-     with the KV heads repeated, ``F.rms_norm``).  Then the reduced glm4-9b in
-     float32, 3 ``Trainer`` steps on the card and on the host from one
-     seeded checkpoint: losses within 1e-5 relative, grad norms and
+     float32 (the SIMT kernels); ``rmsnorm_bwd`` at glm4-9b's (4096,
+     4096), granite-moe's (4096, 1536) and deepseek's latent (4096, 512)
+     with every pair of bfloat16 / float32 x and scale (each shape's plan
+     printed: warps a row, rows a step, stages, CTAs); dq, dk, dv, dx,
+     dscale within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two
+     launches bitwise equal; the three causal training shapes in both
+     dtypes, the three bf16 norms and the float32 (4096, 4096) norm timed
+     beside their plain twins, their bounds (10 dh flops a visible pair
+     at the bf16 tensor or the float32 rate; x and dy read, dx written),
+     the library calls' forward + backward through autograd
+     (``scaled_dot_product_attention`` with the KV heads repeated,
+     ``F.rms_norm``) and, for the norm, a ``torch.add(x, dy, out=dx)``
+     (the same bytes read and written: the byte floor).  Then the reduced
+     glm4-9b in float32, 3 ``Trainer`` steps on the card and on the host
+     from one seeded checkpoint: losses within 1e-5 relative, grad norms and
      parameters after step 3 within 1e-4, and the card's launches per step
      exactly 2L flash, L ``flash_attention_bwd``, 4L + 1 rmsnorm and
      2L + 1 ``rmsnorm_bwd`` (remat, one microbatch).  Last, ``python -m
@@ -3823,7 +3829,12 @@ TRAIN_FLASH = (
     (2, 512, 512, dict(H=8, KV=2, dh=32), True, False),
     (2, 300, 700, None, False, False),          # non-causal, sq != skv
 )
-TRAIN_NORM = (4096, 4096)
+# the norm backward's checked shapes: glm4-9b's rows (both training shapes
+# give 4096 rows), granite-moe's width, deepseek's MLA latent norm; each
+# in every pair of x and scale dtypes, timed in bf16 and, at glm4-9b's,
+# in float32 too
+TRAIN_NORMS = ((4096, 4096), (4096, 1536), (4096, 512))
+TRAIN_NORM_F32_TIMED = (4096, 4096)
 BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
            torch.float32: dict(rtol=1e-4, atol=1e-4)}
 TRAIN_LAYERS = 8               # of glm4-9b's 40: 2.873 B parameters
@@ -3957,11 +3968,16 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
     equal; with ``timed``, its time beside the plain twin, the bound (x and
     dy read, dx written) and ``F.rms_norm``'s forward + backward."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, rmsnorm_bwd, rmsnorm_bwd_plain
+    from repro_torch.kernels import (build, ops, rmsnorm_bwd,
+                                     rmsnorm_bwd_plain)
+    from repro_torch.kernels.rmsnorm import bwd_plan
     g = torch.Generator(device=dev).manual_seed(n + d)
     x, dy = (torch.randn((n, d), generator=g, device=dev).to(xdtype)
              for _ in range(2))
     sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(sdtype)
+    plan = bwd_plan(n, d, x.element_size(), sc.element_size(), True,
+                    build.sm_count(dev.index or 0) if dev.type == "cuda"
+                    else 132)             # an H100's, on the host
     dx, ds = rmsnorm_bwd(x, sc, dy, 1e-5)
     wx, ws = rmsnorm_bwd_plain(x, sc, dy, 1e-5)
     tol_s = BWD_TOL[torch.bfloat16 if torch.bfloat16 in (xdtype, sdtype)
@@ -3972,9 +3988,21 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
     if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
         raise AssertionError("rmsnorm_bwd: two launches differ")
     r = dict(n=n, d=d, dtype=str(xdtype).split(".")[1],
-             scale_dtype=str(sdtype).split(".")[1], err=err)
+             scale_dtype=str(sdtype).split(".")[1], err=err,
+             plan={k: getattr(plan, k) for k in (
+                 "warps", "rows_per_step", "chunks", "stages", "stage_bytes",
+                 "smem_bytes", "ctas_per_sm", "ctas", "per", "cols",
+                 "col_width", "col_chunks", "per_chunk")})
+    log(f"rmsnorm_bwd {r['dtype']} x, {r['scale_dtype']} scale ({n}, {d}) "
+        f"[{card}]: {plan.ctas} CTAs ({plan.ctas_per_sm} an SM) of "
+        f"{plan.per} rows, {plan.rows_per_step} a step ({plan.warps} warps "
+        f"a row), {plan.stages} stages of {plan.stage_bytes} B; dscale "
+        f"{plan.cols} columns a CTA over {plan.col_chunks} runs of "
+        f"{plan.per_chunk} partials; max err {err:.3e}, two launches "
+        f"bitwise equal")
     if timed:
         nbytes = 3 * n * d * x.element_size() + 2 * d * sc.element_size()
+        out = torch.empty_like(x)
         xl = x.detach().clone().requires_grad_()
         sl = sc.detach().clone().requires_grad_()
 
@@ -3990,13 +4018,17 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
                                  flush),
                  fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 20, flush),
                  library_ms=cuda_time_ms(lib_fwd_bwd, 20, flush),
+                 add_ms=cuda_time_ms(lambda: torch.add(x, dy, out=out), 20,
+                                     flush),
                  plain_ms=cuda_time_ms(
                      lambda: rmsnorm_bwd_plain(x, sc, dy, 1e-5), 10, flush))
         log(f"rmsnorm_bwd {r['dtype']} x, {r['scale_dtype']} scale "
-            f"({n}, {d}) [{card}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes); "
-            f"forward + backward through autograd: ours "
-            f"{r['fwd_bwd_ms']:.4f} ms, F.rms_norm {r['library_ms']:.4f} ms")
+            f"({n}, {d}) [{card}]: kernel {r['ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
+            f"torch.add(x, dy, out=dx) {r['add_ms']:.4f} ms; forward + "
+            f"backward through autograd: ours {r['fwd_bwd_ms']:.4f} ms, "
+            f"F.rms_norm {r['library_ms']:.4f} ms")
     return r
 
 
@@ -4108,26 +4140,52 @@ def train_launcher_cap(workdir: str) -> dict:
 
 def train_kernel_checks(dev, flush, card: str) -> dict:
     """Phase 19's kernel part: the flash backward library's ptxas and
-    HGMMA report, every backward shape in both dtypes (the timed ones timed
-    in bfloat16), rmsnorm's backward at (4096, 4096) in every pair of
-    dtypes (bf16 timed)."""
+    HGMMA report and the norm backward's ptxas report, every backward shape
+    in both dtypes (the timed ones timed in both), rmsnorm's backward at
+    ``TRAIN_NORMS`` in every pair of dtypes (bf16 timed, and float32 at
+    ``TRAIN_NORM_F32_TIMED``)."""
     from repro_torch.kernels import build
     report = flash_bwd_report()
+    norm_report = rmsnorm_bwd_report()
     before = dict(build.LAUNCHES)
     flash = [flash_bwd_check(dev, flush, card, b, sq, skv, heads, causal,
-                             dtype, timed=timed and dtype == torch.bfloat16)
+                             dtype, timed=timed)
              for b, sq, skv, heads, causal, timed in TRAIN_FLASH
              for dtype in (torch.bfloat16, torch.float32)]
-    norms = [rmsnorm_bwd_check(dev, flush, card, *TRAIN_NORM, x, s,
-                               timed=x == s == torch.bfloat16)
-             for x in (torch.bfloat16, torch.float32)
-             for s in (torch.bfloat16, torch.float32)]
+    norms = [rmsnorm_bwd_check(
+        dev, flush, card, *shape, x, s,
+        timed=x == s and (x == torch.bfloat16
+                          or shape == TRAIN_NORM_F32_TIMED))
+        for shape in TRAIN_NORMS
+        for x in (torch.bfloat16, torch.float32)
+        for s in (torch.bfloat16, torch.float32)]
     build.LAUNCHES.update(before)          # check/timing launches do not count
     log(f"backward kernels vs plain [{card}]: flash max err "
         f"{max(r['err'] for r in flash):.3e} over {len(flash)} cases, lse "
         f"{max(r['lse_err'] for r in flash):.3e}; rmsnorm "
         f"{max(r['err'] for r in norms):.3e} over {len(norms)}")
-    return dict(flash=flash, rmsnorm=norms, flash_build=report)
+    return dict(flash=flash, rmsnorm=norms, flash_build=report,
+                rmsnorm_bwd_build=norm_report)
+
+
+def rmsnorm_bwd_report() -> dict:
+    """ptxas's registers, stack and spill bytes for every instantiation of
+    the rmsnorm library's backward kernel; fails if one spills."""
+    report = build_report("rmsnorm", ())["ptxas_by_kernel"]
+    kernels = {}
+    for name, r in report.items():
+        m = re.search(r"rmsnorm_bwd_kernel(?:<[^>]*>|\w*)", name)
+        if m is not None:
+            kernels[m.group(0).replace("(int)", "")] = r
+    for name, r in sorted(kernels.items()):
+        log(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
+            f"bytes stack, {r.get('spill_stores')} / {r.get('spill_loads')} "
+            f"bytes spill stores / loads")
+    if not kernels or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                          for r in kernels.values()):
+        raise AssertionError(f"rmsnorm_bwd: an instantiation spills (or "
+                             f"ptxas reported none): {kernels}")
+    return kernels
 
 
 def flash_bwd_report() -> dict:
@@ -4174,7 +4232,7 @@ FLASH_BWD_PARTS = (("dK/dV", "dkdv"), ("dQ", "_dq_"), ("reduction", "reduce"),
                    ("prep", "prep"), ("prep", "dsum"))
 TRAIN_GROUPS = (("flash_attention_bwd", ("fa_bwd",)),
                 ("flash_attention", ("fa_bf16", "fa_f32")),
-                ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_colsum")),
+                ("rmsnorm_bwd", ("rmsnorm_bwd",)),
                 ("rmsnorm", ("rmsnorm",)),
                 ("gemm", ("gemm", "xmma", "cutlass", "gemv", "splitk",
                           "nvjet")))
@@ -4643,8 +4701,13 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         {k: r[k] for k in ("b", "s", "H", "KV", "dh", "dtype", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
                            "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms", "kernel",
-                           "split", "dkdv_ctas", "dq_ctas")}
+                           "split", "dkdv_ctas", "dq_ctas") if k in r}
         for r in tk["flash"] if "ms" in r]
+    kernels[-1]["shapes"] = [
+        {k: r[k] for k in ("n", "d", "dtype", "scale_dtype", "ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "fwd_bwd_ms", "add_ms", "plan")}
+        for r in tk["rmsnorm"] if "ms" in r]
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "

@@ -17,6 +17,7 @@ wrapper adds one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -66,8 +67,8 @@ _SIGNATURES = {
     "rmsnorm": {
         **{f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)
            for x in ("f32", "bf16") for s in ("f32", "bf16")},
-        **{f"rmsnorm_bwd_{x}_{s}": (_P, _P, _P, _P, _P, _P, _I64, _I, _F, _I,
-                                    _I, _P)
+        **{f"rmsnorm_bwd_{x}_{s}": (*(_P,) * 7, _I64, _I, _F, _I, _I, _I64,
+                                    *(_I,) * 6, _P)
            for x in ("f32", "bf16") for s in ("f32", "bf16")},
     },
     "ssm_scan": {
@@ -204,6 +205,12 @@ def on_card(what: str, ts) -> bool:
                            f"kernel's output would cut the graph; call it "
                            f"through repro_torch.kernels.ops")
     return True
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (asked once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(status: int, what: str) -> None:

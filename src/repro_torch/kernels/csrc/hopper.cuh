@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bfloat16 attention kernels
-// (flash_attention.cu's forward, flash_attention_bwd.cu's backward):
-// wgmma products with their shared-memory descriptors, mbarriers, TMA tile
-// and bulk loads, and the host-side tensor maps those loads read.
+// (flash_attention.cu's forward, flash_attention_bwd.cu's backward) and
+// rmsnorm.cu's backward (its mbarriers and bulk loads): wgmma products with
+// their shared-memory descriptors, mbarriers, TMA tile and bulk loads, and
+// the host-side tensor maps those loads read.
 //
 // Tile geometry: a (rows x DH) bfloat16 tile sits in shared memory as TMA
 // writes it and wgmma reads it, DH split into column blocks of kSw bytes

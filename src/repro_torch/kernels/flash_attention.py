@@ -37,7 +37,6 @@ carries no ``grad_fn``, and would cut the graph without an error.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -259,11 +258,6 @@ def bwd_plan(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
     return dataclasses.replace(plan, split=max(split, 1))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """q (b, sq, H, dh); k, v (b, skv, KV, dh) -> (b, sq, H, dh), and with
@@ -341,7 +335,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         plan = bwd_plan(b, sq, skv, H, KV, dh,
-                        _sm_count(q.device.index or 0), causal)
+                        build.sm_count(q.device.index), causal)
         work = torch.empty(plan.work_floats, dtype=torch.float32,
                            device=q.device)
         split = (plan.split,)

@@ -12,12 +12,17 @@ CPU tensor only; for a CUDA tensor it launches the kernel or raises.
 The gradient: ``rmsnorm_bwd(x, scale, dy, eps)`` returns ``(dx, dscale)``
 (dx in x's dtype; dscale summed over the rows in float32, in scale's dtype)
 through the backward entry points of ``csrc/rmsnorm.cu`` (launch counter
-``rmsnorm_bwd``), or ``rmsnorm_bwd_plain`` for CPU tensors.
+``rmsnorm_bwd``, one launch a call), or ``rmsnorm_bwd_plain`` for CPU
+tensors.  ``bwd_plan`` is that launch's plan (warps a row, ring stages,
+CTAs and their runs of rows, shared memory), in Python so that the CPU
+tests reach it.
 ``RMSNormFn`` is the ``torch.autograd.Function`` over the two, which
 ``ops.rmsnorm`` takes when a gradient is wanted; under grad mode
 ``rmsnorm_rows`` refuses a CUDA input that requires grad.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,7 +31,19 @@ from repro_torch.kernels import build
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIZES = {torch.float32: 4, torch.bfloat16: 2}
 _VEC_BYTES = 16
-_BWD_MAX_CHUNKS = 8 * 256          # rmsnorm.cu: kChunks x kThreads
+# rmsnorm.cu's backward constants (kBwdThreads, kBwdMaxChunks, kBwdMinCtas,
+# kBwdMaxStages, kBwdHeader, kBwdColSmem; a test reads them from the source)
+BWD_THREADS = 256
+BWD_MAX_CHUNKS = 8                 # of a row, a thread: its dscale partial
+BWD_MIN_CTAS = 2                   # CTAs an SM the registers are kept for
+BWD_MAX_STAGES = 8
+BWD_HEADER = 256
+BWD_COL_SMEM = 1024
+_BWD_STAGES = 3                    # the ring depth the plan asks first
+_BWD_COL_RUN = 16                  # partials a thread adds one after another
+# an H100 SM's shared memory, the most one CTA may ask for, and what the SM
+# keeps for each resident CTA (bytes)
+_SMEM_SM, _SMEM_CTA, _SMEM_RESERVED = 233_472, 232_448, 1024
 
 
 def _check(x, scale) -> None:
@@ -117,6 +134,116 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     return out
 
 
+def _align(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def bwd_smem(d: int, rows_per_step: int, stages: int, x_size: int,
+             s_size: int) -> int:
+    """Dynamic shared memory of the backward kernel (``bwd_smem`` in
+    ``rmsnorm.cu``): the header, scale, then the largest of the ring
+    (``stages`` x the step's rows of x and of dy), the step's groups'
+    float32 dscale partials and the column sums' chunk sums."""
+    ring = 2 * stages * _align(rows_per_step * d * x_size)
+    return BWD_HEADER + _align(d * s_size) + max(
+        ring, _align(4 * rows_per_step * d), BWD_COL_SMEM)
+
+
+@dataclasses.dataclass(frozen=True)
+class NormBwdPlan:
+    """One launch of the backward kernel: ``ctas`` CTAs of ``per``
+    consecutive rows (the last fewer), ``rows_per_step`` rows a step, one
+    to each group of ``warps`` warps, a thread at most ``chunks`` chunks of
+    ``vec`` elements of its row; a ring of ``stages`` steps of x and dy
+    (``stage_bytes`` a step; 0 stages: rows read from device memory);
+    ``smem_bytes`` of dynamic shared memory, ``ctas_per_sm`` resident an
+    SM.  dscale: each CTA sums ``cols`` of its columns, ``col_width`` at a
+    time, each over ``col_chunks`` runs of consecutive CTAs' partials
+    (``per_chunk`` a run), then the runs' sums in order."""
+    rows: int
+    d: int
+    vec: int
+    warps: int
+    rows_per_step: int
+    chunks: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    ctas_per_sm: int
+    ctas: int
+    per: int
+    cols: int
+    col_width: int
+    col_chunks: int
+
+    @property
+    def per_chunk(self) -> int:
+        """CTAs' partials a thread adds one after another."""
+        return -(-self.ctas // self.col_chunks)
+
+    @property
+    def partial_floats(self) -> int:
+        """float32 scratch: a partial a CTA."""
+        return self.ctas * self.d
+
+
+def bwd_plan(n: int, d: int, x_size: int, s_size: int, vectorized: bool,
+             sms: int) -> NormBwdPlan:
+    """The backward's launch on a card of ``sms`` SMs for ``n`` rows of
+    ``d`` elements of ``x_size`` bytes (scale of ``s_size``).  A row's
+    chunks (16 bytes vectorized, else an element) go to the group of
+    warps that leaves the fewest threads idle, the larger group on a tie;
+    the CTAs an SM and the ring's stages are the most that fit in shared
+    memory, CTAs first; the grid is persistent (and co-resident: the
+    launch is cooperative), each CTA a run of rows.  dscale's columns are
+    split evenly over the CTAs; a column's partials go to runs of at most
+    ``_BWD_COL_RUN`` CTAs, a thread each, as many columns at once as the
+    CTA's threads allow.  Raises for a row wider than ``BWD_MAX_CHUNKS``
+    chunks a thread."""
+    vec = _VEC_BYTES // x_size if vectorized else 1
+    chunks = d // vec
+    best = None
+    for warps in (8, 4, 2, 1):
+        nc = -(-chunks // (32 * warps))
+        idle = nc * 32 * warps - chunks
+        if nc <= BWD_MAX_CHUNKS and (best is None or idle < best[0]):
+            best = (idle, warps, nc)
+    if best is None:
+        raise ValueError(
+            f"rmsnorm_bwd keeps at most {BWD_MAX_CHUNKS} chunks of {vec} "
+            f"element(s) a thread, {BWD_MAX_CHUNKS * BWD_THREADS * vec} "
+            f"elements a row; got d={d}")
+    _, warps, nc = best
+    rows_per_step = BWD_THREADS // 32 // warps
+    # (rows of BWD_MAX_CHUNKS chunks a thread fit two stages at one CTA)
+    cpsm, stages = next(
+        (c, st) for c in range(BWD_MIN_CTAS, 0, -1)
+        for st in (range(_BWD_STAGES, 1, -1) if vectorized else (0,))
+        if bwd_smem(d, rows_per_step, st, x_size, s_size)
+        <= min(_SMEM_CTA, _SMEM_SM // c - _SMEM_RESERVED))
+    smem = bwd_smem(d, rows_per_step, stages, x_size, s_size)
+    per = -(-n // (sms * cpsm))
+    ctas = -(-n // per)
+    cols = -(-d // ctas)
+    col_chunks = min(-(-ctas // _BWD_COL_RUN), BWD_THREADS)
+    col_width = min(cols, BWD_THREADS // col_chunks)
+    return NormBwdPlan(n, d, vec, warps, rows_per_step, nc, stages,
+                       2 * rows_per_step * d * x_size, smem, cpsm, ctas, per,
+                       cols, col_width, col_chunks)
+
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_counters(device, stream: int) -> torch.Tensor:
+    """The grid barrier's two int32 counters, at 0, one pair a device and
+    stream (the kernel sets them back to 0 when it is done)."""
+    key = (device.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5):
     """(dx, dscale) of ``rmsnorm_rows`` at (x, scale) given the output's
@@ -129,25 +256,26 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         return rmsnorm_bwd_plain(x, scale, dy, eps)
     x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
     n, d = x.shape
-    vec = _VEC_BYTES // _SIZES[x.dtype]
-    vectorized = d % vec == 0 and all(
-        t.data_ptr() % _VEC_BYTES == 0 for t in (x, scale, dy))
-    if -(-d // (vec if vectorized else 1)) > _BWD_MAX_CHUNKS:
-        raise ValueError(f"rmsnorm_bwd keeps at most {_BWD_MAX_CHUNKS} "
-                         f"chunks of a row in registers, got d={d}")
     dx = torch.empty_like(x)
-    if vectorized and dx.data_ptr() % _VEC_BYTES:
-        raise ValueError("rmsnorm_bwd: dx is not 16-byte aligned")
+    if n == 0:
+        return dx, torch.zeros_like(scale)
+    vectorized = d % (_VEC_BYTES // _SIZES[x.dtype]) == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in (x, scale, dy, dx))
+    plan = bwd_plan(n, d, _SIZES[x.dtype], _SIZES[scale.dtype], vectorized,
+                    build.sm_count(x.device.index))
     dscale = torch.empty_like(scale)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(n, 2 * sms))
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    partial = torch.empty(plan.partial_floats, dtype=torch.float32,
+                          device=x.device)
+    stream = _raw_stream(x.device)
+    tickets = _ticket_counters(x.device, stream)
     fn = getattr(build.library("rmsnorm"),
                  f"rmsnorm_bwd_{_NAMES[x.dtype]}_{_NAMES[scale.dtype]}")
     build.check(fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                   dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), n, d,
-                   float(eps), int(vectorized), blocks,
-                   _raw_stream(x.device)), "rmsnorm_bwd")
+                   dx.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
+                   dscale.data_ptr(), n, d, float(eps), int(vectorized),
+                   plan.ctas, plan.per, plan.warps, plan.stages, plan.cols,
+                   plan.col_width, plan.col_chunks, plan.smem_bytes, stream),
+                "rmsnorm_bwd")
     build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dscale
 

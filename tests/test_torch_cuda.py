@@ -1065,7 +1065,11 @@ def test_flash_attention_backward_close_to_plain(cuda, b, sq, skv, H, KV, dh,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(4096, 4096), (7, 100), (300, 384),
-                                 (1, 4096), (33, 5120), (5, 8192)])
+                                 (1, 4096), (33, 5120), (5, 8192),
+                                 (4096, 512), (4096, 1536),
+                                 # rows that do not divide among the CTAs
+                                 # (the last CTA's run and step are short)
+                                 (4001, 4096), (4001, 1536), (1003, 512)])
 @pytest.mark.parametrize("dtype,sdtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])

@@ -1,4 +1,4 @@
-"""The port's kernel build and the bf16 flash backward's launch plan, on the
+"""The port's kernel build and the backward kernels' launch plans, on the
 CPU (no nvcc, no card):
 
 * ``build._lib_path`` names a library by the hash of its source, of every
@@ -7,7 +7,12 @@ CPU (no nvcc, no card):
 * ``bwd_plan`` (``kernels/flash_attention.py``): CTA counts, the split, the
   scratch, and the dK/dV and dQ grids' heaviest-first orders covering every
   visible (key tile, head, query tile) and every (query tile, head, batch)
-  exactly once; its tile sizes are the CUDA source's.
+  exactly once; its tile sizes are the CUDA source's;
+* ``bwd_plan`` of ``kernels/rmsnorm.py``: every row in exactly one CTA's run
+  and one step's group, a thread's chunks within the kernel's limit (a
+  wider row raises), the ring in the shared memory the kernel asks for,
+  several rows a step for narrow rows, dscale's columns and partials each
+  summed once in runs of at most 16; its constants are the CUDA source's.
 """
 import importlib
 import os
@@ -18,8 +23,9 @@ import pytest
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import BwdPlan, bwd_plan
 
-# the module (the package exports a function of the same name)
+# the modules (the package exports functions of the same names)
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+rn = importlib.import_module("repro_torch.kernels.rmsnorm")
 
 
 def _write(d, name, text):
@@ -182,3 +188,138 @@ def test_bwd_plan_is_a_value():
     assert p == BwdPlan(4, 1024, 1024, 32, 2, 128, 5)
     with pytest.raises(Exception):
         p.split = 2
+
+
+# --- the norm backward's launch plan (kernels/rmsnorm.py, bwd_plan) ---------
+# (d, x bytes, scale bytes, vectorized): glm4-9b's rows in both dtypes,
+# granite-moe's, deepseek's latent norm and width, the widest rows each path
+# takes, and rows read from device memory (d = 100, and any unaligned row)
+NORM_CASES = [(4096, 2, 2, True), (4096, 4, 4, True), (1536, 2, 2, True),
+              (512, 2, 2, True), (512, 4, 2, True), (5120, 2, 2, True),
+              (16384, 2, 2, True), (8192, 4, 4, True), (100, 2, 2, False),
+              (2048, 2, 4, False)]
+NORM_ROWS = [1, 2, 7, 131, 264, 265, 1003, 4001, 4096, 70_000]
+
+
+def test_norm_bwd_constants_are_the_cuda_source():
+    with open(os.path.join(build.CSRC, "rmsnorm.cu")) as f:
+        src = f.read()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (kBwd\w+) = (\d+);", src)}
+    assert consts == {"kBwdThreads": rn.BWD_THREADS,
+                      "kBwdMaxChunks": rn.BWD_MAX_CHUNKS,
+                      "kBwdMinCtas": rn.BWD_MIN_CTAS,
+                      "kBwdMaxStages": rn.BWD_MAX_STAGES,
+                      "kBwdHeader": rn.BWD_HEADER,
+                      "kBwdColSmem": rn.BWD_COL_SMEM}
+    # the header holds the ring's mbarriers and two float2s a warp
+    # (rmsnorm_bwd_kernel: at 0 and 64); the body the column sums' chunk
+    # sums, a float a thread
+    assert 8 * rn.BWD_MAX_STAGES <= 64
+    assert 64 + 2 * 8 * (rn.BWD_THREADS // 32) <= rn.BWD_HEADER
+    assert rn.BWD_COL_SMEM >= 4 * rn.BWD_THREADS
+
+
+@pytest.mark.parametrize("n", NORM_ROWS)
+@pytest.mark.parametrize("d,xs,ss,vec", NORM_CASES)
+def test_norm_bwd_plan_covers_every_row_once(n, d, xs, ss, vec):
+    for sms in (132, 7):
+        p = rn.bwd_plan(n, d, xs, ss, vec, sms)
+        runs = [(i * p.per, min(n, (i + 1) * p.per)) for i in range(p.ctas)]
+        assert len(runs) == p.ctas <= sms * p.ctas_per_sm
+        assert p.per == -(-n // (sms * p.ctas_per_sm))
+        assert runs[0][0] == 0 and runs[-1][1] == n
+        assert all(a < b for a, b in runs)               # none is empty
+        assert all(b == a2 for (_, b), (a2, _) in zip(runs, runs[1:]))
+        # the kernel's steps: group g of step t takes row r0 + t R + g
+        seen = [r0 + t * p.rows_per_step + g for r0, r1 in runs
+                for t in range(-(-(r1 - r0) // p.rows_per_step))
+                for g in range(p.rows_per_step)
+                if r0 + t * p.rows_per_step + g < r1]
+        assert seen == list(range(n))
+        # dscale: CTA i sums columns [i cols, + cols), col_width at a
+        # time, each over col_chunks runs of per_chunk CTAs' partials (a
+        # thread a run), then the runs in order; every column once, every
+        # partial once a column, no thread adding more than 16 one after
+        # another, nor the runs' sums more than 17
+        cols = [c for i in range(p.ctas)
+                for c0 in range(i * p.cols, min(d, (i + 1) * p.cols),
+                                p.col_width)
+                for c in range(c0, min(c0 + p.col_width, d,
+                                       (i + 1) * p.cols))]
+        assert cols == list(range(d))
+        assert p.col_width * p.col_chunks <= rn.BWD_THREADS
+        assert p.per_chunk <= 16 and p.col_chunks <= 17
+        runs = [list(range(q * p.per_chunk,
+                           min(p.ctas, (q + 1) * p.per_chunk)))
+                for q in range(p.col_chunks)]
+        assert sum(runs, []) == list(range(p.ctas))
+        assert p.partial_floats == p.ctas * d
+
+
+@pytest.mark.parametrize("d,xs,ss,vec", NORM_CASES)
+def test_norm_bwd_plan_chunks_and_shared_memory(d, xs, ss, vec):
+    p = rn.bwd_plan(4096, d, xs, ss, vec, 132)
+    chunks = d // p.vec
+    assert p.vec == (16 // xs if vec else 1)
+    assert p.rows_per_step * p.warps == rn.BWD_THREADS // 32
+    assert p.chunks == -(-chunks // (32 * p.warps)) <= rn.BWD_MAX_CHUNKS
+    # no group of warps leaves fewer threads idle; a tie goes to the wider
+    idle = p.chunks * 32 * p.warps - chunks
+    for w in (1, 2, 4, 8):
+        nc = -(-chunks // (32 * w))
+        if nc <= rn.BWD_MAX_CHUNKS:
+            assert nc * 32 * w - chunks > idle or (
+                nc * 32 * w - chunks == idle and w <= p.warps)
+    # the shared memory the kernel asks for holds the header, scale and
+    # the ring (or, at the end, the step's groups' float32 partials), and
+    # ctas_per_sm of them fit an SM
+    assert p.smem_bytes == rn.bwd_smem(d, p.rows_per_step, p.stages, xs, ss)
+    body = p.smem_bytes - rn.BWD_HEADER - -(-d * ss // 128) * 128
+    assert body >= 4 * p.rows_per_step * d
+    assert p.smem_bytes <= min(rn._SMEM_CTA, rn._SMEM_SM // p.ctas_per_sm
+                               - rn._SMEM_RESERVED)
+    assert p.stage_bytes == 2 * p.rows_per_step * d * xs
+    if vec:
+        assert 2 <= p.stages <= rn.BWD_MAX_STAGES
+        assert body >= p.stages * p.stage_bytes
+    else:
+        assert p.stages == 0
+    # the tx count of a stage's mbarrier phase stays under 2^20 bytes
+    assert p.stage_bytes < 1 << 20
+
+
+@pytest.mark.parametrize("d,rows", [(512, 4), (1536, 4)])
+def test_norm_bwd_plan_gives_narrow_rows_several_a_step(d, rows):
+    """deepseek's MLA latent norm and granite-moe's width: several rows a
+    CTA step and no idle thread."""
+    p = rn.bwd_plan(4096, d, 2, 2, True, 132)
+    assert p.rows_per_step == rows > 1
+    assert (d // 8) % (32 * p.warps) == 0
+
+
+def test_norm_bwd_plan_at_the_training_shapes():
+    glm = rn.bwd_plan(4096, 4096, 2, 2, True, 132)
+    assert (glm.warps, glm.rows_per_step, glm.chunks, glm.stages,
+            glm.ctas_per_sm, glm.ctas, glm.per, glm.cols, glm.col_width,
+            glm.col_chunks, glm.per_chunk) == (
+        8, 1, 2, 3, 2, 256, 16, 16, 16, 16, 16)
+    f32 = rn.bwd_plan(4096, 4096, 4, 4, True, 132)
+    assert (f32.chunks, f32.stages, f32.ctas_per_sm) == (4, 3, 2)
+    wide = rn.bwd_plan(4096, 16384, 2, 2, True, 132)
+    assert (wide.chunks, wide.ctas_per_sm, wide.ctas) == (8, 1, 128)
+
+
+@pytest.mark.parametrize("d,xs,vec", [(16392, 2, True), (8200, 4, True),
+                                      (2049, 2, False), (2049, 4, False)])
+def test_norm_bwd_plan_refuses_rows_past_its_chunks(d, xs, vec):
+    with pytest.raises(ValueError, match=r"at most 8 chunks .* elements a "
+                                         r"row; got d="):
+        rn.bwd_plan(16, d, xs, xs, vec, 132)
+
+
+def test_norm_bwd_plan_is_a_value():
+    p = rn.bwd_plan(4096, 4096, 2, 2, True, 132)
+    assert p == rn.bwd_plan(4096, 4096, 2, 2, True, 132)
+    with pytest.raises(Exception):
+        p.ctas = 2

@@ -3,14 +3,17 @@
     python3 tools/kernel_variants.py tools/kernel_variants.json --out DIR
 
 The JSON file maps a kernel source (``rmsnorm``, ``spike_hist``,
-``ssm_scan``, ``ema_scan``, ``flash_attention``, ``flash_attention_bwd``)
-to named lists of text substitutions of
-``src/repro_torch/kernels/csrc/<source>.cu``
+``ssm_scan``, ``ema_scan``, ``flash_attention``, ``flash_attention_bwd``,
+``rmsnorm_bwd``) to named lists of text substitutions of
+``src/repro_torch/kernels/csrc/<source>.cu`` (``rmsnorm.cu`` for
+``rmsnorm_bwd``)
 (``{"rmsnorm": {"name": [[old, new], ...]}}``), or to
 ``{"subs": [...], "set": {"_NAME": value}}`` to also set constants of the
 kernel's Python module (``repro_torch.kernels.<source>``, and
-``repro_torch.kernels.flash_attention`` for ``flash_attention_bwd``: e.g. a
-layout threshold, or the backward plan's ``_SPLIT_WAVES``) for that
+``repro_torch.kernels.flash_attention`` for ``flash_attention_bwd`` and
+``repro_torch.kernels.rmsnorm`` for ``rmsnorm_bwd``: e.g. a layout
+threshold, the flash backward plan's ``_SPLIT_WAVES`` or the norm
+backward plan's ``_BWD_STAGES``) for that
 variant; the unmodified source runs as ``base``.  A
 variant that needs code the shipped source lacks carries it in its
 substitution text.  Each source's variants are built at once with the
@@ -31,7 +34,12 @@ flash_attention_bwd: the bf16 backward at phase 19's timed training
 shapes, glm4-9b's (4, 1024) and (1, 4096) and granite-moe's heads at
 (4, 1024), checked against the plain twin within phase 19's tolerance
 and for two launches bitwise equal, with SDPA's forward + backward timed
-once beside them).  ``--sources``
+once beside them; rmsnorm_bwd: phase 19's four timed norm shapes,
+glm4-9b's (4096, 4096), granite-moe's (4096, 1536) and deepseek's latent
+(4096, 512) in bf16 and (4096, 4096) in float32, checked against the
+plain twin within ``BWD_TOL`` and for two launches bitwise equal, with
+``torch.add(x, dy, out=dx)`` of each shape, the same bytes, timed once
+beside them as the byte floor).  ``--sources``
 runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of
 a (4, 4096) tensor (the timing's floor) and a ``copy_`` of (4000, 4096)
 bf16 (the bytes of the prefill norm) are timed once, and the SM clock is
@@ -64,6 +72,9 @@ from repro_torch.kernels import (rmsnorm_plain, rmsnorm_rows,  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_bsd  # noqa: E402
 
 D = 4096
+# the library and the Python module of a source key, where not its own name
+LIBRARY = {"rmsnorm_bwd": "rmsnorm"}
+MODULE = {"flash_attention_bwd": "flash_attention"}
 RMSNORM_ROWS = (4000, 2048, 256, 4, 1)   # glm4-9b's prefill and decode rows
 
 
@@ -251,6 +262,53 @@ def flash_attention_bwd_cases(dev):
     return cases
 
 
+def norm_bwd_inputs(dev):
+    """(label, x, scale, dy) at phase 19's timed norm shapes
+    (``chip_smoke.TRAIN_NORMS`` in bf16, ``TRAIN_NORM_F32_TIMED`` in
+    float32), drawn as phase 19 draws them."""
+    shapes = [(shape, torch.bfloat16) for shape in cs.TRAIN_NORMS]
+    shapes.append((cs.TRAIN_NORM_F32_TIMED, torch.float32))
+    for (n, d), dtype in shapes:
+        g = torch.Generator(device=dev).manual_seed(n + d)
+        x, dy = (torch.randn((n, d), generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        sc = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+        yield f"({n}, {d}) {str(dtype)[6:]}", x, sc, dy
+
+
+def rmsnorm_bwd_cases(dev):
+    """(label, run, check) at ``norm_bwd_inputs``; the check is phase
+    19's: the plain twin within ``BWD_TOL`` and two launches bitwise
+    equal."""
+    from repro_torch.kernels import rmsnorm_bwd, rmsnorm_bwd_plain
+    cases = []
+    for label, x, sc, dy in norm_bwd_inputs(dev):
+        want = rmsnorm_bwd_plain(x, sc, dy, 1e-5)
+
+        def run(x=x, sc=sc, dy=dy):
+            return rmsnorm_bwd(x, sc, dy, 1e-5)
+
+        def ok(run=run, want=want, tol=cs.BWD_TOL[x.dtype]):
+            got, again = run(), run()
+            return all(torch.allclose(a.float(), w.float(), **tol)
+                       and torch.equal(a, b)
+                       for a, w, b in zip(got, want, again))
+        cases.append((label, run, ok))
+    return cases
+
+
+def add_floor_times(dev, flush) -> dict:
+    """``torch.add(x, dy, out=dx)`` at ``norm_bwd_inputs``: the norm
+    backward's bytes (x and dy read, dx written) in one elementwise pass,
+    its floor on this card."""
+    out = {}
+    for label, x, _, dy in norm_bwd_inputs(dev):
+        dx = torch.empty_like(x)
+        out[label] = cs.cuda_time_ms(lambda: torch.add(x, dy, out=dx), 30,
+                                     flush)
+    return out
+
+
 def sdpa_bwd_times(dev, flush) -> dict:
     """``scaled_dot_product_attention``'s forward + backward through
     autograd (KV heads repeated, as phase 19 times it) at ``bwd_inputs``,
@@ -340,7 +398,8 @@ def main() -> int:
     makers = {"rmsnorm": rmsnorm_cases, "spike_hist": spike_hist_cases,
               "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases,
               "flash_attention": flash_attention_cases,
-              "flash_attention_bwd": flash_attention_bwd_cases}
+              "flash_attention_bwd": flash_attention_bwd_cases,
+              "rmsnorm_bwd": rmsnorm_bwd_cases}
     if "flash_attention" in spec:
         result["sdpa_f32_ms"] = sdpa_times(dev, flush)
         print("scaled_dot_product_attention float32: " + "  ".join(
@@ -352,11 +411,17 @@ def main() -> int:
               + "  ".join(f"{k} {t:.4f}"
                           for k, t in result["sdpa_fwd_bwd_ms"].items()),
               flush=True)
+    if "rmsnorm_bwd" in spec:
+        result["add_floor_ms"] = add_floor_times(dev, flush)
+        print("torch.add(x, dy, out=dx) (the norm backward's bytes): "
+              + "  ".join(f"{k} {t:.4f}"
+                          for k, t in result["add_floor_ms"].items()),
+              flush=True)
     for source, variants in spec.items():
-        shipped = build.library(source)
+        lib_name = LIBRARY.get(source, source)
+        shipped = build.library(lib_name)
         module = importlib.import_module(
-            "repro_torch.kernels."
-            + {"flash_attention_bwd": "flash_attention"}.get(source, source))
+            "repro_torch.kernels." + MODULE.get(source, lib_name))
         settings, subs = {"base": {}}, {}
         for name, spec_v in variants.items():
             if isinstance(spec_v, dict):      # {"subs": [...], "set": {...}}
@@ -364,8 +429,8 @@ def main() -> int:
                 settings[name] = spec_v.get("set", {})
             else:
                 subs[name], settings[name] = spec_v, {}
-        built = cs.build_variants(source, {k: v for k, v in subs.items()
-                                           if v})
+        built = cs.build_variants(lib_name, {k: v for k, v in subs.items()
+                                             if v})
         libs = {"base": shipped, **{name: built.get(name, shipped)
                                     for name in subs}}
         cases = makers[source](dev)
@@ -373,7 +438,7 @@ def main() -> int:
         correct = {}
         for rep in range(2):
             for name, lib in libs.items():
-                build._libs[source] = lib
+                build._libs[lib_name] = lib
                 kept = {k: getattr(module, k) for k in settings[name]}
                 for k, v in settings[name].items():
                     setattr(module, k, v)
@@ -382,7 +447,7 @@ def main() -> int:
                     row = [cs.cuda_time_ms(run, 30, flush)
                            for _, run, _ in cases]
                 finally:
-                    build._libs[source] = shipped
+                    build._libs[lib_name] = shipped
                     for k, v in kept.items():
                         setattr(module, k, v)
                 times[name].append(row)
