@@ -203,29 +203,38 @@ phase 11):
      plain twins on unit-scale inputs and gradients: ``flash_attention_bwd``
      (and the forward's ``lse`` within the forward's tolerance) at glm4-9b's
      heads (4, 1024) and (1, 4096) causal, granite-moe's (24 / 8, dh 64) at
-     (4, 1024), dh 64 and 32, non-causal 300 x 700, each in bfloat16 (the
-     wgmma kernels; each shape's plan printed: tiles, split, CTAs) and
-     float32 (the SIMT kernels); ``rmsnorm_bwd`` at glm4-9b's (4096,
+     (4, 1024), the vlm's cross-attention (4, 1024 x 1600, 32 / 8, dh 128)
+     and whisper's encoder (4, 1024, 16 / 16, dh 64), non-causal, dh 64
+     and 32, non-causal 300 x 700 and a ragged causal 333, each in
+     bfloat16 (the wgmma kernels) and float32 (the SIMT kernels; ptxas
+     must report no spill in any float32 instantiation), each shape's plan
+     printed (tiles, split, CTAs); ``rmsnorm_bwd`` at glm4-9b's (4096,
      4096), granite-moe's (4096, 1536) and deepseek's latent (4096, 512)
      with every pair of bfloat16 / float32 x and scale (each shape's plan
      printed: warps a row, rows a step, stages, CTAs); dq, dk, dv, dx,
      dscale within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two
-     launches bitwise equal; the three causal training shapes in both
-     dtypes, the three bf16 norms and the float32 (4096, 4096) norm timed
+     launches bitwise equal; the five training shapes in both dtypes,
+     the three bf16 norms and the float32 (4096, 4096) norm timed
      beside their plain twins, their bounds (10 dh flops a visible pair
      at the bf16 tensor or the float32 rate; x and dy read, dx written),
      the library calls' forward + backward through autograd
      (``scaled_dot_product_attention`` with the KV heads repeated,
      ``F.rms_norm``) and, for the norm, a ``torch.add(x, dy, out=dx)``
      (the same bytes read and written: the byte floor).  Then the reduced
-     glm4-9b in float32, 3 ``Trainer`` steps on the card and on the host
-     from one seeded checkpoint: losses within 1e-5 relative, grad norms and
-     parameters after step 3 within 1e-4, and the card's launches per step
-     exactly 2L flash, L ``flash_attention_bwd``, 4L + 1 rmsnorm and
-     2L + 1 ``rmsnorm_bwd`` (remat, one microbatch).  Last, ``python -m
+     glm4-9b, llama-3.2-vision-11b (gates drawn as in phase 17) and
+     whisper-medium in float32, 3 ``Trainer`` steps each on the card and
+     on the host from one seeded checkpoint: losses within 1e-5 relative,
+     grad norms and parameters after step 3 within 1e-4 (whisper's key
+     biases, whose gradient is zero up to rounding, within AdamW's reach
+     of 2 lr a step), and the card's launches per step exactly as
+     ``train_launches_of`` dictates (remat, one microbatch: 2L flash, L
+     ``flash_attention_bwd``, 4L + 1 rmsnorm and 2L + 1 ``rmsnorm_bwd``
+     for L dense layers; the vlm's cross sublayers add an attention and a
+     norm each; whisper's E + 2D attentions, no rmsnorm).  Last, ``python -m
      repro_torch.launch.train --arch glm4-9b --smoke --steps 6
      --minos-cap powercentric`` on the card must print the reference's cap
-     (``MINOS_CAP``);
+     (``MINOS_CAP``), and ``--arch llama-3.2-vision-11b --smoke`` and
+     ``--arch whisper-medium --smoke`` must each train 2 steps there;
  20. training glm4-9b at full width on 8 of its 40 layers (2.873 B
      parameters, bfloat16, float32 AdamW moments, seeded init,
      ``SyntheticTokens``): 6 ``Trainer`` steps at 4 x 1024 with
@@ -233,7 +242,14 @@ phase 11):
      3 (steps 4-6 within rtol 1e-5 of the uninterrupted run; whether bit
      for bit is printed), then 6 steps at 1 x 4096; finite losses, the
      launches of every run exactly as phase 19's rule dictates, step ms
-     (median of steps 2-6), tokens/s and peak GiB printed.
+     (median of steps 2-6), tokens/s and peak GiB printed; then, the same
+     way at 4 x 1024 without checkpoints, whisper-medium whole (0.81 B, 24
+     + 24 layers, float32 frames: 144 flash, 72 ``flash_attention_bwd``
+     launches a step, no rmsnorm) and llama-3.2-vision-11b on 10 of its 40
+     layers (3.316 B, 2 gated cross sublayers over 1,600 float32 image
+     embeddings).  With ``--trace``, a glm4-9b and a whisper step are
+     traced (whisper's device time split among the float32 backward and
+     forward, the bf16 flash kernels, GEMMs and elementwise work).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -553,9 +569,16 @@ def build_variants(source: str, variants: dict) -> dict:
         spills = max([int(m.group(1)) for m in re.finditer(
             r"(\d+) bytes spill stores", text)], default=0)
         serial = text.count("C7512")       # wgmma serialised by ptxas
+        # the float32 flash backward's own entries (ptxas prints an entry's
+        # spill line after its "Compiling entry" line)
+        f32 = [int(m.group(1)) for m in re.finditer(
+            r"Compiling entry[^\n]*_f32_kernel[^\n]*\n(?:[^\n]*Function "
+            r"properties[^\n]*\n)?[^\n]*?(\d+) bytes spill stores", text)]
         log(f"{source} variant {name}: built, {', '.join(regs)}, at most "
             f"{spills} bytes of spill stores, {serial} kernels with wgmma "
-            f"serialised (C7512)")
+            f"serialised (C7512)"
+            + (f"; float32 kernels at most {max(f32)} bytes of spill stores"
+               if f32 else ""))
         lib = ctypes.CDLL(so)
         for fn, argtypes in build._SIGNATURES[source].items():
             getattr(lib, fn).argtypes = list(argtypes)
@@ -3821,13 +3844,21 @@ def discovery_phase(dev, card: str, lib, want_scale: dict, workdir: str,
 # ---------------------------------------------------------------------------
 # the backward kernels' checks: (b, sq, skv, heads, causal, timed); glm4-9b's
 # heads unless given, each in bfloat16 and float32, the timed ones timed in
-# bfloat16: glm4-9b's two training shapes and granite-moe's heads at 4 x 1024
+# both: glm4-9b's two training shapes, granite-moe's heads at 4 x 1024, the
+# vlm's cross-attention (4 x 1024 queries against 1,600 image embeddings)
+# and whisper's encoder and cross-attention (4 x 1024 frames and tokens;
+# SyntheticTokens' frames are as long as its tokens), the last two the
+# float32 backward's main paths
 TRAIN_FLASH = (
     (4, 1024, 1024, None, True, True), (1, 4096, 4096, None, True, True),
     (4, 1024, 1024, GRANITE_HEADS, True, True),
+    (4, 1024, 1600, VLM_HEADS, False, True),
+    (4, 1024, 1024, WHISPER_HEADS, False, True),
     (2, 512, 512, dict(H=16, KV=4, dh=64), True, False),
     (2, 512, 512, dict(H=8, KV=2, dh=32), True, False),
     (2, 300, 700, None, False, False),          # non-causal, sq != skv
+    (2, 300, 700, WHISPER_HEADS, False, False),
+    (1, 333, 333, dict(H=16, KV=4, dh=64), True, False),   # ragged causal
 )
 # the norm backward's checked shapes: glm4-9b's rows (both training shapes
 # give 4096 rows), granite-moe's width, deepseek's MLA latent norm; each
@@ -3843,6 +3874,12 @@ RESUME_LAYERS = 2              # of 40 for the resume: 1.649 B, 16.5 GB a
 TRAIN_SHAPES = ((4, 1024), (1, 4096))      # (batch, tokens); 1 x 4096 is
 TRAIN_STEPS = 6                            # the train_4k sequence length
 TRAIN_RESUME_AT = 3
+# phase 20's vlm and whisper cells: llama-3.2-vision-11b at full width on 10
+# of its 40 layers (2 periods of 5, so 2 gated cross sublayers; 3.316 B
+# parameters, 39.8 GB of train state) and whisper-medium whole (24 + 24
+# layers, 0.81 B), each 6 steps at 4 x 1024 without checkpoints
+VLM_TRAIN_LAYERS = 10
+CROSS_TRAIN_SHAPE = (4, 1024)
 # the reference's launcher prints this cap for --arch glm4-9b --smoke
 # --steps 6 --minos-cap powercentric:  PYTHONPATH=src JAX_PLATFORMS=cpu
 # python -m repro.launch.train --arch glm4-9b --smoke --steps 6
@@ -3850,19 +3887,46 @@ TRAIN_RESUME_AT = 3
 MINOS_CAP = 0.95
 
 
-def train_launches(num_layers: int) -> dict:
-    """Launches of one train step of a dense LM with remat and one
-    microbatch: each layer's forward runs twice (the step, the
-    recomputation), two norms a layer plus the final one."""
-    L = num_layers
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
-            "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+def sublayer_launches(attn: int, norms: int, rms: bool) -> dict:
+    """Launches of one train step with remat and one microbatch over
+    ``attn`` attention sublayers (self or cross) and ``norms`` sublayer
+    norms: each layer's forward runs twice (the step, the recomputation),
+    so 2 flash forwards and one backward an attention sublayer; with
+    RMSNorm 2 forwards and one backward a sublayer norm, plus the final
+    norm's one of each (outside the recomputed layers)."""
+    n = (2 * norms + 1, norms + 1) if rms else (0, 0)
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "rmsnorm": n[0], "rmsnorm_bwd": n[1],
             "ssm_scan": 0, "spike_hist": 0, "ema_scan": 0}
 
 
+def train_launches(num_layers: int) -> dict:
+    """A dense LM: one attention sublayer and two norms a layer (2L flash,
+    L backward, 4L + 1 rmsnorm, 2L + 1 rmsnorm_bwd)."""
+    return sublayer_launches(num_layers, 2 * num_layers, True)
+
+
+def train_launches_of(cfg) -> dict:
+    """The rule for ``cfg``'s family: the dense rule; the vlm's adds a
+    gated cross sublayer (attention and its norm) at the end of each period
+    of ``cross_attn_period`` layers (2L + 2P flash, L + P backward, 2(2L +
+    P) + 1 rmsnorm, 2L + P + 1 rmsnorm_bwd for P periods); whisper's
+    encoder layers have one attention, its decoder layers two (E + 2D
+    backward, 2(E + 2D) flash) and LayerNorm throughout, so no rmsnorm."""
+    L = cfg.num_layers
+    if cfg.family == "vlm":
+        p = L // cfg.cross_attn_period
+        return sublayer_launches(L + p, 2 * L + p, True)
+    if cfg.is_encoder_decoder:
+        return sublayer_launches(cfg.num_encoder_layers + 2 * L, 0, False)
+    return train_launches(L)
+
+
 def check_train_launches(what: str, got: dict, num_layers: int,
-                         steps: int) -> None:
-    want = {k: v * steps for k, v in train_launches(num_layers).items()}
+                         steps: int, cfg=None) -> None:
+    rule = train_launches(num_layers) if cfg is None \
+        else train_launches_of(cfg)
+    want = {k: v * steps for k, v in rule.items()}
     if got != want:
         raise AssertionError(f"{what}: {steps} train steps launched {got}; "
                              f"{num_layers} layers with remat dictate {want}")
@@ -3897,21 +3961,23 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
         raise AssertionError("flash_attention_bwd: two launches differ")
     r = dict(b=b, s=sq, skv=skv, **heads, causal=causal,
              dtype=str(dtype).split(".")[1], err=err, lse_err=err_lse)
-    if dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count \
-            if dev.type == "cuda" else 132      # an H100's, on the host
-        plan = bwd_plan(b, sq, skv, heads["H"], heads["KV"], heads["dh"],
-                        sms, causal)
-        r.update(kernel="wgmma", split=plan.split,
-                 dkdv_ctas=plan.dkdv_ctas, dq_ctas=plan.dq_ctas,
-                 scratch_mib=plan.scratch_bytes / 2**20)
-        what = (f"wgmma kernels: dK/dV {plan.dkdv_ctas} CTAs of 128 keys in "
-                f"64-row steps, split {plan.split}; dQ {plan.dq_ctas} CTAs "
-                f"of 128 rows in 64-key steps; scratch "
-                f"{r['scratch_mib']:.2f} MiB")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132          # an H100's, on the host
+    bf16 = dtype == torch.bfloat16
+    plan = bwd_plan(b, sq, skv, heads["H"], heads["KV"], heads["dh"], sms,
+                    causal, simt=not bf16)
+    r.update(kernel="wgmma" if bf16 else "simt", split=plan.split,
+             dkdv_ctas=plan.dkdv_ctas, scratch_mib=plan.scratch_bytes / 2**20)
+    if bf16:
+        r["dq_ctas"] = plan.dq_ctas
+        dq = f"dQ {plan.dq_ctas} CTAs of 128 rows in 64-key steps"
     else:
-        r.update(kernel="simt")
-        what = "SIMT kernels (64 x 64 tiles)"
+        # float32: 32-row steps at dh 128, else 64; dQ as key tiles'
+        # partials summed by a reduction
+        step = 64 if heads["dh"] <= 64 else 32
+        dq = f"{step}-row steps; dQ from {plan.key_tiles} key tiles' partials"
+    what = (f"{r['kernel']} kernels: dK/dV {plan.dkdv_ctas} CTAs of 128 keys, "
+            f"split {plan.split}; {dq}; scratch {r['scratch_mib']:.2f} MiB")
     log(f"flash_attention_bwd {r['dtype']} b={b} s={sq} skv={skv} "
         f"H={heads['H']} KV={heads['KV']} dh={heads['dh']} causal={causal} "
         f"[{card}]: {what}; max err {err:.3e}, lse {err_lse:.3e}, two "
@@ -4034,7 +4100,9 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
 
 def seed_checkpoint(cfg, dtype, directory: str, seed: int = 0) -> None:
     """A train state of ``cfg`` at step 0, drawn on the host from ``seed``
-    (the port's init, zero moments), as a checkpoint in ``directory``."""
+    (the port's init, zero moments; a vlm's gates drawn away from 0 by
+    ``seed_gates``, as phase 17 draws them), as a checkpoint in
+    ``directory``."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs.base import RunConfig
     from repro_torch.models.model_zoo import build_model
@@ -4042,6 +4110,8 @@ def seed_checkpoint(cfg, dtype, directory: str, seed: int = 0) -> None:
     model = build_model(cfg, kind="train", device="cpu", dtype=dtype)
     state = init_state(model, RunConfig(),
                        torch.Generator().manual_seed(seed))
+    if cfg.family == "vlm":
+        seed_gates(model)
     ckpt.save(state_tree(state), directory, 0)
 
 
@@ -4064,50 +4134,75 @@ def train_run(cfg, shape, run_cfg, dev, dtype=None, steps=None):
     return trainer, res, metrics, launches, peak
 
 
-def train_card_vs_host(dev, workdir: str) -> dict:
-    """The reduced glm4-9b in float32, 3 ``Trainer`` steps on the card and
-    on the host from one seeded checkpoint: losses within 1e-5 relative,
-    grad norms and the parameters after the last step within 1e-4; the
-    launches of the card's steps exactly as the model dictates."""
+def train_card_vs_host_arch(dev, arch: str, workdir: str) -> dict:
+    """One reduced model (2 layers; whisper 2 + 2) in float32, 3
+    ``Trainer`` steps on the card and on the host from one seeded
+    checkpoint: losses within 1e-5 relative, grad norms and the parameters
+    after the last step within 1e-4; the launches of the card's steps
+    exactly as the model dictates.  A key bias (whisper's ``bk``) is held
+    to AdamW's reach instead, 2 lr a step: softmax is invariant to a shift
+    of a row's scores, so its gradient is zero up to rounding on both
+    sides, and AdamW turns each side's rounding into steps of up to about
+    lr."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
-    cfg = ARCHS[GLM].reduced(num_layers=2)
+    cfg = ARCHS[arch].reduced(num_layers=2)
     shape = ShapeConfig("smoke", 128, 4, "train")
     seed = os.path.join(workdir, "seed")
     seed_checkpoint(cfg, torch.float32, seed)
+    lr, steps = 3e-3, 3
     out = {}
     for where, device in (("host", torch.device("cpu")), ("card", dev)):
         d = os.path.join(workdir, where)
         shutil.copytree(seed, d)
-        run_cfg = RunConfig(total_steps=3, warmup_steps=1,
-                            checkpoint_every=3, checkpoint_dir=d,
-                            learning_rate=3e-3)
+        run_cfg = RunConfig(total_steps=steps, warmup_steps=1,
+                            checkpoint_every=steps, checkpoint_dir=d,
+                            learning_rate=lr)
         out[where] = train_run(cfg, shape, run_cfg, device, torch.float32)
     (th, rh, mh, _, _), (tc, rc, mc, launches, _) = out["host"], out["card"]
     for i, (a, w) in enumerate(zip(rc.losses, rh.losses)):
         if abs(a - w) > 1e-5 * abs(w):
-            raise AssertionError(f"train step {i + 1}: card loss {a!r}, "
-                                 f"host {w!r}")
+            raise AssertionError(f"{arch} train step {i + 1}: card loss "
+                                 f"{a!r}, host {w!r}")
     err_norm = max(abs(a["grad_norm"] - w["grad_norm"]) for a, w in
                    zip(mc, mh))
     if err_norm > 1e-4 * max(1.0, max(w["grad_norm"] for w in mh)):
-        raise AssertionError(f"grad_norm card vs host: {err_norm:.3e}")
-    err_p = 0.0
+        raise AssertionError(f"{arch} grad_norm card vs host: "
+                             f"{err_norm:.3e}")
+    err_p = err_bk = 0.0
     for name, p in tc._state["params"].items():
-        err_p = max(err_p, close(p.detach(), th._state["params"][name]
-                                 .detach(), dict(rtol=1e-4, atol=1e-4),
-                                 f"param {name} after step 3"))
+        want = th._state["params"][name].detach()
+        if name.endswith(".bk"):
+            err_bk = max(err_bk, float((p.detach().cpu() - want).abs()
+                                       .max()))
+            continue
+        err_p = max(err_p, close(p.detach(), want,
+                                 dict(rtol=1e-4, atol=1e-4),
+                                 f"{arch} param {name} after step {steps}"))
+    if err_bk > 2 * lr * steps:
+        raise AssertionError(f"{arch} key biases card vs host: {err_bk:.3e}"
+                             f" beyond AdamW's reach {2 * lr * steps}")
     if dev.type == "cuda":
-        check_train_launches("reduced glm4-9b on the card", launches,
-                             cfg.num_layers, 3)
+        check_train_launches(f"reduced {arch} on the card", launches,
+                             cfg.num_layers, steps, cfg)
     r = dict(losses_card=rc.losses, losses_host=rh.losses,
-             grad_norm_err=err_norm, param_err=err_p,
-             launches_per_step={k: v // 3 for k, v in launches.items()})
-    log(f"reduced glm4-9b float32, 3 steps card vs host: losses "
+             grad_norm_err=err_norm, param_err=err_p, key_bias_err=err_bk,
+             launches_per_step={k: v // steps for k, v in launches.items()})
+    log(f"reduced {arch} float32, {steps} steps card vs host: losses "
         f"{rc.losses} vs {rh.losses}, grad_norm within {err_norm:.2e}, "
-        f"parameters within {err_p:.2e}; launches per step "
-        f"{r['launches_per_step']}")
+        f"parameters within {err_p:.2e}"
+        + (f" (key biases {err_bk:.2e})" if err_bk else "")
+        + f"; launches per step {r['launches_per_step']}")
     return r
+
+
+def train_card_vs_host(dev, workdir: str) -> dict:
+    """``train_card_vs_host_arch`` for the reduced glm4-9b, vlm (its gates
+    in [0.5, 1.5]: its cross sublayers and their float32 flash backward
+    count) and whisper (its float32 encoder and cross-attention)."""
+    return {arch: train_card_vs_host_arch(dev, arch,
+                                          os.path.join(workdir, arch))
+            for arch in (GLM, VLM, WHISPER)}
 
 
 def train_launcher_cap(workdir: str) -> dict:
@@ -4136,6 +4231,29 @@ def train_launcher_cap(workdir: str) -> dict:
         f"{minos[0].strip()}")
     return dict(cap=float(m.group(1)), line=minos[0].strip(),
                 seconds=seconds)
+
+
+def train_launcher_smoke(workdir: str) -> dict:
+    """``python -m repro_torch.launch.train --arch <vlm | whisper> --smoke
+    --steps 2`` on the card: each trains its reduced configuration."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for arch in (VLM, WHISPER):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--smoke", "--steps", "2", "--ckpt-dir",
+             os.path.join(workdir, f"launcher_{arch}")],
+            capture_output=True, text=True, env=env, timeout=600)
+        seconds = time.perf_counter() - t0
+        line = proc.stdout.strip().splitlines()[-1:] or [""]
+        if proc.returncode != 0 or "ran 2 steps" not in line[0]:
+            raise AssertionError(f"launch.train --arch {arch} --smoke "
+                                 f"failed:\n{proc.stdout}\n{proc.stderr}")
+        log(f"launch.train --arch {arch} --smoke on the card ({seconds:.1f} "
+            f"s): {line[0]}")
+        out[arch] = dict(line=line[0], seconds=seconds)
+    return out
 
 
 def train_kernel_checks(dev, flush, card: str) -> dict:
@@ -4193,7 +4311,7 @@ def flash_bwd_report() -> dict:
     warp-specialised ones hand registers to their consumers with
     setmaxnreg), stack and spill bytes for every instantiation, and the
     HGMMA (wgmma) instructions of each; fails if a bf16 product kernel has
-    none."""
+    none or a float32 kernel spills."""
     report = build_report("flash_attention_bwd", ("HGMMA",))
 
     def short(name: str) -> str:           # fa_bwd_dq_bf16_kernel<(int)128>
@@ -4212,41 +4330,66 @@ def flash_bwd_report() -> dict:
     if not wgmma or any(kernels[k]["hgmma"] == 0 for k in wgmma):
         raise AssertionError(f"flash_attention_bwd: a bf16 product kernel "
                              f"has no HGMMA: {kernels}")
+    simt = [k for k in kernels if "_f32_kernel" in k]
+    spilled = [k for k in simt if kernels[k].get("spill_stores", 1)
+               or kernels[k].get("spill_loads", 1)]
+    if len(simt) < 6 or spilled:   # dK/dV and the dQ reduction, 3 dh each
+        raise AssertionError(f"flash_attention_bwd: a float32 "
+                             f"instantiation spills (or ptxas reported "
+                             f"none): {spilled or simt}")
     return kernels
 
 
 def train_check_phase(dev, flush, card: str, workdir: str) -> dict:
     """Phase 19: the backward kernels against their plain twins, the
-    reduced model card vs host, the launcher's Minos cap."""
+    reduced models card vs host, the launcher's Minos cap and its vlm and
+    whisper smoke runs."""
     t0 = time.perf_counter()
     r = dict(kernels=train_kernel_checks(dev, flush, card),
              card_vs_host=train_card_vs_host(dev, os.path.join(workdir,
                                                                "cvh")),
-             launcher=train_launcher_cap(workdir))
+             launcher=train_launcher_cap(workdir),
+             launcher_cross=train_launcher_smoke(workdir))
     r["seconds"] = time.perf_counter() - t0
     return r
 
 
 # the flash backward's launches by kernel, within its group
-FLASH_BWD_PARTS = (("dK/dV", "dkdv"), ("dQ", "_dq_"), ("reduction", "reduce"),
-                   ("prep", "prep"), ("prep", "dsum"))
+FLASH_BWD_PARTS = (("dK/dV", "dkdv"), ("dQ reduction", "dq_reduce"),
+                   ("dQ", "_dq_"), ("reduction", "reduce"), ("prep", "prep"))
+GEMM_KEYS = ("gemm", "xmma", "cutlass", "gemv", "splitk", "nvjet")
 TRAIN_GROUPS = (("flash_attention_bwd", ("fa_bwd",)),
                 ("flash_attention", ("fa_bf16", "fa_f32")),
                 ("rmsnorm_bwd", ("rmsnorm_bwd",)),
                 ("rmsnorm", ("rmsnorm",)),
-                ("gemm", ("gemm", "xmma", "cutlass", "gemv", "splitk",
-                          "nvjet")))
+                ("gemm", GEMM_KEYS))
+# whisper's step: the float32 kernels (encoder, cross-attention) apart from
+# the bf16 ones (the decoder's self-attention); "other" is elementwise work
+CROSS_TRAIN_GROUPS = (
+    ("flash_attention_bwd f32", ("fa_bwd_prep_f32", "fa_bwd_dkdv_f32",
+                                 "fa_bwd_dq_reduce_f32", "fa_bwd_reduce_f32")),
+    ("flash_attention f32", ("fa_f32",)),
+    ("flash_attention_bwd bf16", ("fa_bwd",)),
+    ("flash_attention bf16", ("fa_bf16",)),
+    ("rmsnorm_bwd", ("rmsnorm_bwd",)),
+    ("rmsnorm", ("rmsnorm",)),
+    ("gemm", GEMM_KEYS))
 
 
-def trace_train(dev, card: str, out: str | None) -> dict:
-    """One glm4-9b (8 layers, 4 x 1024) train step under
-    ``torch.profiler`` after a warm-up step: device busy share and device
-    time by kernel group (the table in ``out/trace_train.txt``)."""
+def trace_train(dev, card: str, out: str | None, arch: str = GLM) -> dict:
+    """One train step at 4 x 1024 under ``torch.profiler`` after a warm-up
+    step, of glm4-9b on 8 layers or (``arch``) whisper-medium whole:
+    device busy share and device time by kernel group (the table in
+    ``out/trace_train[_<arch>].txt``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.train import Trainer, init_state
-    cfg = dataclasses.replace(ARCHS[GLM], num_layers=TRAIN_LAYERS)
+    if arch == GLM:
+        cfg = dataclasses.replace(ARCHS[GLM], num_layers=TRAIN_LAYERS)
+        groups, what = TRAIN_GROUPS, f"glm4-9b {TRAIN_LAYERS}/40 layers"
+    else:
+        cfg, groups, what = ARCHS[arch], CROSS_TRAIN_GROUPS, arch
     (b, s), = TRAIN_SHAPES[:1]
     run_cfg = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
                         checkpoint_dir=None)
@@ -4275,13 +4418,15 @@ def trace_train(dev, card: str, out: str | None) -> dict:
     shares, counts, bwd = {}, {}, {}
     for e in kernels:
         name = e.key.lower()
-        group = next((g for g, keys in TRAIN_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in name for k in keys)), "other")
         shares[group] = shares.get(group, 0.0) + e.self_device_time_total
         counts[group] = counts.get(group, 0) + e.count
-        if group == "flash_attention_bwd":
+        if group.startswith("flash_attention_bwd"):
             part = next((p for p, key in FLASH_BWD_PARTS if key in name),
                         name)
+            if arch != GLM:                 # both dtypes run
+                part += " f32" if "_f32" in name else " bf16"
             ms, n = bwd.get(part, (0.0, 0))
             bwd[part] = (ms + e.self_device_time_total / 1e3, n + e.count)
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.1%}, "
@@ -4289,12 +4434,13 @@ def trace_train(dev, card: str, out: str | None) -> dict:
                       for k, v in sorted(shares.items(), key=lambda x: -x[1]))
     bwd_parts = ", ".join(f"{k} {ms:.3f} ms ({n} launches)"
                           for k, (ms, n) in bwd.items())
-    log(f"trace train glm4-9b {TRAIN_LAYERS}/40 layers {b} x {s} [{card}]: "
+    log(f"trace train {what} {b} x {s} [{card}]: "
         f"one step in {elapsed:.3f} s under the profiler, device busy "
         f"{device_us / 1e6:.3f} s = {device_us / 1e6 / elapsed:.2%}; by "
         f"kernel: {parts}; the flash backward by kernel: {bwd_parts}")
     if out is not None:
-        with open(os.path.join(out, "trace_train.txt"), "w") as f:
+        name = "trace_train" + ("" if arch == GLM else f"_{arch}")
+        with open(os.path.join(out, f"{name}.txt"), "w") as f:
             f.write(f"{card}\n{elapsed:.3f} s traced, device busy "
                     f"{device_us / 1e6:.3f} s\n{parts}\n\n"
                     f"{ka.table(sort_by='self_device_time_total', row_limit=30)}"
@@ -4309,7 +4455,9 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     """Phase 20: glm4-9b at full width on 8 of its 40 layers (bf16
     parameters, float32 moments), 6 ``Trainer`` steps at 4 x 1024 and at
     1 x 4096 without checkpoints: finite losses, launches, step ms,
-    tokens/s, peak GiB.  Then the resume at full width on 2 layers: 6
+    tokens/s, peak GiB; then, the same way at 4 x 1024, whisper-medium
+    whole and llama-3.2-vision-11b on 10 of its 40 layers (the float32
+    flash backward's main paths).  Then the resume at full width on 2 layers: 6
     uninterrupted steps, 3 steps with a checkpoint at step 3, and a fresh
     ``Trainer`` resumed from it (steps 4-6 within rtol 1e-5 of the
     uninterrupted run).  A checkpoint of the 8-layer state is 28.7 GB, so
@@ -4318,10 +4466,13 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     import gc
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
-    out = dict(layers=TRAIN_LAYERS, resume_layers=RESUME_LAYERS, runs=[])
+    out = dict(layers=TRAIN_LAYERS, resume_layers=RESUME_LAYERS, runs=[],
+               cross=[])
 
-    def run(layers, b, s, steps, directory, every=TRAIN_RESUME_AT):
-        cfg = dataclasses.replace(ARCHS[GLM], num_layers=layers)
+    def run(layers, b, s, steps, directory, every=TRAIN_RESUME_AT,
+            arch=GLM, into="runs"):
+        cfg = ARCHS[arch] if layers is None else \
+            dataclasses.replace(ARCHS[arch], num_layers=layers)
         run_cfg = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
                             checkpoint_every=every, checkpoint_dir=directory)
         shape = ShapeConfig(f"train_{b}x{s}", s, b, "train")
@@ -4333,28 +4484,37 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         if not all(np.isfinite(res.losses)):
-            raise AssertionError(f"glm4-9b {b} x {s}: losses {res.losses}")
-        check_train_launches(f"glm4-9b ({layers} layers) {b} x {s}",
-                             launches, layers, res.steps_run)
+            raise AssertionError(f"{arch} {b} x {s}: losses {res.losses}")
+        check_train_launches(f"{arch} ({cfg.num_layers} layers) {b} x {s}",
+                             launches, cfg.num_layers, res.steps_run, cfg)
         durations = res.step_durations
         step_ms = float(np.median(durations[1:] if len(durations) > 1
                                   else durations)) * 1e3
-        r = dict(layers=layers, params=cfg.param_count(), batch=b, tokens=s,
+        r = dict(arch=arch, layers=cfg.num_layers,
+                 encoder_layers=cfg.num_encoder_layers,
+                 params=cfg.param_count(), batch=b, tokens=s,
                  steps=res.steps_run, restored_from=res.restored_from,
                  checkpoints=directory is not None, losses=res.losses,
                  grad_norms=[m["grad_norm"] for m in metrics],
                  step_ms=step_ms, step_ms_all=[d * 1e3 for d in durations],
                  tokens_per_s=b * s / step_ms * 1e3, peak_gib=peak,
-                 launches=launches, seconds=seconds)
-        log(f"glm4-9b {layers}/40 layers ({cfg.param_count() / 1e9:.3f} B) "
+                 launches=launches,
+                 launches_per_step={k: v // max(res.steps_run, 1)
+                                    for k, v in launches.items()},
+                 seconds=seconds)
+        depth = (f"{cfg.num_encoder_layers} + {cfg.num_layers}"
+                 if cfg.is_encoder_decoder else f"{cfg.num_layers}/"
+                 f"{ARCHS[arch].num_layers}")
+        log(f"{arch} {depth} layers ({cfg.param_count() / 1e9:.3f} B) "
             f"train {b} x {s}, steps {res.final_step - res.steps_run + 1}-"
             f"{res.final_step}{'' if directory else ', no checkpoints'} "
             f"[{card}]: losses {[round(x, 4) for x in res.losses]}, step "
             f"{step_ms:.1f} ms (median of steps 2-), "
             f"{r['tokens_per_s']:.0f} tokens/s, peak "
             f"{'not measured' if peak is None else f'{peak:.2f} GiB'}, "
-            f"{seconds:.1f} s in all")
-        out["runs"].append(r)
+            f"{seconds:.1f} s in all; launches a step "
+            f"{r['launches_per_step']}")
+        out[into].append(r)
         return r
 
     for b, s in TRAIN_SHAPES:
@@ -4378,6 +4538,13 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     log(f"resume from step {TRAIN_RESUME_AT} in a fresh Trainer [{card}]: "
         f"steps 4-6 within rtol 1e-5 of the uninterrupted run, "
         f"{'bit for bit' if out['resume_bitwise'] else 'not bit for bit'}")
+    # the float32 flash backward's main paths: whisper's encoder and
+    # cross-attention, the vlm's cross sublayers (their float32 memory
+    # promotes them); no checkpoints (the glm4-9b resume holds the write
+    # budget, and the CPU tests hold these models' checkpoints)
+    b, s = CROSS_TRAIN_SHAPE
+    run(None, b, s, TRAIN_STEPS, None, arch=WHISPER, into="cross")
+    run(VLM_TRAIN_LAYERS, b, s, TRAIN_STEPS, None, arch=VLM, into="cross")
     return out
 
 
@@ -4422,10 +4589,11 @@ def main() -> int:
                          "serving); prints no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="build the kernels and run phases 19 and 20 alone "
-                         "(the backward kernels, the reduced model's "
-                         "training card vs host, the launcher's Minos cap; "
-                         "glm4-9b on 8 layers training and resuming); "
-                         "prints no result line")
+                         "(the backward kernels, the reduced models' "
+                         "training card vs host, the launcher's Minos cap "
+                         "and vlm / whisper smoke runs; glm4-9b on 8 layers "
+                         "training and resuming, whisper-medium and the vlm "
+                         "on 10 layers training); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -4507,6 +4675,8 @@ def main() -> int:
                          full=train_full_phase(dev, card, workdir))
             if args.trace:
                 train["trace"] = trace_train(dev, card, args.out)
+                train["trace_whisper"] = trace_train(dev, card, args.out,
+                                                     WHISPER)
             if args.out is not None:
                 with open(os.path.join(args.out, "train.json"), "w") as f:
                     json.dump({"card": card, "train": train}, f, indent=1)
@@ -4586,6 +4756,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                  full=train_full_phase(dev, card, workdir))
     if args.trace:
         train["trace"] = trace_train(dev, card, args.out)
+        train["trace_whisper"] = trace_train(dev, card, args.out, WHISPER)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -4673,8 +4844,12 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     # path; the backward kernels replace no TPU kernel: "replaces" names
     # the Pallas forward whose gradient each computes)
     main_train = train["full"]["runs"][0]       # 8 layers, 4 x 1024
+    cross_train = {r["arch"]: r for r in train["full"]["cross"]}
     for rec in kernels[2:4]:
         rec["launches_training"] = main_train["launches"][rec["name"]]
+        rec["launches_cross_training"] = {
+            arch: r["launches"][rec["name"]] for arch, r in
+            cross_train.items()}
     tk = train["check"]["kernels"]
     kernels[2]["lse"] = {k: tk["flash"][0][k] for k in
                          ("fwd_lse_ms", "fwd_ms", "lse_err")}
@@ -4696,9 +4871,13 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": "forward + backward through autograd",
-            "fwd_bwd_ms": r["fwd_bwd_ms"]})
+            "fwd_bwd_ms": r["fwd_bwd_ms"],
+            "launches_cross_training": {
+                arch: rc["launches"][name]
+                for arch, rc in cross_train.items()}})
     kernels[-2]["shapes"] = [
-        {k: r[k] for k in ("b", "s", "H", "KV", "dh", "dtype", "ms",
+        {k: r[k] for k in ("b", "s", "skv", "H", "KV", "dh", "causal",
+                           "dtype", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
                            "fwd_bwd_ms", "fwd_lse_ms", "fwd_ms", "kernel",
                            "split", "dkdv_ctas", "dq_ctas") if k in r}

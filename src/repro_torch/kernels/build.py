@@ -60,9 +60,9 @@ _SIGNATURES = {
                                  _I, *(_I64,) * 12, _I, _P)
         for t in ("bf16", "f32")
     },
-    "flash_attention_bwd": {      # bf16 takes the dK/dV split too
-        "flash_attention_bwd_f32": (*(_P,) * 10, *(_I,) * 7, _P),
-        "flash_attention_bwd_bf16": (*(_P,) * 10, *(_I,) * 8, _P),
+    "flash_attention_bwd": {      # both take bwd_plan's dK/dV split
+        f"flash_attention_bwd_{t}": (*(_P,) * 10, *(_I,) * 8, _P)
+        for t in ("f32", "bf16")
     },
     "rmsnorm": {
         **{f"rmsnorm_{x}_{s}": (_P, _P, _P, _I64, _I, _F, _I, _I, _P)

@@ -14,9 +14,12 @@
 // Which kernels serve which dtype:
 //   * bfloat16 (flash_attention_bwd_bf16, the training path): the wgmma
 //     kernels of the second half of this file, for every dh.
-//   * float32 (flash_attention_bwd_f32, the reduced models' card-vs-host
-//     checks): the SIMT kernels of the first half.  TF32 tensor cores
-//     would keep ~3 digits, short of the 1e-4 those checks hold.
+//   * float32 (flash_attention_bwd_f32: the vlm's cross-attention and
+//     whisper's encoder and cross-attention, which their float32 memory
+//     promotes, and the reduced models' card-vs-host checks): the SIMT
+//     kernels of the first half.  TF32 tensor cores would keep ~3 digits,
+//     short of the 1e-4 those checks hold, so the bound is FFMA's 67
+//     TFLOP/s.
 //
 // Replaces: no TPU kernel.  The reference trains through jax.value_and_grad
 // over its jnp attention (src/repro/train/step.py:52-55) and has no
@@ -28,8 +31,10 @@
 // products q k^T, do v^T, P^T do, dS^T q and dS k); at glm4-9b's training
 // shape (b 4, s 1024, H 32, KV 2, dh 128, causal) 86.0 GFLOP, 0.087 ms at
 // the bf16 tensor cores' 989 TFLOP/s.  Only wgmma reaches that rate.  The
-// split below recomputes S and do v^T for dQ: 14 dh flops a pair, so at
-// best 71 % of the bound.
+// bf16 kernels recompute S and do v^T for dQ: 14 dh flops a pair, so at
+// best 71 % of the bound.  float32 runs at FFMA's 67 TFLOP/s: at the vlm's
+// cross-attention (b 4, 1024 queries x 1600 image embeddings, H 32, KV 8,
+// dh 128) 268.4 GFLOP, 4.006 ms; its kernel computes S and dP once.
 //
 // Design, bfloat16, after FlashAttention-3's backward:
 //   * Three launches, four with split > 1.  A prep pass writes lse * log2e
@@ -66,24 +71,43 @@
 //     have the lowest indices.  The mask only on steps that cross the
 //     diagonal (and, in dQ, skv: rows past it are TMA's zeros).
 //
-// Design, float32, after FlashAttention-2's backward, SIMT:
-//   * Three launches.  A pre-pass computes D = rowsum(do * o) in float32, a
-//     warp a row.  A dK/dV kernel takes one CTA per (key tile of 64, KV
-//     head, batch) and keeps its K and V tile and its dK and dV sums
-//     resident while it walks the qper query heads of its group and every
-//     query tile of 64 rows that sees the key tile; a dQ kernel takes one
-//     CTA per (query tile of 64, head, batch) and walks the key tiles its
-//     rows see.  Each recomputes S and do v^T; nothing is reduced across
-//     CTAs.
-//   * 256 threads as 16 x 16; a thread owns a 4 x 4 micro-tile of S and
-//     do v^T (rows ty + 16 i, keys tx + 16 j) and 4 rows x dh/16 columns of
-//     each output (columns tx * VW + 16 VW g + e).  Tiles sit in shared
-//     memory as float32 with a row stride of 4 mod 32 words, so that the
-//     float4 reads of 8 neighbouring rows are conflict-free; P^T and dS^T
-//     (dK/dV) or dS (dQ) are staged there for the output products.  Every
-//     product is an explicit __fmaf_rn.
-//   * The mask only on tiles that cross sq, skv or the diagonal; query
-//     tiles above the diagonal are never visited.
+// Design, float32, after FlashAttention-2's backward, register-tiled SIMT
+// as PR 22's float32 forward (csrc/flash_attention.cu, fa_f32_kernel):
+//   * The bf16 path's plan and dK/dV grid: a prep pass (lse2 = lse log2e
+//     and D, rows padded to 128 with lse2 = +inf), a dK/dV kernel of one
+//     CTA a (key tile of 128, KV head, batch, part of the split), heaviest
+//     first, walking its part of the (group head, query tile of 64) pairs;
+//     the parts' float32 partials summed in a fixed order.  bwd_plan
+//     splits wider for this kernel (one CTA an SM, long runs): 4 CTAs an
+//     SM when the grid is short, and enough parts that the last wave is
+//     nearly full.
+//   * dQ is not a second kernel: each dK/dV step also computes its rows'
+//     dS K over the tile's keys and writes it as a float32 partial (key
+//     tile, b, h, dh, rows), and a reduction sums a row's partials in key
+//     tile order.  S and dP are computed once (10 dh flops a pair, the
+//     bound's count, against 14 with a dQ kernel that recomputes them);
+//     the partials cost key tiles x b x H x dh x sq_pad floats of scratch,
+//     written once and read once.
+//   * 256 threads as 16 x 16.  A thread owns 8 keys of the CTA: S^T and
+//     dP^T at 8 x kJ, dK and dV at 8 x dh/16, and a 4 x 4 (2 x 4 at dh 32)
+//     block of the step's dQ partial.  K^T and V^T are staged once,
+//     transposed ([d][128]); Q and dO (with their rows' lse2 and D) stream
+//     through a three-slot cp.async ring as one stream Q_0, dO_0, Q_1, ...,
+//     each load started a compute phase before it is read, three barriers
+//     a step.  A step is 64 query rows at dh <= 64 and 32 at dh 128, where
+//     shared memory holds no more (220 KB).
+//   * Per 4 columns of d, S^T reads 8 float4 of K^T (two addresses a warp)
+//     and kJ float4 of Q for 32 kJ FMAs; an output product, per row, 2
+//     float4 of P (or dS) and dh/64 float4 of dO (or Q) for 8 dh/16 FMAs;
+//     the dQ partial, per 4 keys, 4 float4 of K^T and 4 of dS for 64.  P
+//     and dS are stored [query row][key] as two float4 a row, the layout
+//     the products read.
+//   * Every product an explicit __fmaf_rn (the library is built with
+//     --fmad=false), the softmax in the log2 domain with one fma; the mask
+//     only on steps that cross the diagonal; a padding row's lse2 = +inf
+//     makes its P 0 without a mask, and a key past skv touches only its
+//     own dK and dV rows, which are not written, and adds 0 to dQ (its K
+//     row is zeros).
 #include <string.h>
 #include <math.h>
 
@@ -96,418 +120,558 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// float32: SIMT (FlashAttention-2's backward)
+// float32: register-tiled SIMT (FlashAttention-2's backward)
 // ---------------------------------------------------------------------------
-constexpr int kTile = 64;              // query rows or keys of a tile
-constexpr int kThreads = 256;          // 16 x 16
-constexpr int kTS = kTile + 4;         // row stride of P^T, dS^T and dS
+constexpr int kF32Threads = 256;       // 16 x 16
+constexpr int kF32Keys = 128;          // keys of a CTA
+constexpr int kF32Rows = 64;           // query rows of a plan's pair
+constexpr int kF32Slots = 3;           // ring slots
+constexpr int kF32Micro = 8;           // keys of a thread
+constexpr int kF32SmallStep = 64;      // query rows of a step at dh <= 64,
+constexpr int kF32BigStep = 32;        // and at dh 128
+constexpr int kF32RowPad = 128;        // lse2 / D / dQ partial rows padded to
+constexpr int kF32DqRows = 32;         // query rows of a dQ reduction block
 
+// Shared memory of the float32 kernel, in floats.  A [d][128] tile (K^T,
+// V^T) and a [step][128] one (P, dS) have rows of kT; a [step][d] tile of
+// the ring (Q, dO) rows of kS: both 4 mod 32, so that a warp's reads of 8
+// neighbouring rows are conflict-free.
 template <int DH>
-struct BwdGeo {
-  static constexpr int kS = DH + 4;               // row stride of a tile
-  static constexpr int kTileF = kTile * kS;       // floats of a tile
-  static constexpr int kOD = DH / 16;             // output columns a thread
-  static constexpr int kVW = kOD < 4 ? kOD : 4;   // read / written at once
-  static constexpr int kGroups = kOD / kVW;
-  // four (64 x DH) tiles, one or two (64 x 64) tiles, lse and D of 64 rows
-  static constexpr int kSmemDkdv = 4 * (4 * kTileF + 2 * kTile * kTS + 128);
-  static constexpr int kSmemDq = 4 * (4 * kTileF + kTile * kTS + 128);
+struct F32Bwd {
+  static constexpr int kStep = DH > 64 ? kF32BigStep : kF32SmallStep;
+  static constexpr int kJ = kStep / 16;            // S columns a thread
+  static constexpr int kS = DH + 4;
+  static constexpr int kT = kF32Keys + 4;
+  static constexpr int kOC = DH / 16;              // output columns a thread
+  static constexpr int kVW = kOC < 4 ? kOC : 4;    // read / written at once
+  static constexpr int kGroups = kOC / kVW;
+  // the dQ partial of a step: thread (cy, qx) = (tid / kQG, tid % kQG)
+  // owns columns cy + kCG i and rows qx + kQG j; per 4 keys kDqC float4 of
+  // K^T (a few addresses a warp) and kDqR float4 of dS feed 4 kDqC kDqR
+  // FMAs
+  static constexpr int kCG = DH >= 128 ? 32 : 16;
+  static constexpr int kQG = kF32Threads / kCG;
+  static constexpr int kDqC = DH / kCG;
+  static constexpr int kDqR = kStep / kQG;
+  // K^T and V^T, the ring of Q and dO tiles (each slot followed by its
+  // rows' lse2 or D), P and dS
+  static constexpr int kSlot = kStep * kS + kStep;
+  static constexpr int kSmem =
+      4 * (2 * DH * kT + kF32Slots * kSlot + 2 * kStep * kT);
+  static_assert(kF32Keys == kF32Micro * 16, "a thread's 8 keys, 16 deep");
+  static_assert(kDqC * kCG == DH && kDqR * kQG == kStep &&
+                    kF32Rows % kF32DqRows == 0,
+                "the dQ partial's tiles");
+  static_assert(kF32Rows % kStep == 0 && kF32RowPad % kStep == 0 &&
+                    (kStep * DH / 4) % kF32Threads == 0,
+                "float32 backward steps");
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-// 16 bytes of a row: 4 floats
-__device__ __forceinline__ void load16(float* dst, const float* src) {
-  const float4 t = *reinterpret_cast<const float4*>(src);
-  dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// VW consecutive outputs of a row
-template <int VW>
-__device__ __forceinline__ void store_vec(float* dst, const float* v) {
-  if constexpr (VW == 4)
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-}
-
-// rows row0 .. row0 + 63 of one head of a contiguous (b, s, heads, DH)
-// tensor (src points at its batch and head; rows are `rs` elements apart)
-// into a (64 x DH) float32 tile; rows past s are zeros
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long rs, int row0, int s) {
-  constexpr int kE = 16 / sizeof(T);            // elements of 16 bytes
-  constexpr int kPerRow = DH / kE;
-  constexpr int kIters = kTile * kPerRow / kThreads;
-  static_assert(kIters * kThreads == kTile * kPerRow, "tile loads");
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int r = e / kPerRow, c = (e % kPerRow) * kE;
-    float v[kE];
-    if (row0 + r < s) {
-      load16(v, src + (row0 + r) * rs + c);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kE; ++i) v[i] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kE; i += 4)
-      *reinterpret_cast<float4*>(dst + r * BwdGeo<DH>::kS + c + i) =
-          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  }
-}
-
-__device__ __forceinline__ void lds4(float* dst, const float* src) {
-  const float4 t = *reinterpret_cast<const float4*>(src);
-  dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-}
+// W (2 or 4) consecutive floats of shared memory in one load
 template <int W>
-__device__ __forceinline__ void ldsw(float* dst, const float* src) {
+__device__ __forceinline__ void lds(float* dst, const float* src) {
   if constexpr (W == 4) {
-    lds4(dst, src);
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
   } else {
     const float2 t = *reinterpret_cast<const float2*>(src);
     dst[0] = t.x; dst[1] = t.y;
   }
 }
 
-// s[i][j] = sum_d a[ty + 16 i][d] b[tx + 16 j][d] over two (64 x DH) tiles
+// 128 rows r0 .. r0 + 127 of one head of a contiguous (b, s, heads, DH)
+// tensor (src at its batch and head, rows `rs` floats apart) into a [DH][kT]
+// tile, transposed; rows past n as zeros.  Consecutive threads take
+// consecutive rows, so the transposing stores are conflict-free.
 template <int DH>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-  constexpr int S = BwdGeo<DH>::kS;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < DH; d += 4) {
-    float av[4][4], bv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lds4(av[i], a + (ty + 16 * i) * S + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) lds4(bv[j], b + (tx + 16 * j) * S + d);
-#pragma unroll
-    for (int dd = 0; dd < 4; ++dd)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = __fmaf_rn(av[i][dd], bv[j][dd], s[i][j]);
+__device__ __forceinline__ void stage_t(float* dst, const float* src,
+                                        long long rs, int r0, int n) {
+  constexpr int TS = F32Bwd<DH>::kT;
+#pragma unroll 4
+  for (int i = 0; i < kF32Keys * DH / 4 / kF32Threads; ++i) {
+    const int e = threadIdx.x + i * kF32Threads;
+    const int r = e % kF32Keys, c4 = e / kF32Keys;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r0 + r < n)
+      x = __ldg(reinterpret_cast<const float4*>(src + (r0 + r) * rs +
+                                                c4 * 4));
+    dst[(c4 * 4 + 0) * TS + r] = x.x;
+    dst[(c4 * 4 + 1) * TS + r] = x.y;
+    dst[(c4 * 4 + 2) * TS + r] = x.z;
+    dst[(c4 * 4 + 3) * TS + r] = x.w;
   }
 }
 
-// acc[i][c] += sum_r a[ty + 16 i][r] b[r][col(c)] over a (64 x 64) tile a
-// (stride kTS) and a (64 x DH) tile b, col(c) = 16 VW g + tx VW + e for
-// c = g VW + e
+// rows r0 .. r0 + kStep - 1 of one head (src at its batch and head, rows
+// `rs` floats apart) into a [kStep][kS] ring slot by cp.async; rows past n
+// as zeros
 template <int DH>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][BwdGeo<DH>::kOD],
-                                         const float* a, const float* b,
-                                         int ty, int tx) {
-  using G = BwdGeo<DH>;
-  constexpr int VW = G::kVW;
-#pragma unroll 2
-  for (int r = 0; r < kTile; r += 4) {
-    float av[4][4];
+__device__ __forceinline__ void fetch_rows(float* slot, const float* src,
+                                           long long rs, int r0, int n) {
+  using G = F32Bwd<DH>;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lds4(av[i], a + (ty + 16 * i) * kTS + r);
+  for (int i = 0; i < G::kStep * DH / 4 / kF32Threads; ++i) {
+    const int e = threadIdx.x + i * kF32Threads;
+    const int r = e / (DH / 4), c4 = e % (DH / 4);
+    const bool in = r0 + r < n;
+    cp_async16(smem_u32(slot + r * G::kS + c4 * 4),
+               src + (in ? (r0 + r) * rs : 0) + c4 * 4, in);
+  }
+}
+
+// acc[i][j] = sum_k a[kCG i][k] b[kQG j][k] over the 128 keys of a
+// [.][kT] tile a (K^T at the thread's first column) and one b (dS at its
+// first row): the thread's block of a step's dQ partial
+template <int DH>
+__device__ __forceinline__ void dq_part(
+    float (&acc)[F32Bwd<DH>::kDqC][F32Bwd<DH>::kDqR], const float* a,
+    const float* b) {
+  using G = F32Bwd<DH>;
+  constexpr int C = G::kDqC, R = G::kDqR;
 #pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      float bv[G::kOD];
+  for (int i = 0; i < C; ++i)
 #pragma unroll
-      for (int g = 0; g < G::kGroups; ++g)
-        ldsw<VW>(bv + g * VW, b + (r + rr) * G::kS + g * 16 * VW + tx * VW);
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < kF32Keys; k += 4) {
+    float av[C][4], bv[R][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < C; ++i) lds<4>(av[i], a + i * G::kCG * G::kT + k);
 #pragma unroll
-        for (int c = 0; c < G::kOD; ++c)
-          acc[i][c] = __fmaf_rn(av[i][rr], bv[c], acc[i][c]);
+    for (int j = 0; j < R; ++j) lds<4>(bv[j], b + j * G::kQG * G::kT + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          acc[i][j] = __fmaf_rn(av[i][kk], bv[j][kk], acc[i][j]);
+  }
+}
+
+// acc[i][j] = sum_d at[d][8 ty + i] b[tx + 16 j][d]: at a [DH][kT] tile
+// (K^T or V^T), b a [kStep][kS] one of the ring (Q or dO); per 4 columns of
+// d, 8 float4 of at (two rows a warp: broadcasts) and kJ float4 of b feed
+// 32 kJ FMAs
+template <int DH>
+__device__ __forceinline__ void dot_t(float (&acc)[kF32Micro][F32Bwd<DH>::kJ],
+                                      const float* at, const float* b) {
+  using G = F32Bwd<DH>;
+  constexpr int J = G::kJ;
+#pragma unroll
+  for (int i = 0; i < kF32Micro; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < DH; d += 4) {
+    float bv[J][4];
+#pragma unroll
+    for (int j = 0; j < J; ++j) lds<4>(bv[j], b + j * 16 * G::kS + d);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      float av[kF32Micro];
+      lds<4>(av, at + (d + dd) * G::kT);
+      lds<4>(av + 4, at + (d + dd) * G::kT + 4);
+#pragma unroll
+      for (int i = 0; i < kF32Micro; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          acc[i][j] = __fmaf_rn(av[i], bv[j][dd], acc[i][j]);
     }
   }
 }
 
-// rows row0 + ty + 16 i (< n) of a contiguous (.., n, heads, DH) output
-// (dst at its batch and head, rows `rs` apart): acc * mul
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(
-    T* dst, long long rs, int row0, int n,
-    const float (&acc)[4][BwdGeo<DH>::kOD], float mul, int ty, int tx) {
-  using G = BwdGeo<DH>;
+// acc[i][c] += sum_r a[r][8 ty + i] b[r][col(c)] over the kStep rows of a
+// [kStep][kT] tile a (P or dS) and a [kStep][kS] tile b, col(c) =
+// 16 VW g + VW tx + e for c = VW g + e; per row 2 float4 of a
+// (broadcasts) and kOC / VW vectors of b feed 8 kOC FMAs
+template <int DH>
+__device__ __forceinline__ void acc_rows(
+    float (&acc)[kF32Micro][F32Bwd<DH>::kOC], const float* a,
+    const float* b) {
+  using G = F32Bwd<DH>;
+  constexpr int OC = G::kOC, VW = G::kVW;
+#pragma unroll 8
+  for (int r = 0; r < G::kStep; ++r) {
+    float av[kF32Micro], bv[OC];
+    lds<4>(av, a + r * G::kT);
+    lds<4>(av + 4, a + r * G::kT + 4);
+#pragma unroll
+    for (int g = 0; g < G::kGroups; ++g)
+      lds<VW>(bv + g * VW, b + r * G::kS + g * 16 * VW);
+#pragma unroll
+    for (int i = 0; i < kF32Micro; ++i)
+#pragma unroll
+      for (int c = 0; c < OC; ++c)
+        acc[i][c] = __fmaf_rn(av[i], bv[c], acc[i][c]);
+  }
+}
+
+// the thread's 8 x kJ block of a [kStep][kT] tile transposed: element (i, j)
+// at row tx + 16 j, column 8 ty + i, as two float4 a row
+template <int DH>
+__device__ __forceinline__ void store_t(float* dst,
+                                        const float (&v)[kF32Micro]
+                                                        [F32Bwd<DH>::kJ]) {
+  using G = F32Bwd<DH>;
+#pragma unroll
+  for (int j = 0; j < G::kJ; ++j) {
+    float* row = dst + j * 16 * G::kT;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    *reinterpret_cast<float4*>(row + 4) =
+        make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
+  }
+}
+
+// rows 8 ty + i (< n) of a contiguous (.., n, heads, DH) output (dst at
+// its batch, head and first row, rows `rs` apart): acc * mul
+template <int DH>
+__device__ __forceinline__ void store_out(
+    float* dst, long long rs, int n, int tx, int ty,
+    const float (&acc)[kF32Micro][F32Bwd<DH>::kOC], float mul) {
+  using G = F32Bwd<DH>;
   constexpr int VW = G::kVW;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
+  for (int i = 0; i < kF32Micro; ++i) {
+    const int row = kF32Micro * ty + i;
     if (row >= n) continue;
 #pragma unroll
     for (int g = 0; g < G::kGroups; ++g) {
-      float v[VW];
-#pragma unroll
-      for (int e = 0; e < VW; ++e) v[e] = acc[i][g * VW + e] * mul;
-      store_vec<VW>(dst + row * rs + g * 16 * VW + tx * VW, v);
+      float* p = dst + row * rs + g * 16 * VW + tx * VW;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(p) = make_float4(
+            acc[i][g * 4] * mul, acc[i][g * 4 + 1] * mul,
+            acc[i][g * 4 + 2] * mul, acc[i][g * 4 + 3] * mul);
+      else
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[i][g * 2] * mul, acc[i][g * 2 + 1] * mul);
     }
   }
 }
 
-// P and dS of one (query tile, key tile) pair from S = q k^T and
-// dp = do v^T: P = exp2(S scale_log2 - lse log2e), 0 where hidden
-__device__ __forceinline__ void softmax_grad(
-    float (&s)[4][4], float (&dp)[4][4], const float* lse2, const float* dsum,
-    int q0, int key0, int sq, int skv, int causal, float scale_log2, int ty,
-    int tx) {
-  const int off = skv - sq;
-  const bool edge = q0 + kTile > sq || key0 + kTile > skv ||
-                    (causal && key0 + kTile - 1 > q0 + off);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = key0 + tx + 16 * j;
-      const bool hidden = edge && (row >= sq || key >= skv ||
-                                   (causal && key > row + off));
-      const float p =
-          hidden ? 0.0f : exp2f(__fmaf_rn(s[i][j], scale_log2, -lse2[r]));
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dsum[r]);
-    }
-  }
-}
-
-// lse (in log2 units) and D of rows q0 .. q0 + 63 into shared memory
-__device__ __forceinline__ void load_rows(float* lse2, float* dsum,
-                                          const float* lse, const float* d,
-                                          int q0, int sq) {
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    lse2[threadIdx.x] = row < sq ? lse[row] * kLog2e : 0.0f;
-    dsum[threadIdx.x] = row < sq ? d[row] : 0.0f;
-  }
-}
-
-// D[b, h, i] = sum_d do[b, i, h, d] o[b, i, h, d], a warp a row
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                   float* __restrict__ dsum, long long rows, int sq, int H) {
+// lse2[b, h, i] = lse * log2e and D[b, h, i] = sum_d do o over rows padded
+// to kF32RowPad (b, H, sq_pad), a warp a row; a padding row gets lse2 =
+// +inf and D = 0, so that its P, and so its dS, is 0
+template <int DH>
+__global__ void __launch_bounds__(256)
+fa_bwd_prep_f32_kernel(const float* __restrict__ o,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ lse2,
+                       float* __restrict__ dsum, long long rows, int sq,
+                       int H, int sq_pad) {
   const long long w =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (w >= rows) return;                  // whole warps leave together
-  const T* orow = o + w * DH;
-  const T* grow = dout + w * DH;
+  const long long bh = w / sq_pad;
+  const int i = static_cast<int>(w % sq_pad);
+  if (i >= sq) {
+    if (lane == 0) {
+      lse2[w] = INFINITY;
+      dsum[w] = 0.0f;
+    }
+    return;
+  }
+  // each lane DH / 32 consecutive elements of the row
+  constexpr int kE = DH / 32;
+  const long long at = (((bh / H) * sq + i) * H + bh % H) * DH + lane * kE;
   float acc = 0.0f;
 #pragma unroll
-  for (int d = lane; d < DH; d += 32)
-    acc = __fmaf_rn(to_f(grow[d]), to_f(orow[d]), acc);
+  for (int e = 0; e < kE; ++e) acc = __fmaf_rn(dout[at + e], o[at + e], acc);
 #pragma unroll
   for (int sh = 16; sh > 0; sh >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, sh);
   if (lane == 0) {
-    const long long h = w % H, i = (w / H) % sq;
-    const long long b = w / (static_cast<long long>(H) * sq);
-    dsum[(b * H + h) * sq + i] = acc;
+    lse2[w] = lse[bh * sq + i] * kLog2e;
+    dsum[w] = acc;
   }
 }
 
-// one CTA per (key tile, KV head, batch): dK and dV of its 64 keys over the
-// group's heads and every query tile that sees them
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ dsum, T* __restrict__ dk,
-                   T* __restrict__ dv, int sq, int skv, int H, int KV,
-                   int causal, float scale, float scale_log2) {
-  using G = BwdGeo<DH>;
+// One CTA a (key tile of 128, KV head, batch, part of the split), the key
+// tile slowest, as the bf16 kernel and BwdPlan.dkdv_order: the CTA keeps
+// K^T and V^T of its keys and walks its part's (group head, query tile of
+// 64) pairs in steps of kStep rows.  A step's Q and dO tiles (each with
+// its rows' lse2 or D) come through a three-slot cp.async ring as one
+// stream Q_0, dO_0, Q_1, ...: Q_{s+1} is started a step ahead, dO_s while
+// S^T of step s runs.  Thread (ty, tx) owns keys 8 ty + i of the tile: S^T
+// and dP^T at the step's rows tx + 16 j, and dK, dV at the columns of
+// store_out.  With split 1 the CTA writes dK (times scale) and dV; else
+// float32 partials part[(split part, dK|dV), b, skv, KV, DH] that
+// fa_bwd_reduce_f32_kernel sums.  Each step also writes its rows' dQ over
+// the tile's keys, dS K, as a float32 partial dqp[key tile, b, h, DH,
+// sq_pad] (rows fastest) that fa_bwd_dq_reduce_f32_kernel sums over the
+// key tiles: dQ needs no second kernel that recomputes S and dP.
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads, 1)
+fa_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse2,
+                       const float* __restrict__ dsum, float* __restrict__ dk,
+                       float* __restrict__ dv, float* __restrict__ part,
+                       float* __restrict__ dqp, int nb, int sq, int skv,
+                       int H, int KV, int sq_pad, int causal, int split,
+                       float scale, float scale_log2) {
+  using G = F32Bwd<DH>;
+  constexpr int ST = G::kStep, J = G::kJ, OC = G::kOC;
+  constexpr int kSub = kF32Rows / ST;      // steps of a pair
   extern __shared__ float4 smem_f4[];
-  float* sK = reinterpret_cast<float*>(smem_f4);
-  float* sV = sK + G::kTileF;
-  float* sQ = sV + G::kTileF;
-  float* sO = sQ + G::kTileF;              // do
-  float* sPT = sO + G::kTileF;             // P^T: key rows, query columns
-  float* sDST = sPT + kTile * kTS;         // dS^T
-  float* sL = sDST + kTile * kTS;          // lse * log2e of the query tile
-  float* sD = sL + kTile;                  // D of the query tile
+  float* kT = reinterpret_cast<float*>(smem_f4);
+  float* vT = kT + DH * G::kT;
+  float* ring = vT + DH * G::kT;
+  float* sP = ring + kF32Slots * G::kSlot;    // P: query rows, keys
+  float* sDS = sP + ST * G::kT;                   // dS
+
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int key0 = blockIdx.x * kTile, kvh = blockIdx.y, b = blockIdx.z;
+  const int per_tile = KV * nb * split;
+  const int key0 = blockIdx.x / per_tile * kF32Keys;
+  const int rest = blockIdx.x % per_tile;
+  const int sp = rest % split, kvh = rest / split % KV;
+  const int b = rest / (split * KV);
   const int qper = H / KV, off = skv - sq;
-  const long long krs = static_cast<long long>(KV) * DH;
+  const int n_qt = (sq + kF32Rows - 1) / kF32Rows;
+  const int qt0 = causal ? max(0, key0 - off) / kF32Rows : 0;
+  const int n_vis = n_qt - qt0;            // query tiles that see a key
+  const long long pairs = static_cast<long long>(qper) * n_vis;
+  const int lo = static_cast<int>(pairs * sp / split);
+  const int n_steps =
+      (static_cast<int>(pairs * (sp + 1) / split) - lo) * kSub;
   const long long qrs = static_cast<long long>(H) * DH;
+  const long long krs = static_cast<long long>(KV) * DH;
   const long long kbase = static_cast<long long>(b) * skv * krs + kvh * DH;
-  load_tile<T, DH>(sK, k + kbase, krs, key0, skv);
-  load_tile<T, DH>(sV, v + kbase, krs, key0, skv);
+  const long long plane = static_cast<long long>(DH) * sq_pad;
+  const int cy = threadIdx.x / G::kQG, qx = threadIdx.x % G::kQG;
+  float* dqp_kt = dqp + (static_cast<long long>(blockIdx.x / per_tile) * nb
+                         + b) * H * plane + cy * sq_pad + qx;
 
-  float adk[4][G::kOD], adv[4][G::kOD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < G::kOD; ++c) adk[i][c] = adv[i][c] = 0.0f;
-  const int n_qt = (sq + kTile - 1) / kTile;
-  // the first query tile with a row that sees key0
-  const int qt0 = causal ? max(0, key0 - off) / kTile : 0;
-  for (int hq = 0; hq < qper; ++hq) {
-    const int h = kvh * qper + hq;
-    const long long qbase = static_cast<long long>(b) * sq * qrs + h * DH;
-    const long long rbase = (static_cast<long long>(b) * H + h) * sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();                 // the last tile's reads are done
-      load_tile<T, DH>(sQ, q + qbase, qrs, q0, sq);
-      load_tile<T, DH>(sO, dout + qbase, qrs, q0, sq);
-      load_rows(sL, sD, lse + rbase, dsum + rbase, q0, sq);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<DH>(s, sQ, sK, ty, tx);
-      tile_dot<DH>(dp, sO, sV, ty, tx);
-      softmax_grad(s, dp, sL, sD, q0, key0, sq, skv, causal, scale_log2, ty,
-                   tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sPT[(tx + 16 * j) * kTS + ty + 16 * i] = s[i][j];
-          sDST[(tx + 16 * j) * kTS + ty + 16 * i] = dp[i][j];
-        }
-      __syncthreads();
-      tile_acc<DH>(adv, sPT, sO, ty, tx);
-      tile_acc<DH>(adk, sDST, sQ, ty, tx);
+  // step s's head and first row
+  auto step_at = [&](int s, int& h, int& q0) {
+    const int item = lo + s / kSub;
+    h = kvh * qper + item / n_vis;
+    q0 = (qt0 + item % n_vis) * kF32Rows + (s % kSub) * ST;
+  };
+  // load n of the stream into slot n % kF32Slots: Q_{n/2} and its rows'
+  // lse2 (n even) or dO_{n/2} and D (n odd); one commit group a load
+  auto fetch = [&](int n) {
+    if (n < 2 * n_steps) {
+      int h, q0;
+      step_at(n >> 1, h, q0);
+      float* slot = ring + (n % kF32Slots) * G::kSlot;
+      fetch_rows<DH>(slot, ((n & 1) ? dout : q) +
+                               static_cast<long long>(b) * sq * qrs + h * DH,
+                     qrs, q0, sq);
+      if (threadIdx.x < ST / 4)          // rows padded: always in range
+        cp_async16(smem_u32(slot + ST * G::kS + 4 * threadIdx.x),
+                   ((n & 1) ? dsum : lse2) +
+                       (static_cast<long long>(b) * H + h) * sq_pad + q0 +
+                       4 * threadIdx.x,
+                   true);
     }
+    cp_async_commit();
+  };
+  fetch(0);
+  stage_t<DH>(kT, k + kbase, krs, key0, skv);
+  stage_t<DH>(vT, v + kbase, krs, key0, skv);
+
+  float adk[kF32Micro][OC], adv[kF32Micro][OC];
+#pragma unroll
+  for (int i = 0; i < kF32Micro; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) adk[i][c] = adv[i][c] = 0.0f;
+  const float* kTt = kT + kF32Micro * ty;
+  const float* vTt = vT + kF32Micro * ty;
+  const int mykey = key0 + kF32Micro * ty;
+
+  for (int s = 0; s < n_steps; ++s) {
+    // Q_s has landed, and every thread is done with step s - 1 (the slots
+    // of dO_{s-1} and Q_{s-1}, P and dS), which the next loads refill
+    cp_async_wait<0>();
+    __syncthreads();
+    fetch(2 * s + 1);                     // dO_s
+    fetch(2 * s + 2);                     // Q_{s+1}
+    int h, q0;
+    step_at(s, h, q0);
+    const float* tQ = ring + ((2 * s) % kF32Slots) * G::kSlot;
+    const float* tO = ring + ((2 * s + 1) % kF32Slots) * G::kSlot;
+    float st[kF32Micro][J], dp[kF32Micro][J];
+    dot_t<DH>(st, kTt, tQ + tx * G::kS);            // S^T = K Q^T
+    cp_async_wait<1>();                   // dO_s has landed
+    __syncthreads();
+    dot_t<DH>(dp, vTt, tO + tx * G::kS);            // dP^T = V dO^T
+    // P = exp2(S scale_log2 - lse2), 0 where hidden (the mask only where
+    // the tile's keys cross the step's diagonal; rows past sq have lse2 =
+    // +inf); dS = P (dP - D)
+    const bool masked = causal && key0 + kF32Keys - 1 > q0 + off;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int r = tx + 16 * j;
+      const float l2 = tQ[ST * G::kS + r], d = tO[ST * G::kS + r];
+#pragma unroll
+      for (int i = 0; i < kF32Micro; ++i) {
+        float p = exp2f(__fmaf_rn(st[i][j], scale_log2, -l2));
+        if (masked && mykey + i > q0 + r + off) p = 0.0f;
+        st[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - d);
+      }
+    }
+    store_t<DH>(sP + tx * G::kT + kF32Micro * ty, st);
+    store_t<DH>(sDS + tx * G::kT + kF32Micro * ty, dp);
+    __syncthreads();
+    acc_rows<DH>(adv, sP + kF32Micro * ty, tO + G::kVW * tx);  // dV += P^T dO
+    acc_rows<DH>(adk, sDS + kF32Micro * ty, tQ + G::kVW * tx); // dK += dS^T Q
+    float pq[G::kDqC][G::kDqR];                                // dS K
+    dq_part<DH>(pq, kT + cy * G::kT, sDS + qx * G::kT);
+    float* dst = dqp_kt + h * plane + q0;
+#pragma unroll
+    for (int i = 0; i < G::kDqC; ++i)
+#pragma unroll
+      for (int j = 0; j < G::kDqR; ++j)
+        dst[i * G::kCG * sq_pad + j * G::kQG] = pq[i][j];
   }
-  store_rows<T, DH>(dk + kbase, krs, key0, skv, adk, scale, ty, tx);
-  store_rows<T, DH>(dv + kbase, krs, key0, skv, adv, 1.0f, ty, tx);
+  cp_async_wait<0>();                     // nothing left in flight
+  if (split == 1) {
+    store_out<DH>(dk + kbase + static_cast<long long>(key0) * krs, krs,
+                  skv - key0, tx, ty, adk, scale);
+    store_out<DH>(dv + kbase + static_cast<long long>(key0) * krs, krs,
+                  skv - key0, tx, ty, adv, 1.0f);
+  } else {
+    const long long n_elem = static_cast<long long>(nb) * skv * KV * DH;
+    float* pk = part + 2 * sp * n_elem + kbase +
+                static_cast<long long>(key0) * krs;
+    store_out<DH>(pk, krs, skv - key0, tx, ty, adk, 1.0f);
+    store_out<DH>(pk + n_elem, krs, skv - key0, tx, ty, adv, 1.0f);
+  }
 }
 
-// one CTA per (query tile, head, batch): dQ of its 64 rows over the key
-// tiles they see
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dsum, T* __restrict__ dq, int sq,
-                 int skv, int H, int KV, int causal, float scale,
-                 float scale_log2) {
-  using G = BwdGeo<DH>;
-  extern __shared__ float4 smem_f4[];
-  float* sQ = reinterpret_cast<float*>(smem_f4);
-  float* sO = sQ + G::kTileF;              // do
-  float* sK = sO + G::kTileF;
-  float* sV = sK + G::kTileF;
-  float* sDS = sV + G::kTileF;             // dS: query rows, key columns
-  float* sL = sDS + kTile * kTS;
-  float* sD = sL + kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV), off = skv - sq;
-  const long long krs = static_cast<long long>(KV) * DH;
-  const long long qrs = static_cast<long long>(H) * DH;
-  const long long kbase = static_cast<long long>(b) * skv * krs + kvh * DH;
-  const long long qbase = static_cast<long long>(b) * sq * qrs + h * DH;
-  const long long rbase = (static_cast<long long>(b) * H + h) * sq;
-  load_tile<T, DH>(sQ, q + qbase, qrs, q0, sq);
-  load_tile<T, DH>(sO, dout + qbase, qrs, q0, sq);
-  load_rows(sL, sD, lse + rbase, dsum + rbase, q0, sq);
-
-  float adq[4][G::kOD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < G::kOD; ++c) adq[i][c] = 0.0f;
-  int kend = skv;                          // keys any row of the tile sees
-  if (causal) kend = min(skv, q0 + kTile + off);
-  const int n_kt = kend > 0 ? (kend + kTile - 1) / kTile : 0;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int key0 = kt * kTile;
-    __syncthreads();                   // the last tile's reads are done
-    load_tile<T, DH>(sK, k + kbase, krs, key0, skv);
-    load_tile<T, DH>(sV, v + kbase, krs, key0, skv);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<DH>(s, sQ, sK, ty, tx);
-    tile_dot<DH>(dp, sO, sV, ty, tx);
-    softmax_grad(s, dp, sL, sD, q0, key0, sq, skv, causal, scale_log2, ty,
-                 tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sDS[(ty + 16 * i) * kTS + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    tile_acc<DH>(adq, sDS, sK, ty, tx);
+// dK and dV of split > 1: the parts summed in their order, dK times scale;
+// four elements a thread a step
+__global__ void __launch_bounds__(256)
+fa_bwd_reduce_f32_kernel(const float* __restrict__ part,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         long long n_elem, int split, float scale) {
+  const long long step = static_cast<long long>(gridDim.x) * 256 * 4;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  for (long long i = first; i < n_elem; i += step) {
+    float4 k = *reinterpret_cast<const float4*>(part + i);
+    float4 v = *reinterpret_cast<const float4*>(part + n_elem + i);
+    for (int s = 1; s < split; ++s) {
+      const float4 pk =
+          *reinterpret_cast<const float4*>(part + 2 * s * n_elem + i);
+      const float4 pv =
+          *reinterpret_cast<const float4*>(part + (2 * s + 1) * n_elem + i);
+      k.x += pk.x; k.y += pk.y; k.z += pk.z; k.w += pk.w;
+      v.x += pv.x; v.y += pv.y; v.z += pv.z; v.w += pv.w;
+    }
+    *reinterpret_cast<float4*>(dk + i) =
+        make_float4(k.x * scale, k.y * scale, k.z * scale, k.w * scale);
+    *reinterpret_cast<float4*>(dv + i) = v;
   }
-  store_rows<T, DH>(dq + qbase, qrs, q0, sq, adq, scale, ty, tx);
 }
 
-template <typename T, int DH>
-int launch(const T* q, const T* k, const T* v, const T* o, const float* lse,
-           const T* dout, T* dq, T* dk, T* dv, float* dsum, int b, int sq,
-           int skv, int H, int KV, int causal, cudaStream_t stream) {
-  using G = BwdGeo<DH>;
+// dq[b, i, h, :] = scale * the sum of dqp[kt, b, h, :, i] over the key
+// tiles kt that see row i's query tile of 64 (the ones whose dK/dV steps
+// wrote it), in kt order: a block a (32 rows, head, batch), read along the
+// rows and written along the columns through shared memory
+template <int DH>
+__global__ void __launch_bounds__(256)
+fa_bwd_dq_reduce_f32_kernel(const float* __restrict__ dqp,
+                            float* __restrict__ dq, int nb, int sq, int skv,
+                            int H, int sq_pad, int causal, float scale) {
+  __shared__ float tile[DH][kF32DqRows + 1];
+  const int q0 = blockIdx.x * kF32DqRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_kt = (skv + kF32Keys - 1) / kF32Keys, off = skv - sq;
+  int kts = n_kt;                  // as fa_bwd_dkdv_f32_kernel's qt0
+  if (causal) {
+    kts = 0;
+    while (kts < n_kt &&
+           max(0, kts * kF32Keys - off) / kF32Rows <= q0 / kF32Rows)
+      ++kts;
+  }
+  const long long plane = static_cast<long long>(DH) * sq_pad;
+  const long long kt_stride = static_cast<long long>(nb) * H * plane;
+  const float* src =
+      dqp + (static_cast<long long>(b) * H + h) * plane + q0;
+  const int lane = threadIdx.x % kF32DqRows;
+  for (int c = threadIdx.x / kF32DqRows; c < DH;
+       c += 256 / kF32DqRows) {
+    float acc = 0.0f;
+    for (int kt = 0; kt < kts; ++kt)
+      acc += src[kt * kt_stride + static_cast<long long>(c) * sq_pad + lane];
+    tile[c][lane] = acc * scale;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kF32DqRows * DH; e += 256) {
+    const int r = e / DH, c = e % DH;
+    if (q0 + r < sq)
+      dq[((static_cast<long long>(b) * sq + q0 + r) * H + h) * DH + c] =
+          tile[c][r];
+  }
+}
+
+template <int DH>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* o, const float* lse, const float* dout, float* dq,
+               float* dk, float* dv, float* work, int b, int sq, int skv,
+               int H, int KV, int causal, int split, cudaStream_t stream) {
+  using G = F32Bwd<DH>;
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   const float scale_log2 = kLog2e * scale;
-  const long long rows = static_cast<long long>(b) * sq * H;
-  const long long warps_per_block = kThreads / 32;
-  fa_bwd_dsum_kernel<T, DH>
-      <<<static_cast<unsigned>((rows + warps_per_block - 1) / warps_per_block),
-         kThreads, 0, stream>>>(o, dout, dsum, rows, sq, H);
+  const int sq_pad = (sq + kF32RowPad - 1) / kF32RowPad * kF32RowPad;
+  const long long rows = static_cast<long long>(b) * H * sq_pad;
+  const long long n_elem = static_cast<long long>(b) * skv * KV * DH;
+  float* lse2 = work;
+  float* dsum = work + rows;
+  float* part = dsum + rows;
+  float* dqp = part + (split > 1 ? 2 * split * n_elem : 0);
+  fa_bwd_prep_f32_kernel<DH><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                               stream>>>(o, dout, lse, lse2, dsum, rows, sq,
+                                         H, sq_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<T, DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             G::kSmemDkdv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<T, DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             G::kSmemDq);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (skv > 0) {
-    const dim3 grid_kv((skv + kTile - 1) / kTile, KV, b);
-    fa_bwd_dkdv_kernel<T, DH><<<grid_kv, kThreads, G::kSmemDkdv, stream>>>(
-        q, k, v, dout, lse, dsum, dk, dv, sq, skv, H, KV, causal, scale,
-        scale_log2);
+    err = cudaFuncSetAttribute(fa_bwd_dkdv_f32_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long ctas = static_cast<long long>(
+        (skv + kF32Keys - 1) / kF32Keys) * KV * b * split;
+    fa_bwd_dkdv_f32_kernel<DH>
+        <<<static_cast<unsigned>(ctas), kF32Threads, G::kSmem, stream>>>(
+            q, k, v, dout, lse2, dsum, dk, dv, part, dqp, b, sq, skv, H, KV,
+            sq_pad, causal, split, scale, scale_log2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (split > 1) {
+      const long long blocks = (n_elem / 4 + 255) / 256;
+      fa_bwd_reduce_f32_kernel<<<static_cast<unsigned>(
+                                     blocks < 4096 ? blocks : 4096),
+                                 256, 0, stream>>>(part, dk, dv, n_elem,
+                                                   split, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
-  const dim3 grid_q((sq + kTile - 1) / kTile, H, b);
-  fa_bwd_dq_kernel<T, DH><<<grid_q, kThreads, G::kSmemDq, stream>>>(
-      q, k, v, dout, lse, dsum, dq, sq, skv, H, KV, causal, scale,
-      scale_log2);
+  const dim3 grid((sq + kF32DqRows - 1) / kF32DqRows, H, b);
+  fa_bwd_dq_reduce_f32_kernel<DH><<<grid, 256, 0, stream>>>(
+      dqp, dq, b, sq, skv, H, sq_pad, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const void* o,
-              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-              void* dsum, int b, int sq, int skv, int H, int KV, int dh,
-              int causal, void* stream) {
-  if (b <= 0 || sq <= 0 || H <= 0 || KV <= 0 || H % KV) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const T*>(q);
-  const auto* kp = static_cast<const T*>(k);
-  const auto* vp = static_cast<const T*>(v);
-  const auto* op = static_cast<const T*>(o);
-  const auto* gp = static_cast<const T*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  auto* dqp = static_cast<T*>(dq);
-  auto* dkp = static_cast<T*>(dk);
-  auto* dvp = static_cast<T*>(dv);
-  auto* dsp = static_cast<float*>(dsum);
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(qp, kp, vp, op, lp, gp, dqp, dkp, dvp, dsp, b, sq,
-                           skv, H, KV, causal, s);
-    case 64:
-      return launch<T, 64>(qp, kp, vp, op, lp, gp, dqp, dkp, dvp, dsp, b, sq,
-                           skv, H, KV, causal, s);
-    case 128:
-      return launch<T, 128>(qp, kp, vp, op, lp, gp, dqp, dkp, dvp, dsp, b,
-                            sq, skv, H, KV, causal, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1101,20 +1265,35 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 }  // namespace
 
-#define FA_BWD_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* q, const void* k, const void* v,          \
-                      const void* o, const void* lse, const void* dout,     \
-                      void* dq, void* dk, void* dv, void* dsum, int b,      \
-                      int sq, int skv, int H, int KV, int dh, int causal,   \
-                      void* stream) {                                       \
-    return launch_dh<T>(q, k, v, o, lse, dout, dq, dk, dv, dsum, b, sq,     \
-                        skv, H, KV, dh, causal, stream);                    \
+// work (both dtypes): float32, 2 b H sq_pad floats (lse2, D) and, when
+// split > 1, 2 split b skv KV dh more (the dK/dV parts); sq_pad = sq
+// rounded up to 128
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* work, int b, int sq, int skv, int H, int KV, int dh, int causal,
+    int split, void* stream) {
+  if (b <= 0 || sq <= 0 || H <= 0) return 0;
+  if (KV <= 0 || H % KV || split < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto launch) {
+    return launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(o),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(dout), static_cast<float*>(dq),
+                  static_cast<float*>(dk), static_cast<float*>(dv),
+                  static_cast<float*>(work), b, sq, skv, H, KV, causal, split,
+                  s);
+  };
+  switch (dh) {
+    case 32: return go(launch_f32<32>);
+    case 64: return go(launch_f32<64>);
+    case 128: return go(launch_f32<128>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
 
-FA_BWD_ENTRY(flash_attention_bwd_f32, float)
-
-// work: float32, 2 b H sq_pad floats (lse2, D) and, when split > 1,
-// 2 split b skv KV dh more (the dK/dV parts); sq_pad = sq rounded up to 128
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,

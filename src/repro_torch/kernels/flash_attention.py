@@ -23,12 +23,17 @@ scaled scores (float32 ``(b, H, sq)``, natural log), and
 ``flash_attention_bwd(q, k, v, o, lse, do, causal)`` returns ``(dq, dk,
 dv)`` in q's dtype through ``csrc/flash_attention_bwd.cu``, or for CPU
 tensors through ``flash_attention_bwd_plain``, the same formulas in plain
-PyTorch.  No atomics: two launches give the same bits.  bfloat16 runs
-FlashAttention-3's backward on ``wgmma`` and TMA at every head dim (a dK/dV
-kernel whose CTAs ``bwd_plan`` splits over a KV head's query heads and
-tiles, float32 partials summed in a fixed order, and a dQ kernel); float32
-runs FlashAttention-2's backward on the SIMT FMA pipes, which keep the
-digits the float32 card-vs-host checks hold.
+PyTorch.  No atomics: two launches give the same bits.  Both dtypes take
+one launch plan (``bwd_plan``): a dK/dV kernel whose CTAs own 128 keys and
+are split over a KV head's (query head, query tile) pairs, float32
+partials summed in a fixed order.  bfloat16 runs FlashAttention-3's
+backward on ``wgmma`` and TMA at every head dim, with a dQ kernel of
+128-row CTAs; float32 (the vlm's cross-attention and whisper's encoder and
+cross-attention, whose float32 memory promotes them) runs FlashAttention-2's
+backward register-tiled on the SIMT FMA pipes, which keep the digits the
+float32 card-vs-host checks hold: its dK/dV kernel also writes each key
+tile's share of dQ, which a reduction sums in key-tile order, so S and dP
+are computed once.
 ``FlashAttentionFn`` is the ``torch.autograd.Function`` over the two, which
 ``ops.flash_attention`` takes when a gradient is wanted.  Under grad mode
 the bare wrappers refuse a CUDA input that requires grad: a kernel's output
@@ -45,8 +50,9 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 128)          # the kernel's instantiations
 BLOCK_Q = 128                      # query rows of one bf16 work item
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the bf16 backward's tiles: csrc/flash_attention_bwd.cu's kDkdvKeys,
-# kDkdvRows, kDqRows, kDqKeys and kRowPad
+# the backward's tiles: csrc/flash_attention_bwd.cu's kDkdvKeys, kDkdvRows,
+# kDqRows, kDqKeys and kRowPad (bf16), kF32Keys, kF32Rows and kF32RowPad
+# (float32, whose dK/dV kernel also writes each key tile's dQ partial)
 BWD_KEYS = 128                     # keys of a dK/dV CTA
 BWD_ROWS = 64                      # query rows of a dK/dV step
 BWD_DQ_ROWS = 128                  # query rows of a dQ CTA
@@ -56,6 +62,12 @@ BWD_ROW_PAD = 128                  # lse2 and D rows padded to
 # CTAs an SM, in at most _MAX_SPLIT parts
 _SPLIT_WAVES = 2
 _MAX_SPLIT = 8
+# float32 (one CTA an SM, each a long run): a grid of fewer CTAs than SMs
+# is split for this many CTAs an SM (the causal mask's uneven CTAs balance
+# better in smaller parts), and the split is raised until the grid's last
+# wave leaves at most _F32_WAVE_SLACK of its waves' CTA slots idle
+_F32_SPLIT_WAVES = 4
+_F32_WAVE_SLACK = 0.05
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -165,7 +177,7 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """The bf16 backward's launch at one shape (``bwd_plan``): the dK/dV
+    """The backward's launch at one shape (``bwd_plan``): the dK/dV
     grid is (key tile, KV head, batch, part) with the key tile slowest, each
     part a run of its key tile's (group head, visible query tile) pairs;
     the dQ grid is (query tile, head, batch) with the head fastest.  Under
@@ -177,6 +189,7 @@ class BwdPlan:
     KV: int
     dh: int
     split: int
+    simt: bool = False
 
     @property
     def sq_pad(self) -> int:
@@ -197,10 +210,13 @@ class BwdPlan:
     @property
     def work_floats(self) -> int:
         """float32 scratch: lse2 and D (b, H, sq_pad), then the dK/dV
-        parts (split, 2, b, skv, KV, dh) when split > 1."""
+        parts (split, 2, b, skv, KV, dh) when split > 1, then for the
+        float32 kernel each key tile's dQ partial (key tiles, b, H, dh,
+        sq_pad)."""
         rows = self.b * self.H * self.sq_pad
         parts = 2 * self.split * self.b * self.skv * self.KV * self.dh
-        return 2 * rows + (parts if self.split > 1 else 0)
+        dq = self.key_tiles * rows * self.dh if self.simt else 0
+        return 2 * rows + (parts if self.split > 1 else 0) + dq
 
     @property
     def scratch_bytes(self) -> int:
@@ -242,20 +258,31 @@ class BwdPlan:
 
 
 def bwd_plan(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
-             sms: int, causal: bool = True) -> BwdPlan:
-    """The bf16 backward's plan on a card of ``sms`` SMs: a dK/dV grid that
+             sms: int, causal: bool = True, simt: bool = False) -> BwdPlan:
+    """The backward's plan on a card of ``sms`` SMs: a dK/dV grid that
     would leave SMs idle is split over each KV head's (query head, query
     tile) pairs into ``split`` parts, enough for ``_SPLIT_WAVES`` CTAs an
     SM, at most ``_MAX_SPLIT`` and no more than the lightest key tile has
-    pairs (so that no part is empty)."""
-    plan = BwdPlan(b, sq, skv, H, KV, dh, 1)
+    pairs (so that no part is empty).  ``simt`` (the float32 kernels, one
+    CTA an SM): ``_F32_SPLIT_WAVES`` CTAs an SM instead, and the split is
+    then raised, within the same limits, until the last wave of CTAs
+    leaves at most ``_F32_WAVE_SLACK`` of the waves' slots idle (at the
+    vlm's cross shape 416 CTAs fill 3.15 waves of 132 and leave the fourth
+    85 % idle; 4 parts fill 12.6 of 13)."""
+    plan = BwdPlan(b, sq, skv, H, KV, dh, 1, simt)
     base = plan.dkdv_ctas
-    if base == 0 or base >= sms:
+    if base == 0:
         return plan
     lightest = H // KV * len(plan.visible_query_tiles(plan.key_tiles - 1,
                                                       causal))
-    split = min(_cdiv(_SPLIT_WAVES * sms, base), _MAX_SPLIT, lightest)
-    return dataclasses.replace(plan, split=max(split, 1))
+    cap = max(min(_MAX_SPLIT, lightest), 1)
+    waves = _F32_SPLIT_WAVES if simt else _SPLIT_WAVES
+    split = 1 if base >= sms else min(_cdiv(waves * sms, base), cap)
+    if simt:
+        while split < cap and base * split / sms / _cdiv(
+                base * split, sms) < 1.0 - _F32_WAVE_SLACK:
+            split += 1
+    return dataclasses.replace(plan, split=max(split, 1), simt=simt)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -304,8 +331,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True):
     """(dq, dk, dv) of ``flash_attention_bshd`` at (q, k, v) given its
     output o, its lse and the output's gradient do; q's dtype.  On the card
-    bfloat16 takes the wgmma kernels with ``bwd_plan``'s split (float32
-    scratch for lse2, D and the dK/dV parts), float32 the SIMT ones."""
+    bfloat16 takes the wgmma kernels, float32 the SIMT ones, both with
+    ``bwd_plan``'s split and its float32 scratch (lse2, D and the dK/dV
+    parts)."""
     _check(q, k, v, causal)
     b, sq, H, dh = q.shape
     skv, KV = k.shape[1], k.shape[2]
@@ -333,21 +361,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
                              f"aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.dtype == torch.bfloat16:
-        plan = bwd_plan(b, sq, skv, H, KV, dh,
-                        build.sm_count(q.device.index), causal)
-        work = torch.empty(plan.work_floats, dtype=torch.float32,
-                           device=q.device)
-        split = (plan.split,)
-    else:                                   # D (b, H, sq)
-        work = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
-        split = ()
+    plan = bwd_plan(b, sq, skv, H, KV, dh, build.sm_count(q.device.index),
+                    causal, simt=q.dtype == torch.float32)
+    work = torch.empty(plan.work_floats, dtype=torch.float32,
+                       device=q.device)
     fn = getattr(build.library("flash_attention_bwd"),
                  f"flash_attention_bwd_{_NAMES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
                                             work)),
-                   b, sq, skv, H, KV, dh, int(bool(causal)), *split, stream),
+                   b, sq, skv, H, KV, dh, int(bool(causal)), plan.split,
+                   stream),
                 "flash_attention_bwd")
     build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

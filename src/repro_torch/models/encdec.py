@@ -16,7 +16,11 @@ The parameter names mirror the reference's tree: ``embed.*``,
 (``models.convert.params_from_jax`` splits the reference's stacked
 ``enc_layers`` / ``dec_layers`` leaves).
 
-Entry points, as ``transformer.LM``'s: ``prefill(batch)`` with ``frames``
+Entry points, as ``transformer.LM``'s: ``loss(batch)`` with ``frames``,
+``tokens`` and ``labels`` -> ``(loss, {"loss", "aux_loss": 0})`` (no
+auxiliary term, as the reference's), each encoder and decoder layer
+recomputed in the backward when ``cfg.remat`` and ``kind == "train"``;
+``prefill(batch)`` with ``frames``
 and ``tokens`` -> ``(last-token float32 logits, caches)``, the caches
 ``{"self": {"k", "v"}, "cross": {"k", "v"}}`` stacked over decoder layers;
 ``decode_step(caches, tokens, t)`` writes the new token's self-attention k
@@ -35,8 +39,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
-from repro_torch.models.common import ONE_DEVICE, Topo
-from repro_torch.models.layers import Embedding, Mlp, Norm
+from repro_torch.models.common import ONE_DEVICE, Topo, maybe_remat
+from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.transformer import (ModelBase, SubLayer,
                                             apply_sublayer, decode_sublayer)
 
@@ -115,21 +119,63 @@ class EncDecLM(ModelBase):
                                device=dev, dtype=dtype)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def encode(self, frames) -> torch.Tensor:
+    @staticmethod
+    def _enc_layer(layer: nn.ModuleDict, h: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+        for sub in layer.values():
+            h = h + apply_sublayer(sub, sub.norm(h), pos)[0]
+        return h
+
+    @staticmethod
+    def _dec_layer(layer: nn.ModuleDict, h: torch.Tensor, pos: torch.Tensor,
+                   enc: torch.Tensor) -> torch.Tensor:
+        """A training decoder layer: self-attention, cross-attention over
+        ``enc``, the MLP."""
+        for name in ("dec_self", "dec_cross"):
+            sub = layer[name]
+            h = h + sub.core(sub.norm(h), pos, memory=enc)
+        sub = layer["dec_mlp"]
+        return h + sub.core(sub.norm(h))
+
+    def _encode(self, frames) -> torch.Tensor:
         """frames (b, s_enc, d) stub embeddings -> the encoder's output, in
-        the dtype the frames promote to."""
+        the dtype the frames promote to, with its graph."""
         h = torch.as_tensor(frames, device=self.device)
         pos = torch.arange(h.shape[1], device=self.device)
         h = h + sinusoidal(pos, self.cfg.d_model)[None].to(h.dtype)
+        layer_fn = maybe_remat(self._enc_layer,
+                               self.cfg.remat and self.kind == "train")
         for layer in self.enc_layers:
-            for sub in layer.values():
-                h = h + apply_sublayer(sub, sub.norm(h), pos)[0]
+            h = layer_fn(layer, h, pos)
         return self.enc_final_norm(h)
+
+    @torch.no_grad()
+    def encode(self, frames) -> torch.Tensor:
+        """``_encode`` without a graph (serving)."""
+        return self._encode(frames)
 
     def _embed(self, tokens: torch.Tensor, positions: torch.Tensor):
         h = self.embed.embed(tokens)
         return h + sinusoidal(positions, self.cfg.d_model).to(h.dtype)
+
+    def loss(self, batch: dict):
+        """batch {"frames": (b, m, d), "tokens", "labels": (b, s)} ->
+        (loss, {"loss": the mean cross-entropy, "aux_loss": 0}), float32
+        scalars, the loss with its graph."""
+        cfg = self.cfg
+        enc = self._encode(batch["frames"])
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        pos = torch.arange(tokens.shape[1], device=self.device)
+        h = self._embed(tokens, pos)
+        layer_fn = maybe_remat(self._dec_layer,
+                               cfg.remat and self.kind == "train")
+        for layer in self.dec_layers:
+            h = layer_fn(layer, h, pos, enc)
+        h = self.final_norm(h)
+        loss = chunked_ce_loss(self.embed, h, labels, cfg.vocab_size)
+        return loss, {"loss": loss, "aux_loss": torch.zeros(
+            (), dtype=torch.float32, device=self.device)}
 
     @torch.no_grad()
     def prefill(self, batch: dict):

@@ -9,9 +9,10 @@ reference's tree: ``embed.table``, ``final_norm.scale``,
 
 Entry points:
   * ``loss(batch)``: training, ``(loss + 0.01 aux, {"loss", "aux_loss"})``
-    for the dense and moe families (MoE and MLA), each layer recomputed in
-    the backward when ``cfg.remat`` and ``kind == "train"``; the ssm,
-    hybrid and vlm families raise (``TRAINING_NOT_PORTED``);
+    for the dense, moe (MoE and MLA) and vlm families (a vlm's batch
+    carries its ``image_embeds``), each layer recomputed in the backward
+    when ``cfg.remat`` and ``kind == "train"``; the ssm and hybrid
+    families raise (``TRAINING_NOT_PORTED``);
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference; a vlm's batch carries its
     ``image_embeds`` (b, num_image_tokens, d), the memory of its
@@ -47,12 +48,10 @@ from repro_torch.models.ssm import MambaBlock
 
 
 # families whose training is not ported: their forward reaches a kernel
-# with no backward yet (ssm_scan), or is not held against the reference's
-# loss yet (the vlm's gated cross-attention)
+# with no backward yet (ssm_scan)
 TRAINING_NOT_PORTED = {
     "ssm": "the ssm_scan kernel has no backward yet",
     "hybrid": "the ssm_scan kernel has no backward yet",
-    "vlm": "vlm training is not held against the reference yet",
 }
 
 
@@ -270,9 +269,10 @@ class LM(ModelBase):
         return h, kvs
 
     def _train_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
-                     positions: torch.Tensor):
-        """One layer's sublayers over the residual stream: (h, the layer's
-        MoE load-balancing loss, float32)."""
+                     positions: torch.Tensor, memory=None):
+        """One layer's sublayers over the residual stream (a vlm's cross
+        sublayer over ``memory``, gated): (h, the layer's MoE
+        load-balancing loss, float32)."""
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for name, kind in self.period_kinds:
             sub = layer[name]
@@ -282,15 +282,18 @@ class LM(ModelBase):
                 aux = aux + aux_i
             elif kind in ("attn", "mla"):
                 out = sub.core(x, positions)
+            elif kind == "cross":
+                out = sub.gate_out(sub.core(x, positions, memory=memory))
             else:                                            # mlp
                 out = sub.core(x)
             h = h + out
         return h, aux
 
     def loss(self, batch: dict):
-        """batch {"tokens", "labels": (b, s)} -> (loss + 0.01 aux, {"loss":
-        the mean cross-entropy, "aux_loss": the MoE layers' summed
-        load-balancing loss}), float32 scalars with their graph."""
+        """batch {"tokens", "labels": (b, s)[, "image_embeds": (b, m, d)]}
+        -> (loss + 0.01 aux, {"loss": the mean cross-entropy, "aux_loss":
+        the MoE layers' summed load-balancing loss}), float32 scalars with
+        their graph."""
         cfg = self.cfg
         if cfg.family in TRAINING_NOT_PORTED:
             raise NotImplementedError(
@@ -301,11 +304,12 @@ class LM(ModelBase):
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         h = self.embed.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
+        memory = self._memory(batch)
         layer_fn = maybe_remat(self._train_layer,
                                cfg.remat and self.kind == "train")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            h, aux_i = layer_fn(layer, h, positions)
+            h, aux_i = layer_fn(layer, h, positions, memory)
             aux = aux + aux_i
         h = self.final_norm(h)
         loss = chunked_ce_loss(self.embed, h, labels, cfg.vocab_size)

@@ -1064,6 +1064,42 @@ def test_flash_attention_backward_close_to_plain(cuda, b, sq, skv, H, KV, dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", [
+    (4, 1024, 1024, 32, 2, 128, True),   # glm4-9b's heads
+    (1, 4096, 4096, 32, 2, 128, True),   # train_4k's sequence
+    (4, 1024, 1024, 24, 8, 64, True),    # granite-moe's heads
+    (4, 1024, 1600, 32, 8, 128, False),  # the vlm's cross-attention
+    (4, 1024, 1024, 16, 16, 64, False),  # whisper's encoder and cross
+    (2, 300, 700, 32, 8, 128, False),    # ragged: sq, skv off the tiles
+    (2, 300, 700, 16, 16, 64, False),
+    (1, 333, 333, 16, 4, 64, True),      # ragged causal
+])
+def test_float32_flash_backward_at_the_cross_and_training_shapes(
+        cuda, b, sq, skv, H, KV, dh, causal):
+    """The float32 backward (SIMT kernels) at the shapes phase 19 times and
+    at ragged ones, within 1e-4 of its plain twin; two launches bitwise
+    equal."""
+    from repro_torch.kernels import (flash_attention_bshd,
+                                     flash_attention_bwd,
+                                     flash_attention_bwd_plain)
+    dtype = torch.float32
+    q, k, v = _attn_inputs(cuda, b, sq, skv, H, KV, dh, dtype)
+    do = torch.randn((b, sq, H, dh), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(9))
+    o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, **BWD_TOL[dtype])
+    del want
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for g, a in zip(got, again):                     # no atomics
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(4096, 4096), (7, 100), (300, 384),
                                  (1, 4096), (33, 5120), (5, 8192),
                                  (4096, 512), (4096, 1536),

@@ -81,6 +81,22 @@ def test_bwd_tiles_are_the_cuda_sources():
                      "kRowPad": fa.BWD_ROW_PAD}
 
 
+def test_f32_bwd_tiles_are_the_plan():
+    """The float32 backward takes bwd_plan's launch too: its CTAs' keys, a
+    pair's query rows and the row padding are the plan's."""
+    with open(os.path.join(build.CSRC, "flash_attention_bwd.cu")) as f:
+        src = f.read()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (kF32\w+) = (\d+);", src)}
+    assert {k: consts[k] for k in ("kF32Keys", "kF32Rows",
+                                   "kF32RowPad")} == {
+        "kF32Keys": fa.BWD_KEYS, "kF32Rows": fa.BWD_ROWS,
+        "kF32RowPad": fa.BWD_ROW_PAD}
+    # a step divides a pair's rows and the padding
+    for step in (consts["kF32SmallStep"], consts["kF32BigStep"]):
+        assert fa.BWD_ROWS % step == 0 and fa.BWD_ROW_PAD % step == 0
+
+
 SHAPES = [  # (b, sq, skv, H, KV, dh, causal)
     (4, 1024, 1024, 32, 2, 128, True),      # glm4-9b's training shapes
     (1, 4096, 4096, 32, 2, 128, True),
@@ -181,6 +197,48 @@ def test_bwd_dq_order_covers_every_tile_once_heaviest_first(
         last = min(sq, qt * 128 + 128) - 1
         keys = min(skv, last + (skv - sq) + 1) if causal else skv
         assert n == -(-keys // 64)
+
+
+@pytest.mark.parametrize("b,sq,skv,H,KV,dh,causal", SHAPES + [
+    (4, 1024, 1600, 32, 8, 128, False), (4, 1024, 1024, 16, 16, 64, False)])
+def test_f32_bwd_plan_fills_its_waves_and_covers_every_pair_once(
+        b, sq, skv, H, KV, dh, causal):
+    p = bwd_plan(b, sq, skv, H, KV, dh, 132, causal, simt=True)
+    base = bwd_plan(b, sq, skv, H, KV, dh, 132, causal, simt=False)
+    lightest = H // KV * len(p.visible_query_tiles(p.key_tiles - 1, causal))
+    cap = max(min(fa._MAX_SPLIT, lightest), 1)
+    assert base.split <= p.split <= cap or p.split == base.split == 1
+    ctas = p.dkdv_ctas
+    fill = ctas / 132 / -(-ctas // 132)
+    # the last wave leaves at most the slack idle, unless the cap stops it
+    assert fill >= 1 - fa._F32_WAVE_SLACK or p.split == cap
+    seen = set()
+    for kt, kvh, bi, part, pairs in p.dkdv_order(causal):
+        for h, qt in pairs:
+            assert (kt, bi, h, qt) not in seen
+            seen.add((kt, bi, h, qt))
+    assert len(seen) == sum(H * len(p.visible_query_tiles(kt, causal)) * b
+                            for kt in range(p.key_tiles))
+
+
+def test_f32_bwd_plan_at_the_timed_shapes():
+    """One CTA an SM: the causal training shapes split for four CTAs an SM
+    (capped at 8 parts), the vlm's cross shape raised from 416 CTAs (3.15
+    waves of 132) to 4 parts (12.6 of 13), the full grids left alone."""
+    want = {(4, 1024, 1024, 32, 2, 128, True): (8, 5),   # (float32, bf16)
+            (1, 4096, 4096, 32, 2, 128, True): (8, 5),
+            (4, 1024, 1024, 24, 8, 64, True): (1, 1),
+            (4, 1024, 1600, 32, 8, 128, False): (4, 1),
+            (4, 1024, 1024, 16, 16, 64, False): (1, 1)}
+    for (b, sq, skv, H, KV, dh, causal), splits in want.items():
+        p = bwd_plan(b, sq, skv, H, KV, dh, 132, causal, simt=True)
+        got = (p.split, bwd_plan(b, sq, skv, H, KV, dh, 132, causal).split)
+        assert got == splits, (b, sq, skv, H, KV, dh)
+        # scratch: lse2, D, the dK/dV parts, each key tile's dQ partial
+        rows = b * H * p.sq_pad
+        parts = 2 * p.split * b * skv * KV * dh if p.split > 1 else 0
+        assert p.scratch_bytes == 4 * (2 * rows + parts
+                                       + p.key_tiles * rows * dh)
 
 
 def test_bwd_plan_is_a_value():

@@ -34,7 +34,11 @@ flash_attention_bwd: the bf16 backward at phase 19's timed training
 shapes, glm4-9b's (4, 1024) and (1, 4096) and granite-moe's heads at
 (4, 1024), checked against the plain twin within phase 19's tolerance
 and for two launches bitwise equal, with SDPA's forward + backward timed
-once beside them; rmsnorm_bwd: phase 19's four timed norm shapes,
+once beside them; flash_attention_bwd_f32 (variants of the same source,
+``flash_attention_bwd.cu``): the float32 backward at those three and
+the vlm's cross-attention (4, 1024 x 1600) and whisper's encoder
+(4, 1024), checked so, with SDPA's float32 forward + backward and the
+port's forward with lse timed once beside them; rmsnorm_bwd: phase 19's four timed norm shapes,
 glm4-9b's (4096, 4096), granite-moe's (4096, 1536) and deepseek's latent
 (4096, 512) in bf16 and (4096, 4096) in float32, checked against the
 plain twin within ``BWD_TOL`` and for two launches bitwise equal, with
@@ -73,8 +77,10 @@ from repro_torch.kernels.ssm_scan import ssm_scan_bsd  # noqa: E402
 
 D = 4096
 # the library and the Python module of a source key, where not its own name
-LIBRARY = {"rmsnorm_bwd": "rmsnorm"}
-MODULE = {"flash_attention_bwd": "flash_attention"}
+LIBRARY = {"rmsnorm_bwd": "rmsnorm",
+           "flash_attention_bwd_f32": "flash_attention_bwd"}
+MODULE = {"flash_attention_bwd": "flash_attention",
+          "flash_attention_bwd_f32": "flash_attention"}
 RMSNORM_ROWS = (4000, 2048, 256, 4, 1)   # glm4-9b's prefill and decode rows
 
 
@@ -223,30 +229,38 @@ def flash_attention_cases(dev):
     return cases
 
 
-def bwd_inputs(dev):
-    """(label, q, k, v, o, lse, do, causal) at phase 19's timed bf16
-    training shapes (``chip_smoke.TRAIN_FLASH``)."""
+# the bf16 backward's timed shapes: glm4-9b's and granite-moe's (the float32
+# one's add the vlm's cross-attention and whisper's encoder)
+BF16_BWD_HEADS = (None, cs.GRANITE_HEADS)
+
+
+def bwd_inputs(dev, dtype=torch.bfloat16):
+    """(label, q, k, v, o, lse, do, causal) at phase 19's timed training
+    shapes (``chip_smoke.TRAIN_FLASH``): in bf16 glm4-9b's and
+    granite-moe's, in float32 all five."""
     from repro_torch.kernels import flash_attention_bshd
     for b, sq, skv, heads, causal, timed in cs.TRAIN_FLASH:
-        if not timed:
+        if not timed or (dtype == torch.bfloat16
+                         and heads not in BF16_BWD_HEADS):
             continue
         heads = heads or dict(H=32, KV=2, dh=128)
-        q, k, v = cs.attn_inputs(dev, b, sq, skv, torch.bfloat16,
-                                 31 + sq + skv, **heads)
+        q, k, v = cs.attn_inputs(dev, b, sq, skv, dtype, 31 + sq + skv,
+                                 **heads)
         g = torch.Generator(device=dev).manual_seed(7)
-        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
         o, lse = flash_attention_bshd(q, k, v, causal, with_lse=True)
-        yield (f"({b}, {sq}) {heads['H']}/{heads['KV']} dh {heads['dh']}",
+        yield (f"({b}, {sq}{'' if skv == sq else f' x {skv}'}) "
+               f"{heads['H']}/{heads['KV']} dh {heads['dh']}",
                q, k, v, o, lse, do, causal)
 
 
-def flash_attention_bwd_cases(dev):
+def flash_attention_bwd_cases(dev, dtype=torch.bfloat16):
     """(label, run, check) at ``bwd_inputs``; the check is phase 19's: the
     plain twin within ``BWD_TOL`` and two launches bitwise equal."""
     from repro_torch.kernels import (flash_attention_bwd,
                                      flash_attention_bwd_plain)
     cases = []
-    for label, q, k, v, o, lse, do, causal in bwd_inputs(dev):
+    for label, q, k, v, o, lse, do, causal in bwd_inputs(dev, dtype):
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
 
         def run(args=(q, k, v, o, lse, do, causal)):
@@ -255,11 +269,15 @@ def flash_attention_bwd_cases(dev):
         def ok(run=run, want=want):
             got, again = run(), run()
             return all(torch.allclose(a.float(), w.float(),
-                                      **cs.BWD_TOL[torch.bfloat16])
+                                      **cs.BWD_TOL[dtype])
                        and torch.equal(a, x)
                        for a, w, x in zip(got, want, again))
         cases.append((label, run, ok))
     return cases
+
+
+def flash_attention_bwd_f32_cases(dev):
+    return flash_attention_bwd_cases(dev, torch.float32)
 
 
 def norm_bwd_inputs(dev):
@@ -309,12 +327,19 @@ def add_floor_times(dev, flush) -> dict:
     return out
 
 
-def sdpa_bwd_times(dev, flush) -> dict:
+def sdpa_bwd_times(dev, flush, dtype=torch.bfloat16) -> dict:
     """``scaled_dot_product_attention``'s forward + backward through
     autograd (KV heads repeated, as phase 19 times it) at ``bwd_inputs``,
-    the yardstick beside the backward's variants."""
+    the yardstick beside the backward's variants; and, keyed ``ours
+    forward``, the port's forward with lse (what autograd adds to a
+    variant's backward)."""
+    from repro_torch.kernels import flash_attention_bshd
     out = {}
-    for label, q, k, v, _, _, do, causal in bwd_inputs(dev):
+    for label, q, k, v, _, _, do, causal in bwd_inputs(dev, dtype):
+        if dtype == torch.float32:
+            out[f"ours forward {label}"] = cs.cuda_time_ms(
+                lambda: flash_attention_bshd(q, k, v, causal, with_lse=True),
+                10, flush)
         rep = q.shape[2] // k.shape[2]
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
@@ -399,6 +424,7 @@ def main() -> int:
               "ssm_scan": ssm_scan_cases, "ema_scan": ema_scan_cases,
               "flash_attention": flash_attention_cases,
               "flash_attention_bwd": flash_attention_bwd_cases,
+              "flash_attention_bwd_f32": flash_attention_bwd_f32_cases,
               "rmsnorm_bwd": rmsnorm_bwd_cases}
     if "flash_attention" in spec:
         result["sdpa_f32_ms"] = sdpa_times(dev, flush)
@@ -410,6 +436,14 @@ def main() -> int:
         print("scaled_dot_product_attention bf16 forward + backward: "
               + "  ".join(f"{k} {t:.4f}"
                           for k, t in result["sdpa_fwd_bwd_ms"].items()),
+              flush=True)
+    if "flash_attention_bwd_f32" in spec:
+        result["sdpa_f32_fwd_bwd_ms"] = sdpa_bwd_times(dev, flush,
+                                                       torch.float32)
+        print("scaled_dot_product_attention float32 forward + backward "
+              "(and ours forward with lse): " + "  ".join(
+                  f"{k} {t:.4f}"
+                  for k, t in result["sdpa_f32_fwd_bwd_ms"].items()),
               flush=True)
     if "rmsnorm_bwd" in spec:
         result["add_floor_ms"] = add_floor_times(dev, flush)
