@@ -234,7 +234,20 @@ phase 11):
      repro_torch.launch.train --arch glm4-9b --smoke --steps 6
      --minos-cap powercentric`` on the card must print the reference's cap
      (``MINOS_CAP``), and ``--arch llama-3.2-vision-11b --smoke`` and
-     ``--arch whisper-medium --smoke`` must each train 2 steps there;
+     ``--arch whisper-medium --smoke`` must each train 2 steps there.
+     The selective scan's backward: the ``ssm_scan_bwd`` library's ptxas
+     registers and spills (a spill fails), the kernel against its plain
+     twin at falcon-mamba-7b's training shape (4, 1024, 8192, 16) with bf16
+     x and float32 dt and in float32 (both timed beside the twin and the
+     bound, ``kernels.scan_bwd_work``), at 1 x 1000 (batch 1, an odd s),
+     and with D, h0 and dh_last at (2, 100, 1024, 16) in both dtype pairs,
+     a ragged (3, 77, 1000, 16) and ds = 37 (16 threads a channel): every
+     output within ``SSM_TOL`` of its dtype scaled by max(1, max |plain|),
+     two launches bitwise equal; the reduced falcon-mamba-7b and jamba in
+     float32, 3 steps card vs host as above (the mamba rule: 2L
+     ``ssm_scan`` and L ``ssm_scan_bwd`` for L Mamba sublayers, one norm
+     each), and ``launch.train --arch falcon-mamba-7b --smoke`` and
+     ``--arch jamba-1.5-large-398b --smoke`` 2 steps each on the card;
  20. training glm4-9b at full width on 8 of its 40 layers (2.873 B
      parameters, bfloat16, float32 AdamW moments, seeded init,
      ``SyntheticTokens``): 6 ``Trainer`` steps at 4 x 1024 with
@@ -247,9 +260,14 @@ phase 11):
      + 24 layers, float32 frames: 144 flash, 72 ``flash_attention_bwd``
      launches a step, no rmsnorm) and llama-3.2-vision-11b on 10 of its 40
      layers (3.316 B, 2 gated cross sublayers over 1,600 float32 image
-     embeddings).  With ``--trace``, a glm4-9b and a whisper step are
-     traced (whisper's device time split among the float32 backward and
-     forward, the bf16 flash kernels, GEMMs and elementwise work).
+     embeddings), and falcon-mamba-7b at full width on 8 of its 64 layers
+     (1.375 B parameters, 16.5 GB of train state; the whole model's 87.3
+     GB does not fit): 16 ``ssm_scan``, 8 ``ssm_scan_bwd``, 17 rmsnorm and
+     9 ``rmsnorm_bwd`` launches a step.  With ``--trace``, a glm4-9b, a
+     whisper and a falcon-mamba-7b step are traced (whisper's device time
+     split among the float32 backward and forward, the bf16 flash kernels,
+     GEMMs and elementwise work; falcon-mamba's among the scan's backward
+     and forward, the norms, GEMMs and elementwise work).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -2274,7 +2292,7 @@ def moe_card_vs_host(dev, arch: str, dtype) -> dict:
     want = {"flash_attention": per["flash_attention"],
             "rmsnorm": 9 * per["rmsnorm"], "ssm_scan": 9 * per["ssm_scan"],
             "spike_hist": 0, "ema_scan": 0, "flash_attention_bwd": 0,
-            "rmsnorm_bwd": 0}
+            "rmsnorm_bwd": 0, "ssm_scan_bwd": 0}
     if got != want:
         raise AssertionError(f"reduced {arch} {dtype} on the card launched "
                              f"{got}; 1 prefill + 8 decode steps dictate "
@@ -3880,6 +3898,26 @@ TRAIN_RESUME_AT = 3
 # layers, 0.81 B), each 6 steps at 4 x 1024 without checkpoints
 VLM_TRAIN_LAYERS = 10
 CROSS_TRAIN_SHAPE = (4, 1024)
+# phase 20's ssm cell: falcon-mamba-7b at full width on 8 of its 64 layers
+# (1.375 B parameters, 16.5 GB of train state; all 64 are 87.3 GB), 6 steps
+# at 4 x 1024 without checkpoints.  jamba trains reduced only: one 8-layer
+# period is 90 GB in bf16.
+MAMBA_TRAIN_LAYERS = 8
+# phase 19's ssm_scan_bwd checks: (b, s, di, ds, x dtype, dt dtype, with
+# D, h0 and dh_last, timed): falcon-mamba-7b's training shape (bf16 x as
+# its activations, float32 dt; and float32, the reduced models' card vs
+# host), batch 1 at an odd s, the optional inputs, a ragged shape, and
+# ds = 37 (16 threads a channel)
+TRAIN_SCANS = (
+    (4, 1024, 8192, 16, torch.bfloat16, torch.float32, False, True),
+    (4, 1024, 8192, 16, torch.float32, torch.float32, False, True),
+    (1, 1000, 8192, 16, torch.bfloat16, torch.float32, False, False),
+    (1, 1000, 8192, 16, torch.float32, torch.float32, True, False),
+    (2, 100, 1024, 16, torch.float32, torch.float32, True, False),
+    (2, 100, 1024, 16, torch.bfloat16, torch.bfloat16, True, False),
+    (3, 77, 1000, 16, torch.bfloat16, torch.float32, True, False),
+    (1, 33, 64, 37, torch.float32, torch.float32, True, False),
+)
 # the reference's launcher prints this cap for --arch glm4-9b --smoke
 # --steps 6 --minos-cap powercentric:  PYTHONPATH=src JAX_PLATFORMS=cpu
 # python -m repro.launch.train --arch glm4-9b --smoke --steps 6
@@ -3887,17 +3925,20 @@ CROSS_TRAIN_SHAPE = (4, 1024)
 MINOS_CAP = 0.95
 
 
-def sublayer_launches(attn: int, norms: int, rms: bool) -> dict:
+def sublayer_launches(attn: int, norms: int, rms: bool,
+                      scans: int = 0) -> dict:
     """Launches of one train step with remat and one microbatch over
-    ``attn`` attention sublayers (self or cross) and ``norms`` sublayer
-    norms: each layer's forward runs twice (the step, the recomputation),
-    so 2 flash forwards and one backward an attention sublayer; with
-    RMSNorm 2 forwards and one backward a sublayer norm, plus the final
-    norm's one of each (outside the recomputed layers)."""
+    ``attn`` attention sublayers (self or cross), ``scans`` Mamba
+    sublayers and ``norms`` sublayer norms: each layer's forward runs
+    twice (the step, the recomputation), so 2 flash forwards and one
+    backward an attention sublayer, 2 scans and one scan backward a Mamba
+    sublayer; with RMSNorm 2 forwards and one backward a sublayer norm,
+    plus the final norm's one of each (outside the recomputed layers)."""
     n = (2 * norms + 1, norms + 1) if rms else (0, 0)
     return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
             "rmsnorm": n[0], "rmsnorm_bwd": n[1],
-            "ssm_scan": 0, "spike_hist": 0, "ema_scan": 0}
+            "ssm_scan": 2 * scans, "ssm_scan_bwd": scans, "spike_hist": 0,
+            "ema_scan": 0}
 
 
 def train_launches(num_layers: int) -> dict:
@@ -3912,8 +3953,22 @@ def train_launches_of(cfg) -> dict:
     of ``cross_attn_period`` layers (2L + 2P flash, L + P backward, 2(2L +
     P) + 1 rmsnorm, 2L + P + 1 rmsnorm_bwd for P periods); whisper's
     encoder layers have one attention, its decoder layers two (E + 2D
-    backward, 2(E + 2D) flash) and LayerNorm throughout, so no rmsnorm."""
+    backward, 2(E + 2D) flash) and LayerNorm throughout, so no rmsnorm.
+    The ssm and hybrid families count their sublayers from the model's own
+    period (``transformer.build_period`` on the meta device): a Mamba
+    sublayer 2 scans and one scan backward, an attention sublayer 2 flash
+    and one backward, every sublayer one RMSNorm (falcon-mamba-7b: 2L
+    ``ssm_scan``, L ``ssm_scan_bwd``, 2L + 1 rmsnorm, L + 1
+    ``rmsnorm_bwd``)."""
     L = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.common import ONE_DEVICE
+        from repro_torch.models.transformer import build_period
+        period, n = build_period(cfg, ONE_DEVICE, "train", device="meta")
+        kinds = [sub.kind for sub in period]
+        return sublayer_launches(n * kinds.count("attn"), n * len(kinds),
+                                 cfg.norm_type == "rmsnorm",
+                                 scans=n * kinds.count("mamba"))
     if cfg.family == "vlm":
         p = L // cfg.cross_attn_period
         return sublayer_launches(L + p, 2 * L + p, True)
@@ -4098,6 +4153,97 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
     return r
 
 
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def ssm_bwd_check(dev, flush, card: str, b, s, di, ds, xdtype, dtdtype,
+                  full: bool, timed: bool) -> dict:
+    """The scan's backward kernel against its plain twin at one shape
+    (``scan_inputs``' distributions, unit-scale dy; with ``full`` also D,
+    h0 and dh_last): every output within ``SSM_TOL`` of its dtype with the
+    absolute part scaled by max(1, max |plain|) (dA, dB, dC and dD sum over
+    thousands of steps or channels), two launches bitwise equal; with
+    ``timed``, its time beside the plain twin's (few calls: the twin loops
+    over time twice) and the bound (``kernels.scan_bwd_work``)."""
+    from repro_torch.kernels import (scan_bwd_work, ssm_scan_bwd,
+                                     ssm_scan_bwd_plain)
+    args, h0 = scan_inputs(dev, b, s, di, ds, xdtype, dtdtype,
+                           60 + s + di + ds, full)
+    x, dt, A, B, C, D = args
+    D = D if full else None
+    g = torch.Generator(device=dev).manual_seed(s + ds)
+    dy = torch.randn((b, s, di), generator=g, device=dev).to(xdtype)
+    dh = torch.randn((b, di, ds), generator=g, device=dev) if full else None
+
+    def kernel():
+        return ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh)
+
+    def plain():
+        return ssm_scan_bwd_plain(x, dt, A, B, C, D, h0, dy, dh)
+    got = kernel()
+    sync(dev)
+    want = plain()
+    what = (f"ssm_scan_bwd ({b}, {s}, {di}, {ds}) x "
+            f"{str(xdtype).split('.')[1]} dt {str(dtdtype).split('.')[1]}"
+            + (" with D, h0, dh_last" if full else ""))
+    err = err_scaled = 0.0
+    for name, a, w in zip(SCAN_GRADS, got, want):
+        if w is None:
+            if a is not None:
+                raise AssertionError(f"{what}: {name} given, none wanted")
+            continue
+        tol = SSM_TOL[torch.bfloat16 if a.dtype == torch.bfloat16
+                      else torch.float32]
+        scale = max(1.0, float(w.float().abs().max()))
+        e = close(a, w, dict(rtol=tol["rtol"], atol=tol["atol"] * scale),
+                  f"{what}: {name}")
+        err, err_scaled = max(err, e), max(err_scaled, e / scale)
+    del want
+    again = kernel()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)
+               if a is not None):
+        raise AssertionError(f"{what}: two launches differ")
+    r = dict(b=b, s=s, di=di, ds=ds, dtype=str(xdtype).split(".")[1],
+             dt_dtype=str(dtdtype).split(".")[1], full=full, err=err,
+             err_scaled=err_scaled)
+    log(f"{what} [{card}]: max err {err:.3e} ({err_scaled:.3e} of the "
+        f"scale), two launches bitwise equal")
+    if timed:
+        r.update(scan_bound(scan_bwd_work(b, s, di, ds, x.element_size(),
+                                          dt.element_size(), skip=full,
+                                          h0=full, dh_last=full)))
+        r.update(ms=cuda_time_ms(kernel, 20, flush),
+                 plain_ms=cuda_time_ms(plain, 2, flush))
+        log(f"ssm_scan_bwd ({b}, {s}, {di}, {ds}) x {r['dtype']} dt "
+            f"{r['dt_dtype']} [{card}]: kernel {r['ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bytes']:.4e} B, {r['exps']:.4e} exp, "
+            f"{r['flops']:.4e} flop); no library call")
+    return r
+
+
+def ssm_bwd_report() -> dict:
+    """ptxas's registers, stack and spill bytes for every kernel of the
+    ``ssm_scan_bwd`` library; fails if one spills."""
+    report = build_report("ssm_scan_bwd", ())["ptxas_by_kernel"]
+    kernels = {}
+    for name, r in report.items():
+        m = re.search(r"ssm_scan_bwd\w*?_kernel(?:<[^>]*>|\w*)", name)
+        if m is not None:
+            kernels[m.group(0)] = r
+    for name, r in sorted(kernels.items()):
+        log(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
+            f"bytes stack, {r.get('spill_stores')} / {r.get('spill_loads')} "
+            f"bytes spill stores / loads")
+    if len(kernels) < 9 or any(r.get("spill_stores", 1) or
+                               r.get("spill_loads", 1)
+                               for r in kernels.values()):
+        raise AssertionError(f"ssm_scan_bwd: a kernel spills (or ptxas "
+                             f"reported fewer than its 9): {kernels}")
+    return kernels
+
+
 def seed_checkpoint(cfg, dtype, directory: str, seed: int = 0) -> None:
     """A train state of ``cfg`` at step 0, drawn on the host from ``seed``
     (the port's init, zero moments; a vlm's gates drawn away from 0 by
@@ -4199,10 +4345,12 @@ def train_card_vs_host_arch(dev, arch: str, workdir: str) -> dict:
 def train_card_vs_host(dev, workdir: str) -> dict:
     """``train_card_vs_host_arch`` for the reduced glm4-9b, vlm (its gates
     in [0.5, 1.5]: its cross sublayers and their float32 flash backward
-    count) and whisper (its float32 encoder and cross-attention)."""
+    count), whisper (its float32 encoder and cross-attention),
+    falcon-mamba-7b and jamba (the scan's backward; jamba's attention,
+    MoE and mlp sublayers beside its Mamba ones)."""
     return {arch: train_card_vs_host_arch(dev, arch,
                                           os.path.join(workdir, arch))
-            for arch in (GLM, VLM, WHISPER)}
+            for arch in (GLM, VLM, WHISPER, MAMBA, JAMBA)}
 
 
 def train_launcher_cap(workdir: str) -> dict:
@@ -4234,11 +4382,12 @@ def train_launcher_cap(workdir: str) -> dict:
 
 
 def train_launcher_smoke(workdir: str) -> dict:
-    """``python -m repro_torch.launch.train --arch <vlm | whisper> --smoke
-    --steps 2`` on the card: each trains its reduced configuration."""
+    """``python -m repro_torch.launch.train --arch <vlm | whisper |
+    falcon-mamba-7b | jamba> --smoke --steps 2`` on the card: each trains
+    its reduced configuration."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = {}
-    for arch in (VLM, WHISPER):
+    for arch in (VLM, WHISPER, MAMBA, JAMBA):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
@@ -4258,13 +4407,15 @@ def train_launcher_smoke(workdir: str) -> dict:
 
 def train_kernel_checks(dev, flush, card: str) -> dict:
     """Phase 19's kernel part: the flash backward library's ptxas and
-    HGMMA report and the norm backward's ptxas report, every backward shape
-    in both dtypes (the timed ones timed in both), rmsnorm's backward at
-    ``TRAIN_NORMS`` in every pair of dtypes (bf16 timed, and float32 at
-    ``TRAIN_NORM_F32_TIMED``)."""
+    HGMMA report and the norm and scan backwards' ptxas reports, every
+    backward shape in both dtypes (the timed ones timed in both), rmsnorm's
+    backward at ``TRAIN_NORMS`` in every pair of dtypes (bf16 timed, and
+    float32 at ``TRAIN_NORM_F32_TIMED``), the scan's backward at
+    ``TRAIN_SCANS``."""
     from repro_torch.kernels import build
     report = flash_bwd_report()
     norm_report = rmsnorm_bwd_report()
+    scan_report = ssm_bwd_report()
     before = dict(build.LAUNCHES)
     flash = [flash_bwd_check(dev, flush, card, b, sq, skv, heads, causal,
                              dtype, timed=timed)
@@ -4277,13 +4428,17 @@ def train_kernel_checks(dev, flush, card: str) -> dict:
         for shape in TRAIN_NORMS
         for x in (torch.bfloat16, torch.float32)
         for s in (torch.bfloat16, torch.float32)]
+    scans = [ssm_bwd_check(dev, flush, card, *case) for case in TRAIN_SCANS]
     build.LAUNCHES.update(before)          # check/timing launches do not count
     log(f"backward kernels vs plain [{card}]: flash max err "
         f"{max(r['err'] for r in flash):.3e} over {len(flash)} cases, lse "
         f"{max(r['lse_err'] for r in flash):.3e}; rmsnorm "
-        f"{max(r['err'] for r in norms):.3e} over {len(norms)}")
-    return dict(flash=flash, rmsnorm=norms, flash_build=report,
-                rmsnorm_bwd_build=norm_report)
+        f"{max(r['err'] for r in norms):.3e} over {len(norms)}; ssm_scan_bwd "
+        f"{max(r['err_scaled'] for r in scans):.3e} of the scale over "
+        f"{len(scans)}")
+    return dict(flash=flash, rmsnorm=norms, ssm_scan=scans,
+                flash_build=report, rmsnorm_bwd_build=norm_report,
+                ssm_scan_bwd_build=scan_report)
 
 
 def rmsnorm_bwd_report() -> dict:
@@ -4374,13 +4529,20 @@ CROSS_TRAIN_GROUPS = (
     ("rmsnorm_bwd", ("rmsnorm_bwd",)),
     ("rmsnorm", ("rmsnorm",)),
     ("gemm", GEMM_KEYS))
+# falcon-mamba-7b's step: the scan's backward (its scan and sum kernels)
+# apart from the forward scan (matched after it: both names hold ssm_scan)
+MAMBA_TRAIN_GROUPS = (("ssm_scan_bwd", ("ssm_scan_bwd",)),
+                      ("ssm_scan", ("ssm_scan",)),
+                      ("rmsnorm_bwd", ("rmsnorm_bwd",)),
+                      ("rmsnorm", ("rmsnorm",)),
+                      ("gemm", GEMM_KEYS))
 
 
 def trace_train(dev, card: str, out: str | None, arch: str = GLM) -> dict:
     """One train step at 4 x 1024 under ``torch.profiler`` after a warm-up
-    step, of glm4-9b on 8 layers or (``arch``) whisper-medium whole:
-    device busy share and device time by kernel group (the table in
-    ``out/trace_train[_<arch>].txt``)."""
+    step, of glm4-9b on 8 layers or (``arch``) whisper-medium whole or
+    falcon-mamba-7b on 8 layers: device busy share and device time by
+    kernel group (the table in ``out/trace_train[_<arch>].txt``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
@@ -4388,6 +4550,10 @@ def trace_train(dev, card: str, out: str | None, arch: str = GLM) -> dict:
     if arch == GLM:
         cfg = dataclasses.replace(ARCHS[GLM], num_layers=TRAIN_LAYERS)
         groups, what = TRAIN_GROUPS, f"glm4-9b {TRAIN_LAYERS}/40 layers"
+    elif arch == MAMBA:
+        cfg = dataclasses.replace(ARCHS[MAMBA], num_layers=MAMBA_TRAIN_LAYERS)
+        groups = MAMBA_TRAIN_GROUPS
+        what = f"{MAMBA} {MAMBA_TRAIN_LAYERS}/64 layers"
     else:
         cfg, groups, what = ARCHS[arch], CROSS_TRAIN_GROUPS, arch
     (b, s), = TRAIN_SHAPES[:1]
@@ -4437,7 +4603,8 @@ def trace_train(dev, card: str, out: str | None, arch: str = GLM) -> dict:
     log(f"trace train {what} {b} x {s} [{card}]: "
         f"one step in {elapsed:.3f} s under the profiler, device busy "
         f"{device_us / 1e6:.3f} s = {device_us / 1e6 / elapsed:.2%}; by "
-        f"kernel: {parts}; the flash backward by kernel: {bwd_parts}")
+        f"kernel: {parts}"
+        + (f"; the flash backward by kernel: {bwd_parts}" if bwd else ""))
     if out is not None:
         name = "trace_train" + ("" if arch == GLM else f"_{arch}")
         with open(os.path.join(out, f"{name}.txt"), "w") as f:
@@ -4457,7 +4624,8 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     1 x 4096 without checkpoints: finite losses, launches, step ms,
     tokens/s, peak GiB; then, the same way at 4 x 1024, whisper-medium
     whole and llama-3.2-vision-11b on 10 of its 40 layers (the float32
-    flash backward's main paths).  Then the resume at full width on 2 layers: 6
+    flash backward's main paths), and falcon-mamba-7b on 8 of its 64
+    layers (the scan's backward).  Then the resume at full width on 2 layers: 6
     uninterrupted steps, 3 steps with a checkpoint at step 3, and a fresh
     ``Trainer`` resumed from it (steps 4-6 within rtol 1e-5 of the
     uninterrupted run).  A checkpoint of the 8-layer state is 28.7 GB, so
@@ -4467,7 +4635,7 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
     out = dict(layers=TRAIN_LAYERS, resume_layers=RESUME_LAYERS, runs=[],
-               cross=[])
+               cross=[], ssm=[])
 
     def run(layers, b, s, steps, directory, every=TRAIN_RESUME_AT,
             arch=GLM, into="runs"):
@@ -4545,6 +4713,8 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     b, s = CROSS_TRAIN_SHAPE
     run(None, b, s, TRAIN_STEPS, None, arch=WHISPER, into="cross")
     run(VLM_TRAIN_LAYERS, b, s, TRAIN_STEPS, None, arch=VLM, into="cross")
+    # the scan's backward: falcon-mamba-7b at full width, 8 of 64 layers
+    run(MAMBA_TRAIN_LAYERS, b, s, TRAIN_STEPS, None, arch=MAMBA, into="ssm")
     return out
 
 
@@ -4591,9 +4761,11 @@ def main() -> int:
                     help="build the kernels and run phases 19 and 20 alone "
                          "(the backward kernels, the reduced models' "
                          "training card vs host, the launcher's Minos cap "
-                         "and vlm / whisper smoke runs; glm4-9b on 8 layers "
-                         "training and resuming, whisper-medium and the vlm "
-                         "on 10 layers training); prints no result line")
+                         "and vlm / whisper / falcon-mamba / jamba smoke "
+                         "runs; glm4-9b on 8 layers training and resuming, "
+                         "whisper-medium, the vlm on 10 layers and "
+                         "falcon-mamba-7b on 8 layers training); prints no "
+                         "result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -4677,6 +4849,8 @@ def main() -> int:
                 train["trace"] = trace_train(dev, card, args.out)
                 train["trace_whisper"] = trace_train(dev, card, args.out,
                                                      WHISPER)
+                train["trace_mamba"] = trace_train(dev, card, args.out,
+                                                   MAMBA)
             if args.out is not None:
                 with open(os.path.join(args.out, "train.json"), "w") as f:
                     json.dump({"card": card, "train": train}, f, indent=1)
@@ -4757,6 +4931,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     if args.trace:
         train["trace"] = trace_train(dev, card, args.out)
         train["trace_whisper"] = trace_train(dev, card, args.out, WHISPER)
+        train["trace_mamba"] = trace_train(dev, card, args.out, MAMBA)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -4845,11 +5020,14 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     # the Pallas forward whose gradient each computes)
     main_train = train["full"]["runs"][0]       # 8 layers, 4 x 1024
     cross_train = {r["arch"]: r for r in train["full"]["cross"]}
+    ssm_train = train["full"]["ssm"][0]         # falcon-mamba-7b, 8 layers
     for rec in kernels[2:4]:
         rec["launches_training"] = main_train["launches"][rec["name"]]
         rec["launches_cross_training"] = {
             arch: r["launches"][rec["name"]] for arch, r in
             cross_train.items()}
+    for rec in kernels[3:5]:          # rmsnorm and ssm_scan on its path
+        rec["launches_ssm_training"] = ssm_train["launches"][rec["name"]]
     tk = train["check"]["kernels"]
     kernels[2]["lse"] = {k: tk["flash"][0][k] for k in
                          ("fwd_lse_ms", "fwd_ms", "lse_err")}
@@ -4887,6 +5065,26 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
                            "fwd_bwd_ms", "add_ms", "plan")}
         for r in tk["rmsnorm"] if "ms" in r]
+    kernels[-1]["launches_ssm_training"] = \
+        ssm_train["launches"]["rmsnorm_bwd"]
+    # the scan's backward: its main path is phase 20's falcon-mamba-7b run;
+    # timed at that path's shape (bf16 x, float32 dt, no D, h0 or dh_last)
+    sb = tk["ssm_scan"][0]
+    kernels.append({
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:51",
+        "gradient_of": "src/repro/kernels/ssm_scan.py:51",
+        "launches": ssm_train["launches"]["ssm_scan_bwd"],
+        "max_abs_err": max(r["err"] for r in tk["ssm_scan"]),
+        "max_err_of_scale": max(r["err_scaled"] for r in tk["ssm_scan"]),
+        "ms": sb["ms"], "plain_ms": sb["plain_ms"],
+        "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in ("b", "s", "di", "ds", "dtype",
+                                      "dt_dtype", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in tk["ssm_scan"] if "ms" in r]})
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "

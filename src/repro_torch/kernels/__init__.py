@@ -15,15 +15,19 @@ from repro_torch.kernels.rmsnorm import (RMSNormFn, rmsnorm_bwd,
                                          rmsnorm_rows)
 from repro_torch.kernels.spike_hist import (spike_hist_batch,
                                             spike_hist_batch_plain)
-from repro_torch.kernels.ssm_scan import (scan_work, ssm_scan_bsd,
+from repro_torch.kernels.ssm_scan import (SSMScanFn, scan_bwd_work,
+                                          scan_work, ssm_scan_bsd,
+                                          ssm_scan_bwd, ssm_scan_bwd_plain,
                                           ssm_scan_plain)
 
-__all__ = ["FlashAttentionFn", "RMSNormFn", "attn_work", "ema_filter_block",
+__all__ = ["FlashAttentionFn", "RMSNormFn", "SSMScanFn", "attn_work",
+           "ema_filter_block",
            "ema_scan", "ema_scan_blocks", "ema_scan_blocks_plain",
            "ema_scan_plain", "ema_scan_rows", "flash_attention",
            "flash_attention_bshd", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain", "rmsnorm",
            "rmsnorm_bwd", "rmsnorm_bwd_plain", "rmsnorm_plain",
-           "rmsnorm_rows", "scan_work", "spike_hist", "spike_hist_batch",
-           "spike_hist_batch_plain", "ssm_scan", "ssm_scan_bsd",
+           "rmsnorm_rows", "scan_bwd_work", "scan_work", "spike_hist",
+           "spike_hist_batch", "spike_hist_batch_plain", "ssm_scan",
+           "ssm_scan_bsd", "ssm_scan_bwd", "ssm_scan_bwd_plain",
            "ssm_scan_plain"]

@@ -30,7 +30,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("spike_hist", "ema_scan", "flash_attention",
-           "flash_attention_bwd", "rmsnorm", "ssm_scan")
+           "flash_attention_bwd", "rmsnorm", "ssm_scan", "ssm_scan_bwd")
 KERNELS = SOURCES + ("rmsnorm_bwd",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -73,6 +73,10 @@ _SIGNATURES = {
     },
     "ssm_scan": {
         f"ssm_scan_{x}_{d}": (*(_P,) * 9, _I, _I, _I, _I, _P)
+        for x in ("f32", "bf16") for d in ("f32", "bf16")
+    },
+    "ssm_scan_bwd": {
+        f"ssm_scan_bwd_{x}_{d}": (*(_P,) * 16, *(_I,) * 5, _P)
         for x in ("f32", "bf16") for d in ("f32", "bf16")
     },
 }

@@ -2,10 +2,9 @@
 
 Each takes torch tensors and runs where the tensors lie: the CUDA kernel for
 tensors on the card, the plain PyTorch version for tensors on the CPU.
-``flash_attention`` and ``rmsnorm`` go through their
+``flash_attention``, ``rmsnorm`` and ``ssm_scan`` go through their
 ``torch.autograd.Function``s when grad mode is on and an input requires
-grad (their backward is a kernel too); ``ssm_scan`` has no backward yet and
-refuses such inputs on the card.
+grad (their backward is a kernel too).
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention_bshd)
 from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_rows
 from repro_torch.kernels.spike_hist import spike_hist_batch
-from repro_torch.kernels.ssm_scan import ssm_scan_bsd
+from repro_torch.kernels.ssm_scan import SSMScanFn, ssm_scan_bsd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,7 +34,15 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x, dt: (b, s, di); A: (di, ds); B, C: (b, s, ds); D: (di,) ->
     (y (b, s, di) in x's dtype, h_last (b, di, ds) float32), as the
     reference's ``ref.ssm_scan_ref``.  ``D=None`` leaves out the skip term;
-    ``h0`` is the starting state and ``h_out`` receives h_last in place."""
+    ``h0`` is the starting state and ``h_out`` receives h_last in place.
+    When an input requires grad the scan goes through ``SSMScanFn``, which
+    takes no ``h_out``: a state written in place would break the graph
+    (decode passes one, without grad)."""
+    if build.wants_grad(x, dt, A, B, C, D, h0):
+        if h_out is not None:
+            raise ValueError("ssm_scan: h_out (a state written in place) "
+                             "cannot be used when an input requires grad")
+        return SSMScanFn.apply(x, dt, A, B, C, D, h0)
     return ssm_scan_bsd(x, dt, A, B, C, D, h0, h_out)
 
 

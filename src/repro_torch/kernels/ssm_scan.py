@@ -1,4 +1,4 @@
-"""Mamba-1 selective scan over ``(b, s, di)`` sequences.
+"""Mamba-1 selective scan over ``(b, s, di)`` sequences, and its gradient.
 
 ``ssm_scan_bsd(x, dt, A, B, C, D, h0, h_out)`` runs, per sequence and
 channel, h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t and
@@ -12,13 +12,20 @@ skip term, ``h0=None`` starts from a zero state, and ``h_out`` (float32,
 contiguous; it may be h0 itself) receives h_last in place.  Any s and di;
 1 <= ds <= 128.
 
-``ssm_scan_plain`` is the same function in plain PyTorch, the twin of the
-reference's ``ref.ssm_scan_ref``.  The wrapper takes it for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.  The kernel has no
-backward yet (ROADMAP queue 1, item 3: ssm and hybrid training), so under
-grad mode the wrapper refuses CUDA inputs that require grad rather than
-return an output cut from the graph.  ``scan_work``
-counts the bytes, exps and other float32 operations of one call.
+``ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh_last)`` is its gradient
+through ``csrc/ssm_scan_bwd.cu``: ``(dx, ddt, dA, dB, dC, dD, dh0)``, dx in
+x's dtype, ddt in dt's, the rest float32 (dD None without D, dh0 None
+without h0).  ``SSMScanFn`` is the ``torch.autograd.Function`` whose
+forward is ``ssm_scan_bsd`` and whose backward is ``ssm_scan_bwd``;
+``ops.ssm_scan`` routes through it when an input requires grad.
+
+``ssm_scan_plain`` and ``ssm_scan_bwd_plain`` are the same functions in
+plain PyTorch (the first the twin of the reference's ``ref.ssm_scan_ref``,
+the second its gradient as an explicit reverse-time loop).  The wrappers
+take them for CPU tensors only; for CUDA tensors they launch the kernels
+or raise, and the bare wrappers refuse CUDA inputs that require grad (a
+kernel's output would cut the graph).  ``scan_work`` and ``scan_bwd_work``
+count the bytes, exps and other float32 operations of one call.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ from repro_torch.kernels import build
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_STATE = 128                   # 32 lanes of 4 states in the kernel
+# the backward kernel's shape (csrc/ssm_scan_bwd.cu's kNS, kThreads,
+# kSteps): states a thread, threads a CTA, steps a block
+BWD_STATES, BWD_THREADS, BWD_STEPS = 8, 128, 8
 
 
 def scan_work(b: int, s: int, di: int, ds: int, x_bytes: int,
@@ -83,6 +93,29 @@ def _check(x, dt, A, B, C, D, h0, h_out) -> None:
         raise ValueError("ssm_scan needs a contiguous h_out")
 
 
+def scan_bwd_work(b: int, s: int, di: int, ds: int, x_bytes: int,
+                  dt_bytes: int, skip: bool, h0: bool,
+                  dh_last: bool) -> dict:
+    """Least bytes, exps and other float32 operations of one backward call.
+    Bytes: x, dt and dy (x's dtype) read once and dx, ddt written once, at
+    ``x_bytes`` and ``dt_bytes`` an element; B and C read and dB, dC
+    written, A read and dA written (and D and dD, h0 and dh0, dh_last), all
+    float32.  The states are recomputed, not stored: storing them would
+    move 4 b s di ds bytes.  Per (step, channel, state) one exp (a_t) and
+    19 float32 operations: the state recomputed (dt*A, a*h, dtx*B, add),
+    g = dy*C + carry (2), the dB term g*dtx and its sum over channels (2),
+    the dC term dy*h and its sum (2), s1 += g*B (2), q = g*h*a (2), s2 +=
+    q*A (2), dA += q*dt (2), carry = a*g (1); per (step, channel) dt*x,
+    dt*s1 and ddt = x*s1 + s2 (4) (and D*dy's add and dD's multiply-add,
+    4 more)."""
+    nbytes = (b * s * di * (3 * x_bytes + 2 * dt_bytes) + 4 * b * s * ds * 4
+              + 2 * di * ds * 4 + (2 * di * 4 if skip else 0)
+              + b * di * ds * 4 * ((2 if h0 else 0) + (1 if dh_last else 0)))
+    exps = b * s * di * ds
+    flops = 19 * exps + b * s * di * (8 if skip else 4)
+    return dict(bytes=nbytes, exps=exps, flops=flops)
+
+
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    D: torch.Tensor | None = None,
@@ -119,16 +152,8 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h0, h_out (b, di, ds) or None -> (y (b, s, di), h_last (b, di, ds))."""
     _check(x, dt, A, B, C, D, h0, h_out)
     given = [t for t in (x, dt, A, B, C, D, h0, h_out) if t is not None]
-    devices = {t.device for t in given}
-    if devices == {torch.device("cpu")}:
+    if not build.on_card("ssm_scan", given):
         return ssm_scan_plain(x, dt, A, B, C, D, h0, h_out)
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on cuda or cpu with every tensor on "
-                         f"one device, not {sorted(map(str, devices))}")
-    if build.wants_grad(*given):
-        raise RuntimeError("ssm_scan has no backward kernel yet (ROADMAP "
-                           "queue 1, item 3: ssm and hybrid training); an "
-                           "input requires grad")
     b, s, di = x.shape
     ds = A.shape[1]
     if b > 65535 or max(s, di) > 2**31 - 1:
@@ -149,3 +174,160 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    h_last.data_ptr(), b, s, di, ds, stream), "ssm_scan")
     build.LAUNCHES["ssm_scan"] += 1
     return y, h_last
+
+
+def ssm_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       D: torch.Tensor | None, h0: torch.Tensor | None,
+                       dy: torch.Tensor,
+                       dh_last: torch.Tensor | None = None):
+    """The backward's formulas in plain PyTorch, a float32 loop over time
+    (the kernel's twin): the states recomputed forward, then from t = s - 1
+    down g_t = dy_t C_t + carry (the carry seeded by dh_last, then a_t g_t),
+    with q_t = g_t h_{t-1} a_t: dx_t = dt_t (g_t . B_t) (+ D dy_t), ddt_t =
+    x_t (g_t . B_t) + q_t . A, dB_t = sum_c g_t dt_t x_t, dC_t = sum_c dy_t
+    h_t, dA = sum q_t dt_t, dD = sum dy_t x_t, dh0 = a_0 g_0.  Returns
+    ``(dx, ddt, dA, dB, dC, dD, dh0)``: dx in x's dtype, ddt in dt's, the
+    rest float32; dD None without D, dh0 None without h0."""
+    _check(x, dt, A, B, C, D, h0, None)
+    b, s, di = x.shape
+    ds = A.shape[1]
+    _check_bwd(x, dy, dh_last, b, di, ds)
+    f32 = torch.float32
+    xf, dtf, dyf = x.to(f32), dt.to(f32), dy.to(f32)
+    Af, Bf, Cf = (t.to(f32) for t in (A, B, C))
+    h = torch.zeros((b, di, ds), dtype=f32, device=x.device) \
+        if h0 is None else h0.to(f32)
+    hs = [h]
+    for t in range(s):
+        a = torch.exp(dtf[:, t, :, None] * Af[None])
+        u = (dtf[:, t] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+        hs.append(a * hs[-1] + u)
+    carry = torch.zeros((b, di, ds), dtype=f32, device=x.device) \
+        if dh_last is None else dh_last.to(f32)
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Bf)
+    dA = torch.zeros_like(Af)
+    for t in range(s - 1, -1, -1):
+        dtv, xv, dyv = dtf[:, t], xf[:, t], dyf[:, t]
+        a = torch.exp(dtv[:, :, None] * Af[None])
+        g = dyv[:, :, None] * Cf[:, t, None, :] + carry
+        dB[:, t] = torch.einsum("bin,bi->bn", g, dtv * xv)
+        dC[:, t] = torch.einsum("bin,bi->bn", hs[t + 1], dyv)
+        s1 = torch.einsum("bin,bn->bi", g, Bf[:, t])
+        q = g * hs[t] * a
+        dA += (q * dtv[:, :, None]).sum(0)
+        dx[:, t] = dtv * s1
+        ddt[:, t] = xv * s1 + (q * Af[None]).sum(-1)
+        carry = a * g
+    dD = None
+    if D is not None:
+        dx += D.to(f32)[None, None] * dyf
+        dD = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB, dC, dD,
+            None if h0 is None else carry)
+
+
+def _check_bwd(x, dy, dh_last, b, di, ds) -> None:
+    if not isinstance(dy, torch.Tensor) or dy.shape != x.shape:
+        raise ValueError(f"ssm_scan_bwd: dy must be {tuple(x.shape)}, got "
+                         f"{getattr(dy, 'shape', type(dy).__name__)}")
+    if dh_last is not None and tuple(dh_last.shape) != (b, di, ds):
+        raise ValueError(f"ssm_scan_bwd: dh_last must be {(b, di, ds)}, got "
+                         f"{tuple(dh_last.shape)}")
+
+
+def bwd_lanes(ds: int) -> int:
+    """The backward kernel's threads a channel, ``BWD_STATES`` states each
+    (the kernel's kSmallLanes and kBigLanes): 2 up to ds = 16, else 16 (up
+    to 128)."""
+    return (16 if ds <= 16 else MAX_STATE) // BWD_STATES
+
+
+def bwd_workspace_floats(b: int, s: int, di: int, ds: int,
+                         skip: bool) -> int:
+    """Floats of the backward's workspace, as ``csrc/ssm_scan_bwd.cu``
+    lays it out: the state before each block of ``BWD_STEPS`` steps of
+    each CTA, each CTA's dB and dC partials, each sequence's dA (and dD)
+    partials (338 MB at falcon-mamba-7b's (4, 1024, 8192, 16))."""
+    ctas = -(-di // (BWD_THREADS // bwd_lanes(ds)))
+    blocks = -(-s // BWD_STEPS)
+    return (b * ctas * blocks * BWD_STATES * BWD_THREADS
+            + ctas * 2 * b * s * ds + b * di * ds + (b * di if skip else 0))
+
+
+def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor | None,
+                 h0: torch.Tensor | None, dy: torch.Tensor,
+                 dh_last: torch.Tensor | None = None):
+    """The gradient of ``ssm_scan_bsd(x, dt, A, B, C, D, h0)`` given dy
+    (b, s, di) and dh_last (b, di, ds) or None: ``(dx, ddt, dA, dB, dC, dD,
+    dh0)`` as ``ssm_scan_bwd_plain`` returns them."""
+    _check(x, dt, A, B, C, D, h0, None)
+    b, s, di = x.shape
+    ds = A.shape[1]
+    _check_bwd(x, dy, dh_last, b, di, ds)
+    given = [t for t in (x, dt, A, B, C, D, h0, dy, dh_last) if t is not None]
+    if not build.on_card("ssm_scan_bwd", given):
+        return ssm_scan_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_last)
+    if b > 65535 or max(s, di) > 2**31 - 1:
+        raise ValueError(f"ssm_scan_bwd: shape {tuple(x.shape)} exceeds the "
+                         f"kernel's grid")
+    dev, f32 = x.device, torch.float32
+    Af, Bf, Cf = (t.to(f32).contiguous() for t in (A, B, C))
+    Df = None if D is None else D.to(f32).contiguous()
+    h0f = None if h0 is None else h0.to(f32).contiguous()
+    dhf = None if dh_last is None else dh_last.to(f32).contiguous()
+    dyx = dy.to(x.dtype).contiguous()
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA = torch.empty((di, ds), dtype=f32, device=dev)
+    dBC = torch.empty((2, b, s, ds), dtype=f32, device=dev)
+    dD = None if D is None else torch.empty(di, dtype=f32, device=dev)
+    dh0 = None if h0 is None else torch.empty((b, di, ds), dtype=f32,
+                                               device=dev)
+    if b * s * di == 0:
+        for t in (dA, dBC, dD, dh0):
+            if t is not None:
+                t.zero_()
+        if dh0 is not None and dhf is not None and s == 0:
+            dh0.copy_(dhf)
+        return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
+    work = torch.empty(bwd_workspace_floats(b, s, di, ds, D is not None),
+                       dtype=f32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    fn = getattr(build.library("ssm_scan_bwd"),
+                 f"ssm_scan_bwd_{_NAMES[x.dtype]}_{_NAMES[dt.dtype]}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(fn(x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
+                   Cf.data_ptr(), ptr(Df), ptr(h0f), dyx.data_ptr(), ptr(dhf),
+                   dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                   dBC.data_ptr(), ptr(dD), ptr(dh0), work.data_ptr(), b, s,
+                   di, ds, bwd_lanes(ds), stream), "ssm_scan_bwd")
+    build.LAUNCHES["ssm_scan_bwd"] += 1
+    return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
+
+
+class SSMScanFn(torch.autograd.Function):
+    """The scan whose forward is ``ssm_scan_bsd`` (saving its inputs, no
+    state a step) and whose backward is ``ssm_scan_bwd`` (the kernel on the
+    card, the plain twin on the CPU); returns ``(y, h_last)``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        y, h_last = ssm_scan_bsd(x, dt, A, B, C, D, h0)
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        ins = ctx.saved_tensors
+        x = ins[0]
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssm_scan_bwd(*ins, dy, dh_last)
+        return tuple(None if g is None or not need else g.to(t.dtype)
+                     for g, t, need in zip(grads, ins,
+                                           ctx.needs_input_grad))

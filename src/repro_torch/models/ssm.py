@@ -11,7 +11,15 @@ plain PyTorch, as they are jnp in the reference.
 
 Rounding follows the reference: prefill scans without the skip term, gets
 y in the activation dtype (the reference casts each chunk's scan output),
-then adds D * x in float32; decode keeps y in float32.  The prefill scans
+then adds D * x in float32; decode keeps y in float32.
+
+Training runs the same prefill forward under grad: ``ops.ssm_scan`` then
+goes through ``SSMScanFn``, whose backward is the ``ssm_scan_bwd`` kernel
+(it recomputes the states from the saved inputs, as the reference's
+per-chunk remat does).  The gradients reach ``A_log`` through ``-exp``,
+``dt_bias`` and ``w_dt`` through softplus, B and C through ``w_x``, and x
+through the scan, the skip term and ``w_x``; the rest is autograd over
+the plain PyTorch around the kernel.  The prefill scans
 the whole sequence in one launch, so it takes any length (the reference's
 needs s <= 128 or a multiple of 128).  Decode updates the caches in place:
 the kernel writes the new state over the cached one, and the conv window

@@ -9,10 +9,11 @@ reference's tree: ``embed.table``, ``final_norm.scale``,
 
 Entry points:
   * ``loss(batch)``: training, ``(loss + 0.01 aux, {"loss", "aux_loss"})``
-    for the dense, moe (MoE and MLA) and vlm families (a vlm's batch
-    carries its ``image_embeds``), each layer recomputed in the backward
-    when ``cfg.remat`` and ``kind == "train"``; the ssm and hybrid
-    families raise (``TRAINING_NOT_PORTED``);
+    for every family of this model (dense, moe with MoE and MLA, ssm,
+    hybrid, vlm; a vlm's batch carries its ``image_embeds``), each layer
+    recomputed in the backward when ``cfg.remat`` and ``kind == "train"``;
+    a Mamba sublayer's scan runs backwards through the ``ssm_scan_bwd``
+    kernel;
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference; a vlm's batch carries its
     ``image_embeds`` (b, num_image_tokens, d), the memory of its
@@ -46,13 +47,6 @@ from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
 
-
-# families whose training is not ported: their forward reaches a kernel
-# with no backward yet (ssm_scan)
-TRAINING_NOT_PORTED = {
-    "ssm": "the ssm_scan kernel has no backward yet",
-    "hybrid": "the ssm_scan kernel has no backward yet",
-}
 
 
 class SubLayer(nn.Module):
@@ -284,8 +278,10 @@ class LM(ModelBase):
                 out = sub.core(x, positions)
             elif kind == "cross":
                 out = sub.gate_out(sub.core(x, positions, memory=memory))
-            else:                                            # mlp
+            elif kind in ("mamba", "mlp"):
                 out = sub.core(x)
+            else:
+                raise ValueError(f"unknown sublayer kind {kind!r}")
             h = h + out
         return h, aux
 
@@ -295,11 +291,6 @@ class LM(ModelBase):
         the MoE layers' summed load-balancing loss}), float32 scalars with
         their graph."""
         cfg = self.cfg
-        if cfg.family in TRAINING_NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not ported "
-                f"({TRAINING_NOT_PORTED[cfg.family]}; ROADMAP queue 1, item "
-                f"3)")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         h = self.embed.embed(tokens)

@@ -17,7 +17,8 @@ from repro_torch.kernels import (build, ema_scan_blocks,
                                  flash_attention, flash_attention_plain,
                                  rmsnorm, rmsnorm_plain, spike_hist,
                                  spike_hist_batch, spike_hist_batch_plain,
-                                 ssm_scan, ssm_scan_plain)
+                                 ssm_scan, ssm_scan_bsd, ssm_scan_bwd,
+                                 ssm_scan_bwd_plain, ssm_scan_plain)
 from repro_torch.pipeline import BatchProfileEngine, ProfileBuilder
 from repro_torch.telemetry import TelemetryChunk, TraceMeta
 
@@ -650,6 +651,91 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take(cuda):
         ssm_scan(t["x"], t["dt"], t["A"].cpu(), t["B"], t["C"], t["D"])
 
 
+def _close_scaled(got, want, tol: dict, what: str) -> None:
+    """|got - want| <= atol max(1, max |want|) + rtol |want|: a gradient is
+    held to its own scale (sums over thousands of steps or channels)."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    assert bool((err <= tol["atol"] * scale + tol["rtol"] * want.abs())
+                .all()), (what, float(err.max()), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,ds", [
+    (2, 37, 24, 8), (1, 50, 40, 16),          # the CPU tests' shapes
+    (3, 77, 1000, 16),                        # ragged s and di
+    (1, 33, 64, 37), (1, 20, 48, 128),        # 16 threads a channel
+    (4, 15, 8192, 16), (4, 16, 8192, 16), (4, 17, 8192, 16),  # one block,
+    (1, 1000, 8192, 16),                      # a tail; batch 1, odd s
+])
+@pytest.mark.parametrize("xdtype,dtdtype", SCAN_DTYPES)
+def test_ssm_scan_bwd_close_to_plain(cuda, b, s, di, ds, xdtype, dtdtype):
+    """The backward kernel against its plain twin, with and without D, h0
+    and dh_last; two launches bitwise equal."""
+    t = _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, 3 * s + di + ds)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn((b, s, di), generator=g, device=cuda).to(xdtype)
+    dh = torch.randn((b, di, ds), generator=g, device=cuda)
+    args = [t[k] for k in ("x", "dt", "A", "B", "C")]
+    for D, h0, dh_last in ((None, None, None), (t["D"], t["h0"], dh)):
+        before = build.LAUNCHES["ssm_scan_bwd"]
+        got = ssm_scan_bwd(*args, D, h0, dy, dh_last)
+        assert build.LAUNCHES["ssm_scan_bwd"] == before + 1
+        torch.cuda.synchronize()
+        want = ssm_scan_bwd_plain(*args, D, h0, dy, dh_last)
+        again = ssm_scan_bwd(*args, D, h0, dy, dh_last)
+        for name, a, w, a2 in zip(("dx", "ddt", "dA", "dB", "dC", "dD",
+                                   "dh0"), got, want, again):
+            if w is None:
+                assert a is None and a2 is None, name
+                continue
+            assert a.dtype == w.dtype and a.shape == w.shape, name
+            tol = SSM_TOL[a.dtype] if a.dtype == torch.bfloat16 \
+                else SSM_TOL[torch.float32]
+            _close_scaled(a, w, tol, name)
+            assert torch.equal(a, a2), f"{name}: two launches differ"
+
+
+@pytest.mark.cuda
+def test_reduced_mamba_loss_and_gradients_on_card_match_host(cuda):
+    """Float32 reduced falcon-mamba-7b: the loss and every gradient through
+    the kernels on the card (the scan forward, its recomputation and its
+    backward) against the plain twins on the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model_zoo import build_model
+    cfg = ARCHS["falcon-mamba-7b"].reduced(num_layers=2)
+    host = build_model(cfg, kind="train", device="cpu", dtype=torch.float32)
+    host.init_params(torch.Generator().manual_seed(0))
+    card = build_model(cfg, kind="train", device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 301)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for model in (host, card):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        before = dict(build.LAUNCHES)
+        total, _ = model.loss(batch)
+        grads = torch.autograd.grad(total, list(params.values()))
+        launched = {k: build.LAUNCHES[k] - before[k] for k in before}
+        out.append((total.detach().cpu(), [g.cpu() for g in grads],
+                    launched))
+    (lh, gh, _), (lc, gc, launched) = out
+    L = cfg.num_layers
+    assert launched["ssm_scan"] == 2 * L                 # remat recomputes
+    assert launched["ssm_scan_bwd"] == L
+    assert launched["rmsnorm"] == 2 * L + 1
+    assert launched["rmsnorm_bwd"] == L + 1
+    assert launched["flash_attention"] == launched["flash_attention_bwd"] \
+        == 0
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for a, w in zip(gc, gh):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_reduced_mamba_on_card_matches_host(cuda):
     from repro_torch.configs import ARCHS
@@ -1132,9 +1218,9 @@ def test_rmsnorm_backward_close_to_plain(cuda, n, d, dtype, sdtype):
 
 @pytest.mark.cuda
 def test_outputs_under_grad_keep_their_graph_on_the_card(cuda):
-    """The kernels' outputs carry a grad_fn when a gradient is wanted; the
-    bare wrappers refuse such inputs rather than cut the graph; ssm_scan,
-    which has no backward yet, refuses them too."""
+    """The kernels' outputs carry a grad_fn when a gradient is wanted and
+    their backward launches its kernel once; the bare wrappers refuse such
+    inputs rather than cut the graph."""
     from repro_torch.kernels import flash_attention_bshd, rmsnorm_rows
     q, k, v = (t.requires_grad_() for t in
                _attn_inputs(cuda, 1, 64, 64, 4, 2, 64, torch.bfloat16))
@@ -1162,10 +1248,16 @@ def test_outputs_under_grad_keep_their_graph_on_the_card(cuda):
     A = -torch.rand((32, 4), device=cuda)
     B, C = torch.randn((1, 8, 4), device=cuda), torch.randn((1, 8, 4),
                                                             device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssm_scan(xs, dt, A, B, C, None)
+    y, h_last = ssm_scan(xs, dt, A, B, C, None)
+    assert y.grad_fn is not None
+    before = build.LAUNCHES["ssm_scan_bwd"]
+    y.sum().backward()
+    assert build.LAUNCHES["ssm_scan_bwd"] == before + 1
+    assert xs.grad is not None and xs.grad.shape == xs.shape
+    with pytest.raises(RuntimeError, match="cut the graph"):
+        ssm_scan_bsd(xs, dt, A, B, C, None)
     with torch.no_grad():
-        ssm_scan(xs, dt, A, B, C, None)
+        assert ssm_scan(xs, dt, A, B, C, None)[0].grad_fn is None
 
 
 @pytest.mark.cuda

@@ -12,7 +12,10 @@ CPU (no nvcc, no card):
   and one step's group, a thread's chunks within the kernel's limit (a
   wider row raises), the ring in the shared memory the kernel asks for,
   several rows a step for narrow rows, dscale's columns and partials each
-  summed once in runs of at most 16; its constants are the CUDA source's.
+  summed once in runs of at most 16; its constants are the CUDA source's;
+* the ``ssm_scan_bwd`` source: built and hashed like the others, its four
+  entry points the ones ``build`` binds, its shape constants the ones the
+  wrapper sizes its workspace with.
 """
 import importlib
 import os
@@ -26,6 +29,7 @@ from repro_torch.kernels.flash_attention import BwdPlan, bwd_plan
 # the modules (the package exports functions of the same names)
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 rn = importlib.import_module("repro_torch.kernels.rmsnorm")
+ss = importlib.import_module("repro_torch.kernels.ssm_scan")
 
 
 def _write(d, name, text):
@@ -381,3 +385,44 @@ def test_norm_bwd_plan_is_a_value():
     assert p == rn.bwd_plan(4096, 4096, 2, 2, True, 132)
     with pytest.raises(Exception):
         p.ctas = 2
+
+
+def test_the_scan_backward_is_built_and_hashed_like_the_others(monkeypatch):
+    assert "ssm_scan_bwd" in build.SOURCES and "ssm_scan_bwd" in \
+        build.LAUNCHES
+    assert build.sources_of("ssm_scan_bwd") == ["ssm_scan_bwd.cu"]
+    path = build._lib_path("ssm_scan_bwd")
+    assert os.path.basename(path).startswith("ssm_scan_bwd-")
+    assert path not in {build._lib_path(n) for n in build.SOURCES
+                        if n != "ssm_scan_bwd"}
+    with open(os.path.join(build.CSRC, "ssm_scan_bwd.cu")) as f:
+        src = f.read()
+    entries = set(re.findall(r"^SSM_SCAN_BWD_ENTRY\((\w+),", src, re.M))
+    assert entries == set(build._SIGNATURES["ssm_scan_bwd"])
+    # 16 pointers, batch, s, di, ds, lanes, the stream
+    for argtypes in build._SIGNATURES["ssm_scan_bwd"].values():
+        assert len(argtypes) == 22
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kNS"], consts["kThreads"], consts["kSteps"]) == (
+        ss.BWD_STATES, ss.BWD_THREADS, ss.BWD_STEPS)
+    # a copy elsewhere builds with the same flags
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    cmd = build.nvcc_command(os.path.join(build.CSRC, "ssm_scan_bwd.cu"),
+                             "/tmp/x.so")
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
+
+
+@pytest.mark.parametrize("b,s,di,ds,skip", [
+    (4, 1024, 8192, 16, False), (1, 1000, 8192, 16, True),
+    (3, 77, 1000, 16, True), (1, 33, 64, 37, False), (1, 20, 48, 128, True)])
+def test_scan_backward_workspace_follows_the_kernel_layout(b, s, di, ds,
+                                                           skip):
+    lanes = ss.bwd_lanes(ds)
+    assert lanes * ss.BWD_STATES >= ds and lanes in (2, 16)
+    ctas = -(-di // (ss.BWD_THREADS // lanes))
+    blocks = -(-s // ss.BWD_STEPS)
+    saved = b * ctas * blocks * ss.BWD_STATES * ss.BWD_THREADS
+    want = saved + ctas * 2 * b * s * ds + b * di * ds + (b * di if skip
+                                                           else 0)
+    assert ss.bwd_workspace_floats(b, s, di, ds, skip) == want

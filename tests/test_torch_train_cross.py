@@ -45,7 +45,6 @@ from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.launch import train as train_launcher
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.model_zoo import build_model
-from repro_torch.models.transformer import TRAINING_NOT_PORTED
 from repro_torch.train import Trainer
 from test_torch_encdec import batch_for, cross_tree
 from test_torch_models import _f32
@@ -106,7 +105,6 @@ def _close_leaves(got_tree, want_tree, what: str,
 @pytest.mark.parametrize("arch,seed", [(VLM, 0), (WHISPER, 1)])
 def test_cross_loss_and_every_gradient_equal_the_reference(arch, seed):
     ref_cfg, cfg = _cfgs(arch)
-    assert cfg.family not in TRAINING_NOT_PORTED
     ref_model = ref_build_model(ref_cfg, SMOKE_TOPO, kind="train")
     tree = cross_tree(ref_model, seed, jnp.float32)
     # whisper's frames shorter than the tokens: its cross-attention has

@@ -4,14 +4,15 @@
 
 The JSON file maps a kernel source (``rmsnorm``, ``spike_hist``,
 ``ssm_scan``, ``ema_scan``, ``flash_attention``, ``flash_attention_bwd``,
-``rmsnorm_bwd``) to named lists of text substitutions of
+``rmsnorm_bwd``, ``ssm_scan_bwd``) to named lists of text substitutions of
 ``src/repro_torch/kernels/csrc/<source>.cu`` (``rmsnorm.cu`` for
 ``rmsnorm_bwd``)
 (``{"rmsnorm": {"name": [[old, new], ...]}}``), or to
 ``{"subs": [...], "set": {"_NAME": value}}`` to also set constants of the
 kernel's Python module (``repro_torch.kernels.<source>``, and
 ``repro_torch.kernels.flash_attention`` for ``flash_attention_bwd`` and
-``repro_torch.kernels.rmsnorm`` for ``rmsnorm_bwd``: e.g. a layout
+``repro_torch.kernels.rmsnorm`` for ``rmsnorm_bwd``,
+``repro_torch.kernels.ssm_scan`` for ``ssm_scan_bwd``: e.g. a layout
 threshold, the flash backward plan's ``_SPLIT_WAVES`` or the norm
 backward plan's ``_BWD_STAGES``) for that
 variant; the unmodified source runs as ``base``.  A
@@ -43,7 +44,11 @@ glm4-9b's (4096, 4096), granite-moe's (4096, 1536) and deepseek's latent
 (4096, 512) in bf16 and (4096, 4096) in float32, checked against the
 plain twin within ``BWD_TOL`` and for two launches bitwise equal, with
 ``torch.add(x, dy, out=dx)`` of each shape, the same bytes, timed once
-beside them as the byte floor).  ``--sources``
+beside them as the byte floor; ssm_scan_bwd: falcon-mamba-7b's
+training shape (4, 1024, 8192, 16) with bf16 x and float32 dt and in
+float32, and batch 1 at (1, 2048), checked against the plain twin within
+``SSM_TOL`` scaled by max(1, max |plain|) and for two launches bitwise
+equal).  ``--sources``
 runs only the named sources of the file.  ``F.rms_norm``, a ``zero_`` of
 a (4, 4096) tensor (the timing's floor) and a ``copy_`` of (4000, 4096)
 bf16 (the bytes of the prefill norm) are timed once, and the SM clock is
@@ -80,7 +85,8 @@ D = 4096
 LIBRARY = {"rmsnorm_bwd": "rmsnorm",
            "flash_attention_bwd_f32": "flash_attention_bwd"}
 MODULE = {"flash_attention_bwd": "flash_attention",
-          "flash_attention_bwd_f32": "flash_attention"}
+          "flash_attention_bwd_f32": "flash_attention",
+          "ssm_scan_bwd": "ssm_scan"}
 RMSNORM_ROWS = (4000, 2048, 256, 4, 1)   # glm4-9b's prefill and decode rows
 
 
@@ -315,6 +321,40 @@ def rmsnorm_bwd_cases(dev):
     return cases
 
 
+def ssm_scan_bwd_cases(dev):
+    """(label, run, check) at falcon-mamba-7b's width (d_inner 8192,
+    d_state 16) as its training path calls the backward (no D, h0 or
+    dh_last); the check is phase 19's: every output within ``SSM_TOL``
+    scaled by max(1, max |plain|) and two launches bitwise equal."""
+    from repro_torch.kernels import ssm_scan_bwd, ssm_scan_bwd_plain
+    cases = []
+    for b, s, xdt in ((4, 1024, torch.bfloat16), (4, 1024, torch.float32),
+                      (1, 2048, torch.bfloat16)):
+        ins, _ = cs.scan_inputs(dev, b, s, 8192, 16, xdt, torch.float32, 70)
+        g = torch.Generator(device=dev).manual_seed(s)
+        dy = torch.randn((b, s, 8192), generator=g, device=dev).to(xdt)
+        args = (*ins[:5], None, None, dy, None)
+        want = [w for w in ssm_scan_bwd_plain(*args) if w is not None]
+
+        def run(args=args):
+            return ssm_scan_bwd(*args)
+
+        def ok(run=run, want=want):
+            got = [a for a in run() if a is not None]
+            again = [a for a in run() if a is not None]
+            for a, w, a2 in zip(got, want, again):
+                tol = cs.SSM_TOL[torch.bfloat16 if a.dtype == torch.bfloat16
+                                 else torch.float32]
+                scale = max(1.0, float(w.float().abs().max()))
+                if not (torch.equal(a, a2) and torch.allclose(
+                        a.float(), w.float(), rtol=tol["rtol"],
+                        atol=tol["atol"] * scale)):
+                    return False
+            return True
+        cases.append((f"({b}, {s}) {str(xdt)[6:]}", run, ok))
+    return cases
+
+
 def add_floor_times(dev, flush) -> dict:
     """``torch.add(x, dy, out=dx)`` at ``norm_bwd_inputs``: the norm
     backward's bytes (x and dy read, dx written) in one elementwise pass,
@@ -425,7 +465,8 @@ def main() -> int:
               "flash_attention": flash_attention_cases,
               "flash_attention_bwd": flash_attention_bwd_cases,
               "flash_attention_bwd_f32": flash_attention_bwd_f32_cases,
-              "rmsnorm_bwd": rmsnorm_bwd_cases}
+              "rmsnorm_bwd": rmsnorm_bwd_cases,
+              "ssm_scan_bwd": ssm_scan_bwd_cases}
     if "flash_attention" in spec:
         result["sdpa_f32_ms"] = sdpa_times(dev, flush)
         print("scaled_dot_product_attention float32: " + "  ".join(
