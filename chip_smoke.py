@@ -236,7 +236,9 @@ phase 11):
      (``MINOS_CAP``), and ``--arch llama-3.2-vision-11b --smoke`` and
      ``--arch whisper-medium --smoke`` must each train 2 steps there.
      The selective scan's backward: the ``ssm_scan_bwd`` library's ptxas
-     registers and spills (a spill fails), the kernel against its plain
+     registers and spills (a spill fails, as does a report of fewer than
+     its ``SSM_BWD_KERNELS`` kernels) and SASS mix, the layout
+     ``bwd_plan`` gives each shape, the kernel against its plain
      twin at falcon-mamba-7b's training shape (4, 1024, 8192, 16) with bf16
      x and float32 dt and in float32 (both timed beside the twin and the
      bound, ``kernels.scan_bwd_work``), at 1 x 1000 (batch 1, an odd s),
@@ -3906,12 +3908,12 @@ MAMBA_TRAIN_LAYERS = 8
 # phase 19's ssm_scan_bwd checks: (b, s, di, ds, x dtype, dt dtype, with
 # D, h0 and dh_last, timed): falcon-mamba-7b's training shape (bf16 x as
 # its activations, float32 dt; and float32, the reduced models' card vs
-# host), batch 1 at an odd s, the optional inputs, a ragged shape, and
-# ds = 37 (16 threads a channel)
+# host), batch 1 at an odd s (bf16 timed: four states a thread), the
+# optional inputs, a ragged shape, and ds = 37 (16 threads a channel)
 TRAIN_SCANS = (
     (4, 1024, 8192, 16, torch.bfloat16, torch.float32, False, True),
     (4, 1024, 8192, 16, torch.float32, torch.float32, False, True),
-    (1, 1000, 8192, 16, torch.bfloat16, torch.float32, False, False),
+    (1, 1000, 8192, 16, torch.bfloat16, torch.float32, False, True),
     (1, 1000, 8192, 16, torch.float32, torch.float32, True, False),
     (2, 100, 1024, 16, torch.float32, torch.float32, True, False),
     (2, 100, 1024, 16, torch.bfloat16, torch.bfloat16, True, False),
@@ -4203,11 +4205,15 @@ def ssm_bwd_check(dev, flush, card: str, b, s, di, ds, xdtype, dtdtype,
     if not all(torch.equal(a, c) for a, c in zip(got, again)
                if a is not None):
         raise AssertionError(f"{what}: two launches differ")
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan import bwd_plan
+    lanes = bwd_plan(b, s, di, ds, build.sm_count(dev.index or 0)).lanes \
+        if dev.type == "cuda" else None
     r = dict(b=b, s=s, di=di, ds=ds, dtype=str(xdtype).split(".")[1],
              dt_dtype=str(dtdtype).split(".")[1], full=full, err=err,
-             err_scaled=err_scaled)
+             err_scaled=err_scaled, lanes=lanes)
     log(f"{what} [{card}]: max err {err:.3e} ({err_scaled:.3e} of the "
-        f"scale), two launches bitwise equal")
+        f"scale), two launches bitwise equal, {lanes} lanes a channel")
     if timed:
         r.update(scan_bound(scan_bwd_work(b, s, di, ds, x.element_size(),
                                           dt.element_size(), skip=full,
@@ -4223,24 +4229,37 @@ def ssm_bwd_check(dev, flush, card: str, b, s, di, ds, xdtype, dtdtype,
     return r
 
 
+# the ssm_scan_bwd library's kernels: the scan for each of the four (x, dt)
+# dtype pairs in each of its three layouts (eight, four and wide), and the
+# sum over partials
+SSM_BWD_KERNELS = 4 * 3 + 1
+
+
 def ssm_bwd_report() -> dict:
-    """ptxas's registers, stack and spill bytes for every kernel of the
-    ``ssm_scan_bwd`` library; fails if one spills."""
-    report = build_report("ssm_scan_bwd", ())["ptxas_by_kernel"]
+    """ptxas's registers, stack and spill bytes and the SASS mix
+    (``SASS_OPS`` and the selects) for every kernel of the ``ssm_scan_bwd``
+    library; fails if one spills or ptxas reports fewer than its
+    ``SSM_BWD_KERNELS``."""
+    full = build_report("ssm_scan_bwd", SASS_OPS + ("SEL", "FSEL"))
     kernels = {}
-    for name, r in report.items():
+    for name, r in full["ptxas_by_kernel"].items():
         m = re.search(r"ssm_scan_bwd\w*?_kernel(?:<[^>]*>|\w*)", name)
         if m is not None:
-            kernels[m.group(0)] = r
+            kernels[m.group(0)] = dict(r)
+    for name, counts in full["sass"].items():
+        m = re.search(r"ssm_scan_bwd\w*?_kernel(?:<[^>]*>|\w*)", name)
+        if m is not None and m.group(0) in kernels:
+            kernels[m.group(0)]["sass"] = counts
     for name, r in sorted(kernels.items()):
         log(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
             f"bytes stack, {r.get('spill_stores')} / {r.get('spill_loads')} "
-            f"bytes spill stores / loads")
-    if len(kernels) < 9 or any(r.get("spill_stores", 1) or
-                               r.get("spill_loads", 1)
-                               for r in kernels.values()):
+            f"bytes spill stores / loads; SASS {json.dumps(r.get('sass'))}")
+    if len(kernels) < SSM_BWD_KERNELS or any(
+            r.get("spill_stores", 1) or r.get("spill_loads", 1)
+            for r in kernels.values()):
         raise AssertionError(f"ssm_scan_bwd: a kernel spills (or ptxas "
-                             f"reported fewer than its 9): {kernels}")
+                             f"reported fewer than its {SSM_BWD_KERNELS}): "
+                             f"{kernels}")
     return kernels
 
 
@@ -5081,9 +5100,9 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         "ms": sb["ms"], "plain_ms": sb["plain_ms"],
         "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
         "library_ms": None,
-        "shapes": [{k: r[k] for k in ("b", "s", "di", "ds", "dtype",
-                                      "dt_dtype", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
+        "shapes": [{k: r[k] for k in ("b", "s", "di", "ds", "lanes",
+                                      "dtype", "dt_dtype", "ms",
+                                      "plain_ms", "bound_ms", "bound_by")}
                    for r in tk["ssm_scan"] if "ms" in r]})
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "

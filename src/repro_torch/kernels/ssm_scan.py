@@ -29,15 +29,24 @@ count the bytes, exps and other float32 operations of one call.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import build
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_STATE = 128                   # 32 lanes of 4 states in the kernel
-# the backward kernel's shape (csrc/ssm_scan_bwd.cu's kNS, kThreads,
-# kSteps): states a thread, threads a CTA, steps a block
-BWD_STATES, BWD_THREADS, BWD_STEPS = 8, 128, 8
+# the backward kernel's shape (csrc/ssm_scan_bwd.cu's kThreads, kSteps):
+# threads a CTA, steps a block
+BWD_THREADS, BWD_STEPS = 128, 8
+# its layouts (kEightLanes, kFourLanes, kWideLanes): threads a channel ->
+# states a thread; the first two take ds <= 16, the last ds <= 128
+BWD_LAYOUTS = {2: 8, 4: 4, 16: 8}
+BWD_SMALL_STATE = 16
+# eight states a thread (2 lanes) when their grid gives every SM at least
+# this many CTAs (kEightCtas: the registers of two fit an SM), else four
+_BWD_EIGHT_MIN_CTAS = 2
 
 
 def scan_work(b: int, s: int, di: int, ds: int, x_bytes: int,
@@ -237,23 +246,62 @@ def _check_bwd(x, dy, dh_last, b, di, ds) -> None:
                          f"{tuple(dh_last.shape)}")
 
 
-def bwd_lanes(ds: int) -> int:
-    """The backward kernel's threads a channel, ``BWD_STATES`` states each
-    (the kernel's kSmallLanes and kBigLanes): 2 up to ds = 16, else 16 (up
-    to 128)."""
-    return (16 if ds <= 16 else MAX_STATE) // BWD_STATES
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernel's layout for one shape: ``lanes`` threads a
+    channel (a key of ``BWD_LAYOUTS``), ``states`` states each."""
+    b: int
+    s: int
+    di: int
+    ds: int
+    lanes: int
+
+    @property
+    def states(self) -> int:
+        return BWD_LAYOUTS[self.lanes]
+
+    @property
+    def channels(self) -> int:            # channels a CTA
+        return BWD_THREADS // self.lanes
+
+    @property
+    def ctas(self) -> int:                # CTAs a sequence
+        return -(-self.di // self.channels)
+
+    @property
+    def blocks(self) -> int:              # blocks of BWD_STEPS steps
+        return -(-self.s // BWD_STEPS)
+
+    def workspace_floats(self, skip: bool) -> int:
+        """Floats of the kernel's workspace, as ``csrc/ssm_scan_bwd.cu``
+        lays it out: the state before each block of each CTA, each CTA's
+        dB and dC partials, each sequence's dA (and dD) partials (338 MB
+        at falcon-mamba-7b's (4, 1024, 8192, 16): 268 MB of saved states,
+        67 MB of dB and dC partials)."""
+        return (self.b * self.ctas * self.blocks * BWD_THREADS * self.states
+                + self.ctas * 2 * self.b * self.s * self.ds
+                + self.b * self.di * self.ds
+                + (self.b * self.di if skip else 0))
 
 
-def bwd_workspace_floats(b: int, s: int, di: int, ds: int,
-                         skip: bool) -> int:
-    """Floats of the backward's workspace, as ``csrc/ssm_scan_bwd.cu``
-    lays it out: the state before each block of ``BWD_STEPS`` steps of
-    each CTA, each CTA's dB and dC partials, each sequence's dA (and dD)
-    partials (338 MB at falcon-mamba-7b's (4, 1024, 8192, 16))."""
-    ctas = -(-di // (BWD_THREADS // bwd_lanes(ds)))
-    blocks = -(-s // BWD_STEPS)
-    return (b * ctas * blocks * BWD_STATES * BWD_THREADS
-            + ctas * 2 * b * s * ds + b * di * ds + (b * di if skip else 0))
+def bwd_plan(b: int, s: int, di: int, ds: int, sms: int = 132) -> BwdPlan:
+    """The layout for ``(b, s, di, ds)`` on a card of ``sms`` SMs: 16
+    threads a channel past ds = 16; else eight states a thread (2 lanes, 64
+    channels a CTA) when that grid gives every SM ``_BWD_EIGHT_MIN_CTAS``
+    CTAs, and four (4 lanes, 32 channels) when it would leave SMs short:
+    batch 1 or 2 at falcon-mamba-7b's width, as when a 7B model is
+    fine-tuned on one card with a micro-batch of one sequence and gradient
+    accumulation.  Measured on an H100 (``tools/kernel_variants.py``):
+    0.74-0.75 ms with four against 0.90-0.92 with eight at (1, 2048, 8192,
+    16); 1.02-1.07 with eight against 1.25-1.33 with four at (4, 1024,
+    8192, 16)."""
+    if ds > BWD_SMALL_STATE:
+        lanes = 16
+    elif b * -(-di // (BWD_THREADS // 2)) >= _BWD_EIGHT_MIN_CTAS * sms:
+        lanes = 2
+    else:
+        lanes = 4
+    return BwdPlan(b, s, di, ds, lanes)
 
 
 def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -292,8 +340,9 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if dh0 is not None and dhf is not None and s == 0:
             dh0.copy_(dhf)
         return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
-    work = torch.empty(bwd_workspace_floats(b, s, di, ds, D is not None),
-                       dtype=f32, device=dev)
+    plan = bwd_plan(b, s, di, ds, build.sm_count(dev.index))
+    work = torch.empty(plan.workspace_floats(D is not None), dtype=f32,
+                       device=dev)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -304,7 +353,7 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Cf.data_ptr(), ptr(Df), ptr(h0f), dyx.data_ptr(), ptr(dhf),
                    dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                    dBC.data_ptr(), ptr(dD), ptr(dh0), work.data_ptr(), b, s,
-                   di, ds, bwd_lanes(ds), stream), "ssm_scan_bwd")
+                   di, ds, plan.lanes, stream), "ssm_scan_bwd")
     build.LAUNCHES["ssm_scan_bwd"] += 1
     return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
 

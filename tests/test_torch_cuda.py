@@ -6,6 +6,8 @@ machine that has only PyTorch:
 
 (``--noconftest``: the suite's conftest imports JAX.)
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -673,7 +675,60 @@ def _close_scaled(got, want, tol: dict, what: str) -> None:
 def test_ssm_scan_bwd_close_to_plain(cuda, b, s, di, ds, xdtype, dtdtype):
     """The backward kernel against its plain twin, with and without D, h0
     and dh_last; two launches bitwise equal."""
+    _check_scan_bwd(cuda, b, s, di, ds, xdtype, dtdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("b,s,di", [
+    (3, 77, 1000),                            # ragged s and di
+    (4, 17, 8192),                            # a block and a tail
+    (2, 64, 200)])                            # whole blocks, a ragged CTA
+@pytest.mark.parametrize("xdtype,dtdtype", SCAN_DTYPES)
+def test_ssm_scan_bwd_each_layout_close_to_plain(cuda, monkeypatch, lanes, b,
+                                                 s, di, xdtype, dtdtype):
+    """Each layout the plan can choose at ds = 16 (eight states a thread,
+    2 lanes; four, 4 lanes), forced through the plan's threshold, against
+    the plain twin; the wide layout (16 lanes) is the ds > 16 cases of
+    test_ssm_scan_bwd_close_to_plain."""
+    ss = sys.modules["repro_torch.kernels.ssm_scan"]
+    monkeypatch.setattr(ss, "_BWD_EIGHT_MIN_CTAS", 0 if lanes == 2 else 10**9)
+    assert ss.bwd_plan(b, s, di, 16, build.sm_count(0)).lanes == lanes
+    _check_scan_bwd(cuda, b, s, di, 16, xdtype, dtdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4, 16])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("xdtype,dtdtype", SCAN_DTYPES)
+def test_ssm_scan_bwd_unaligned_rows_close_to_plain(cuda, monkeypatch, lanes,
+                                                    offset, xdtype, dtdtype):
+    """Rows the kernel cannot stage in 16-byte copies, in each layout: di
+    not a multiple of 8, or x a contiguous view at an odd element offset
+    (rows of whole 16-byte chunks otherwise); against the plain twin, two
+    launches bitwise equal."""
+    b, s, di, ds = (1, 33, 101, 37) if lanes == 16 else (2, 37, 1001, 16)
+    if offset:
+        di = 96 if lanes == 16 else 1000
+    ss = sys.modules["repro_torch.kernels.ssm_scan"]
+    monkeypatch.setattr(ss, "_BWD_EIGHT_MIN_CTAS", 0 if lanes == 2 else 10**9)
+    assert ss.bwd_plan(b, s, di, ds, build.sm_count(0)).lanes == lanes
+    _check_scan_bwd(cuda, b, s, di, ds, xdtype, dtdtype, offset)
+
+
+def _at_odd_offset(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous view one element into a larger buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _check_scan_bwd(cuda, b, s, di, ds, xdtype, dtdtype, offset=False):
     t = _scan_inputs(cuda, b, s, di, ds, xdtype, dtdtype, 3 * s + di + ds)
+    if offset:
+        t["x"] = _at_odd_offset(t["x"])
     g = torch.Generator(device=cuda).manual_seed(s)
     dy = torch.randn((b, s, di), generator=g, device=cuda).to(xdtype)
     dh = torch.randn((b, di, ds), generator=g, device=cuda)

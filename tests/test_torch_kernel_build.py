@@ -14,8 +14,10 @@ CPU (no nvcc, no card):
   several rows a step for narrow rows, dscale's columns and partials each
   summed once in runs of at most 16; its constants are the CUDA source's;
 * the ``ssm_scan_bwd`` source: built and hashed like the others, its four
-  entry points the ones ``build`` binds, its shape constants the ones the
-  wrapper sizes its workspace with.
+  entry points the ones ``build`` binds, its shape and layout constants the
+  ones the wrapper plans and sizes its workspace with; ``bwd_plan`` of
+  ``kernels/ssm_scan.py``: a value, four states a thread where eight would
+  leave SMs short (batch 1), every layout it picks covering ds.
 """
 import importlib
 import os
@@ -399,13 +401,22 @@ def test_the_scan_backward_is_built_and_hashed_like_the_others(monkeypatch):
         src = f.read()
     entries = set(re.findall(r"^SSM_SCAN_BWD_ENTRY\((\w+),", src, re.M))
     assert entries == set(build._SIGNATURES["ssm_scan_bwd"])
-    # 16 pointers, batch, s, di, ds, lanes, the stream
+    # 16 pointers, batch, s, di, ds, the plan's lanes, the stream
     for argtypes in build._SIGNATURES["ssm_scan_bwd"].values():
         assert len(argtypes) == 22
     consts = {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", src)}
-    assert (consts["kNS"], consts["kThreads"], consts["kSteps"]) == (
-        ss.BWD_STATES, ss.BWD_THREADS, ss.BWD_STEPS)
+    assert (consts["kThreads"], consts["kSteps"]) == (ss.BWD_THREADS,
+                                                      ss.BWD_STEPS)
+    # the layouts by threads a channel, and the states the launch gives each
+    lanes = (consts["kEightLanes"], consts["kFourLanes"],
+             consts["kWideLanes"])
+    assert dict(zip(lanes, (8, 4, 8))) == ss.BWD_LAYOUTS
+    # the plan takes eight states where the grid fills the CTAs an SM that
+    # the eight-state kernel's registers are kept for
+    assert consts["kEightCtas"] == ss._BWD_EIGHT_MIN_CTAS
+    assert "const int states = lanes == kFourLanes ? 4 : 8;" in src
+    assert consts["kRing"] >= 2
     # a copy elsewhere builds with the same flags
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     cmd = build.nvcc_command(os.path.join(build.CSRC, "ssm_scan_bwd.cu"),
@@ -413,16 +424,55 @@ def test_the_scan_backward_is_built_and_hashed_like_the_others(monkeypatch):
     assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
 
 
-@pytest.mark.parametrize("b,s,di,ds,skip", [
-    (4, 1024, 8192, 16, False), (1, 1000, 8192, 16, True),
-    (3, 77, 1000, 16, True), (1, 33, 64, 37, False), (1, 20, 48, 128, True)])
+@pytest.mark.parametrize("b,s,di,ds,skip,lanes", [
+    (4, 1024, 8192, 16, False, 2), (1, 1000, 8192, 16, True, 4),
+    (3, 77, 1000, 16, True, 4), (1, 33, 64, 37, False, 16),
+    (1, 20, 48, 128, True, 16), (8, 9, 4200, 5, False, 2)])
 def test_scan_backward_workspace_follows_the_kernel_layout(b, s, di, ds,
-                                                           skip):
-    lanes = ss.bwd_lanes(ds)
-    assert lanes * ss.BWD_STATES >= ds and lanes in (2, 16)
+                                                           skip, lanes):
+    plan = ss.bwd_plan(b, s, di, ds, 132)
+    assert plan.lanes == lanes
+    states = ss.BWD_LAYOUTS[lanes]
+    assert plan.states == states and lanes * states >= ds
     ctas = -(-di // (ss.BWD_THREADS // lanes))
     blocks = -(-s // ss.BWD_STEPS)
-    saved = b * ctas * blocks * ss.BWD_STATES * ss.BWD_THREADS
+    assert (plan.ctas, plan.blocks) == (ctas, blocks)
+    saved = b * ctas * blocks * states * ss.BWD_THREADS
     want = saved + ctas * 2 * b * s * ds + b * di * ds + (b * di if skip
                                                            else 0)
-    assert ss.bwd_workspace_floats(b, s, di, ds, skip) == want
+    assert plan.workspace_floats(skip) == want
+
+
+def test_scan_backward_plan_is_a_value():
+    p = ss.bwd_plan(4, 1024, 8192, 16, 132)
+    assert p == ss.bwd_plan(4, 1024, 8192, 16, 132)
+    assert hash(p) == hash(ss.bwd_plan(4, 1024, 8192, 16, 132))
+    with pytest.raises(Exception):
+        p.lanes = 4
+
+
+@pytest.mark.parametrize("b,s,sms,lanes", [
+    (1, 2048, 132, 4),       # 128 CTAs of eight states for 132 SMs
+    (2, 1024, 132, 4),       # 256: SMs left with one CTA
+    (3, 1024, 132, 2),       # 384: every SM two or more
+    (4, 1024, 132, 2),       # the training shape: 512
+    (4, 1024, 264, 4),       # a card of twice the SMs
+    (1, 2048, 64, 2)])
+def test_scan_backward_plan_takes_four_states_where_eight_leave_sms_short(
+        b, s, sms, lanes):
+    p = ss.bwd_plan(b, s, 8192, 16, sms)
+    assert p.lanes == lanes
+    if lanes == 2:
+        assert b * p.ctas >= 2 * sms
+    else:
+        assert b * -(-8192 // (ss.BWD_THREADS // 2)) < 2 * sms
+        assert p.ctas == 2 * -(-8192 // (ss.BWD_THREADS // 2))
+
+
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_every_scan_backward_layout_covers_the_states(b):
+    for ds in range(1, ss.MAX_STATE + 1):
+        p = ss.bwd_plan(b, 100, 8192, ds, 132)
+        assert p.lanes in ss.BWD_LAYOUTS
+        assert p.lanes * p.states >= ds
+        assert (p.lanes == 16) == (ds > ss.BWD_SMALL_STATE)
