@@ -4,8 +4,8 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17, 18, 19 and 20 run last, after
-phase 11):
+16 right after phase 5 (phases 14, 15, 17, 18, 19, 20 and 21 run last,
+after phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -269,7 +269,20 @@ phase 11):
      whisper and a falcon-mamba-7b step are traced (whisper's device time
      split among the float32 backward and forward, the bf16 flash kernels,
      GEMMs and elementwise work; falcon-mamba's among the scan's backward
-     and forward, the norms, GEMMs and elementwise work).
+     and forward, the norms, GEMMs and elementwise work);
+ 21. the dry run against the card — glm4-9b on phase 20's 8 layers at 4 x
+     1024 (prefill, one decode step at that cache, one train step) and
+     falcon-mamba-7b's phase-20 train step, each counted on meta tensors
+     by ``repro_torch.launch.dryrun.run_cell`` and then run once on the
+     card under the same ``CostCounter`` and once under
+     ``FlopCounterMode``: the two costs equal field by field, the kernel
+     calls equal to ``build.LAUNCHES`` (reset just before), the counted
+     product flops equal to ``FlopCounterMode``'s,
+     the meta peak within 5 % of ``max_memory_allocated`` (less what was
+     allocated before the cell's tensors were made); then each step
+     timed (median of 5 after a warm-up) beside its roofline at the H100
+     data sheet: ``t_compute``, ``t_memory``, ``bound_time``, bound over
+     step and ``mfu`` (model flops over the step at 989 TFLOP/s).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -287,7 +300,7 @@ without a result line (for work on a kernel); ``--session-only`` and
 device time of the MoE blocks' routing, dispatch and combine beside their
 expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
-``--out DIR`` writes
+``--dryrun-only`` builds them and runs phase 21 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -311,15 +324,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis.hardware import H100  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels.ema_scan import (ema_blocks_work,  # noqa: E402
+                                          ema_rows_work)
+from repro_torch.kernels.rmsnorm import norm_work  # noqa: E402
+from repro_torch.kernels.spike_hist import hist_work  # noqa: E402
 
-# H100 SXM data-sheet peaks (HBM3 bandwidth; fp64 and fp32 outside the
-# tensor cores; bf16 dense on the tensor cores); exp on the special-function
-# units: 16 a clock per SM (CUDA guide, compute capability 9.0) x 132 SMs x
-# the 1,980 MHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f64": 34e12, "f32": 67e12, "bf16_tensor": 989e12,
-            "sfu_exp": 16 * 132 * 1.98e9}
+# H100 SXM data-sheet peaks (``analysis.hardware.H100``: HBM3 bandwidth; fp64
+# and fp32 outside the tensor cores; bf16 dense on the tensor cores; exp on
+# the special-function units)
+HBM_BYTES_PER_S = H100.hbm_bw
+PEAK_OPS = {"f64": H100.peak_flops_f64, "f32": H100.peak_flops_f32,
+            "bf16_tensor": H100.peak_flops_bf16, "sfu_exp": H100.peak_exp}
 
 BINS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.5)
 FLEET = {"tpu-v5e": 32, "tpu-v5p": 16, "tpu-v6e": 16}
@@ -472,9 +489,11 @@ def kernel_phase(dev, flush) -> dict:
     # timings at the fleet path's shapes, L2 flushed before every call
     t_hist1 = cuda_time_ms(lambda: spike_hist_batch(r32, (0.1,), (15,)), 30,
                            flush)            # jobs = 1 (ops.spike_hist)
-    hist1_bytes = r32.numel() * 4 + 15 * 4
+    hist1 = hist_work(1, r32.shape[1], 4, 1, 15,
+                      int((r32 >= 0.5).sum()))
+    hist1_bytes = hist1["bytes"]
     hist1_bound = max(hist1_bytes / HBM_BYTES_PER_S,
-                      r32.numel() * 2 / PEAK_OPS["f32"]) * 1e3
+                      hist1["flops"] / PEAK_OPS["f32"]) * 1e3
     log(f"spike_hist f32 jobs=1 (1, {r32.shape[1]}), 15 bins: kernel "
         f"{t_hist1:.4f} ms, bound {hist1_bound:.6f} ms ({hist1_bytes} B)")
     t_hist = cuda_time_ms(lambda: spike_hist_batch(rt, BINS, nb), 30, flush)
@@ -522,9 +541,11 @@ def builder_commit(dev, flush, power: np.ndarray, tdp: float, nb) -> dict:
         raise AssertionError("the fused builder commit differs from divide, "
                              "bin, cast and add")
     n = arr.numel()
-    nbytes = n * 8 + 8 + 2 * sum(nb) * 8      # samples, TDP, histograms r+w
     n_spike = int((arr / tdp_t >= spikes.SPIKE_LO).sum())
-    ops = 2 * n + n_spike * (1 + 2 * len(BINS))
+    # samples, TDP, histograms read and written
+    work = hist_work(1, n, 8, len(BINS), sum(nb), n_spike, divisor=1,
+                     out=True)
+    nbytes, ops = work["bytes"], work["flops"]
     bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["f64"]) * 1e3
     out = dict(shape=[1, n], ms=cuda_time_ms(fused, 50, flush),
                composed_ms=cuda_time_ms(composed, 50, flush),
@@ -706,8 +727,8 @@ def ema_forms(dev) -> dict:
         plain=lambda: ema_scan_blocks_plain(chunk, st0, True, 0.5),
         composed=lambda: ema_filter_block(torch.cat([chunk]), st0, 0.5, 0.5))
     for f in forms.values():
-        f["bytes"] = f["samples"] * 16 + f["rows"] * f["row_bytes"]
-        f["ops"] = f["samples"] * 17 + f["rows"] * 2   # 8 doubling steps
+        work = ema_blocks_work(f["samples"], f["rows"], f["row_bytes"])
+        f["bytes"], f["ops"] = work["bytes"], work["flops"]
         f["bound_ms"] = max(f["bytes"] / HBM_BYTES_PER_S,
                             f["ops"] / PEAK_OPS["f64"]) * 1e3
     return forms
@@ -1497,8 +1518,8 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
               one_row_library_ms=cuda_time_ms(
                   lambda: F.rms_norm(x1, (d,), weight=sc, eps=eps), 50, flush),
               decode=rmsnorm_decode(dev, flush, card, d, eps))
-    nbytes = 2.0 * (2 * rows * d + d)
-    flops = 4.0 * rows * d            # square, add; two multiplies
+    work = norm_work(rows, d, 2, 2)   # bf16 x and scale
+    nbytes, flops = work["bytes"], work["flops"]
     rn.update(err=rn_err, bytes=nbytes, flops=flops, shape=[rows, d],
               bound_ms=max(nbytes / HBM_BYTES_PER_S,
                            flops / PEAK_OPS["f32"]) * 1e3,
@@ -3996,11 +4017,11 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
     ``timed``, its time beside the plain twin, the bound (10 dh flops a
     visible pair) and SDPA's forward + backward through autograd."""
     import torch.nn.functional as F
-    from repro_torch.kernels import (attn_work, flash_attention_bshd,
+    from repro_torch.kernels import (flash_attention_bshd,
                                      flash_attention_bwd,
                                      flash_attention_bwd_plain,
                                      flash_attention_plain, ops)
-    from repro_torch.kernels.flash_attention import bwd_plan
+    from repro_torch.kernels.flash_attention import attn_bwd_work, bwd_plan
     heads = heads or dict(H=32, KV=2, dh=128)
     q, k, v = attn_inputs(dev, b, sq, skv, dtype, 31 + sq + skv, **heads)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -4040,10 +4061,8 @@ def flash_bwd_check(dev, flush, card: str, b, sq, skv, heads, causal,
         f"[{card}]: {what}; max err {err:.3e}, lse {err_lse:.3e}, two "
         f"launches bitwise equal")
     if timed:
-        flops, nbytes = attn_work(b, sq, skv, heads["H"], heads["KV"],
-                                  heads["dh"], q.element_size(), causal)
-        flops *= 2.5          # 10 dh a pair: q k^T, do v^T, dV, dK, dQ
-        nbytes = nbytes * 2 + b * heads["H"] * sq * 4    # + o, do, grads
+        flops, nbytes = attn_bwd_work(b, sq, skv, heads["H"], heads["KV"],
+                                      heads["dh"], q.element_size(), causal)
         peak = PEAK_OPS["bf16_tensor" if dtype == torch.bfloat16 else "f32"]
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -4093,7 +4112,7 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
     import torch.nn.functional as F
     from repro_torch.kernels import (build, ops, rmsnorm_bwd,
                                      rmsnorm_bwd_plain)
-    from repro_torch.kernels.rmsnorm import bwd_plan
+    from repro_torch.kernels.rmsnorm import bwd_plan, norm_bwd_work
     g = torch.Generator(device=dev).manual_seed(n + d)
     x, dy = (torch.randn((n, d), generator=g, device=dev).to(xdtype)
              for _ in range(2))
@@ -4124,7 +4143,8 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
         f"{plan.per_chunk} partials; max err {err:.3e}, two launches "
         f"bitwise equal")
     if timed:
-        nbytes = 3 * n * d * x.element_size() + 2 * d * sc.element_size()
+        work = norm_bwd_work(n, d, x.element_size(), sc.element_size())
+        nbytes = work["bytes"]
         out = torch.empty_like(x)
         xl = x.detach().clone().requires_grad_()
         sl = sc.detach().clone().requires_grad_()
@@ -4136,7 +4156,7 @@ def rmsnorm_bwd_check(dev, flush, card: str, n, d, xdtype, sdtype,
             ops.rmsnorm(xl, sl, 1e-5).backward(dy)
 
         r.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                 bound_by="bytes",
+                 bound_by="bytes", flops=work["flops"],
                  ms=cuda_time_ms(lambda: rmsnorm_bwd(x, sc, dy, 1e-5), 20,
                                  flush),
                  fwd_bwd_ms=cuda_time_ms(ours_fwd_bwd, 20, flush),
@@ -4737,6 +4757,140 @@ def train_full_phase(dev, card: str, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run's count held against the card
+# ---------------------------------------------------------------------------
+# (arch, layers, kind, batch, tokens): glm4-9b's prefill, one decode step
+# at that cache and one train step, and falcon-mamba-7b's train step, on
+# phase 20's cut depths and shape
+DRYRUN_CELLS = ((GLM, TRAIN_LAYERS, "prefill", 4, 1024),
+                (GLM, TRAIN_LAYERS, "decode", 4, 1024),
+                (GLM, TRAIN_LAYERS, "train", 4, 1024),
+                (MAMBA, MAMBA_TRAIN_LAYERS, "train", 4, 1024))
+DRYRUN_TIMED = 5              # steps timed after one warm-up
+DRYRUN_PEAK_TOL = 0.05        # meta peak against max_memory_allocated
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """Phase 21: each of ``DRYRUN_CELLS`` counted on meta by
+    ``launch.dryrun.run_cell``, then run once on the card under the same
+    counter, the launch counts set to 0 just before, and once more under
+    ``FlopCounterMode``: (a) the two ``Cost``s equal field by field and
+    the kernel calls equal to ``build.LAUNCHES``; (b) the counted product
+    flops equal ``FlopCounterMode``'s (the ctypes kernels are invisible to
+    both); (c)
+    the meta peak within ``DRYRUN_PEAK_TOL`` of ``max_memory_allocated``
+    less what was allocated before the cell's tensors were made;
+    (d) then, outside the counter, the step's median ms over
+    ``DRYRUN_TIMED`` synchronised steps (after the ``FlopCounterMode``
+    step) beside the roofline's terms,
+    ``bound_time / ms`` and ``mfu`` (model flops over the bf16 peak)."""
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    cells = []
+    for arch, layers, kind, b, s in DRYRUN_CELLS:
+        cfg = dataclasses.replace(ARCHS[arch], num_layers=layers)
+        shape = ShapeConfig(f"{kind}_{b}x{s}", s, b, kind)
+        what = f"{arch} {layers}/{ARCHS[arch].num_layers} layers {kind} " \
+            f"{b} x {s}"
+        rec = dryrun.run_cell(arch, shape.name, "card", cfg=cfg, shape=shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        # what earlier phases left allocated (the flush buffer, caches) is
+        # no part of this cell: the card's peak is counted above it
+        before = torch.cuda.memory_allocated()
+        cell = dryrun.make_cell(cfg, shape, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = CostCounter()
+        counter.track(cell.args)
+        build.reset_launches()
+        with counter:
+            out = cell.run()
+        torch.cuda.synchronize()
+        peak_all = torch.cuda.max_memory_allocated()
+        peak = peak_all - before
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        del out
+        # FlopCounterMode keeps tensors of the step alive (1.1 GiB more at
+        # glm4-9b's train peak, tools/peak_probe.py): it counts a step of
+        # its own, which is also the timing's warm-up
+        with FlopCounterMode(display=False) as flops:
+            cell.run()
+        torch.cuda.synchronize()
+        card_cost = dataclasses.asdict(counter.cost)
+        diff = {k: (rec["cost"][k], card_cost[k]) for k in card_cost
+                if rec["cost"][k] != card_cost[k]}
+        if diff:
+            raise AssertionError(f"{what}: meta and card costs differ "
+                                 f"(meta, card): {diff}")
+        if not (rec["calls"] == counter.calls == launches):
+            raise AssertionError(f"{what}: kernel calls on meta "
+                                 f"{rec['calls']}, on the card "
+                                 f"{counter.calls}, launched {launches}")
+        if counter.matmul_flops != flops.get_total_flops():
+            raise AssertionError(f"{what}: products {counter.matmul_flops} "
+                                 f"counted, FlopCounterMode "
+                                 f"{flops.get_total_flops()}")
+        est = rec["memory"]["peak_bytes"]
+        if abs(est - peak) > DRYRUN_PEAK_TOL * peak:
+            raise AssertionError(f"{what}: meta peak {est} B, card "
+                                 f"max_memory_allocated {peak_all} B less "
+                                 f"{before} B allocated before the cell")
+        times = []
+        for _ in range(DRYRUN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cell.run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+        roof = rec["roofline"]
+        ms = float(np.median(times))
+        r = dict(arch=arch, layers=layers, kind=kind, batch=b, tokens=s,
+                 cost=rec["cost"], calls=rec["calls"], launches=launches,
+                 matmul_flops=counter.matmul_flops,
+                 meta_peak_bytes=est, card_peak_bytes=peak,
+                 card_max_allocated=peak_all, card_before_bytes=before,
+                 peak_rel=(est - peak) / peak,
+                 memory=rec["memory"], fits=rec["fits"], ms=ms,
+                 ms_all=times, t_compute_ms=roof["t_compute"] * 1e3,
+                 t_memory_ms=roof["t_memory"] * 1e3,
+                 bound_ms=roof["bound_time"] * 1e3,
+                 dominant=roof["dominant"],
+                 bound_share=roof["bound_time"] * 1e3 / ms,
+                 model_flops=roof["model_flops"],
+                 mfu=roof["model_flops"] / (ms / 1e3 * H100.peak_flops_bf16),
+                 useful_ratio=roof["useful_ratio"],
+                 meta_count_s=rec["timings"]["count_s"])
+        log(f"dry run {what} [{card}]: meta and card costs equal "
+            f"({rec['cost']['flops']:.4e} flop, "
+            f"{rec['cost']['tensor_flops']:.4e} on the tensor cores, "
+            f"{rec['cost']['hbm_bytes_min']:.4e} B), calls = launches "
+            f"{launches}, products = FlopCounterMode's "
+            f"{counter.matmul_flops:.4e}; peak meta {est / 2**30:.3f} GiB, "
+            f"card {peak / 2**30:.3f} GiB ({r['peak_rel']:+.2%}; "
+            f"max_memory_allocated {peak_all / 2**30:.3f} GiB, of it "
+            f"{before / 2**30:.3f} from before the cell); step "
+            f"{ms:.2f} ms (median of {DRYRUN_TIMED}), t_compute "
+            f"{r['t_compute_ms']:.2f} ms, t_memory {r['t_memory_ms']:.2f} "
+            f"ms, bound_time {r['bound_ms']:.2f} ms ({r['dominant']}), "
+            f"bound/step {r['bound_share']:.1%}, mfu {r['mfu']:.2%}")
+        cells.append(r)
+    out = dict(cells=cells, seconds=time.perf_counter() - t_phase)
+    log(f"phase 21 (dry run vs card): {out['seconds']:.3f} s [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -4785,6 +4939,12 @@ def main() -> int:
                          "whisper-medium, the vlm on 10 layers and "
                          "falcon-mamba-7b on 8 layers training); prints no "
                          "result line")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build the kernels and run phase 21 alone (the "
+                         "dry run's meta count of glm4-9b's prefill, decode "
+                         "and train steps and falcon-mamba-7b's train step "
+                         "held against the card's, and their roofline); "
+                         "prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -4858,6 +5018,13 @@ def main() -> int:
             with open(os.path.join(args.out, "cross.json"), "w") as f:
                 json.dump({"card": card, "cross": cross}, f, indent=1)
         log("phases 17 and 18 alone (--cross-only): no result line")
+        return 0
+    if args.dryrun_only:
+        dry = dryrun_phase(dev, card)
+        if args.out is not None:
+            with open(os.path.join(args.out, "dryrun.json"), "w") as f:
+                json.dump({"card": card, "dryrun": dry}, f, indent=1)
+        log("phase 21 alone (--dryrun-only): no result line")
         return 0
     workdir = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
@@ -4951,19 +5118,21 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         train["trace"] = trace_train(dev, card, args.out)
         train["trace_whisper"] = trace_train(dev, card, args.out, WHISPER)
         train["trace_mamba"] = trace_train(dev, card, args.out, MAMBA)
+    dry = dryrun_phase(dev, card)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
     rows, cols = sh["shape"]
-    hist_bytes = sh["numel"] * 8 + rows * sum(
-        int(round(1.5 / c)) for c in BINS) * 4
-    hist_ops = sh["numel"] + sh["n_spike"] * (1 + len(BINS))
+    hist = hist_work(rows, cols, 8, len(BINS),
+                     sum(int(round(1.5 / c)) for c in BINS), sh["n_spike"])
+    hist_bytes = hist["bytes"]
     hist_bound = max(hist_bytes / HBM_BYTES_PER_S,
-                     hist_ops / PEAK_OPS["f64"]) * 1e3
+                     hist["flops"] / PEAK_OPS["f64"]) * 1e3
     ema_n = mp["ema_n"]               # the main path's median trace length
     t_ema, t_ema_plain, err_ema = time_ema(dev, flush, ema_n)
-    ema_bound = max(ema_n * 8 / HBM_BYTES_PER_S,
-                    ema_n * 3 / PEAK_OPS["f32"]) * 1e3
+    ema = ema_rows_work(1, ema_n)
+    ema_bound = max(ema["bytes"] / HBM_BYTES_PER_S,
+                    ema["flops"] / PEAK_OPS["f32"]) * 1e3
     eb = kp["ema_blocks"]             # the engine's group advance leads
     kernels = [
         {"name": "spike_hist", "route": "cuda",
@@ -5104,6 +5273,10 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                                       "dtype", "dt_dtype", "ms",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in tk["ssm_scan"] if "ms" in r]})
+    for rec in kernels:               # phase 21's card steps
+        rec["launches_dryrun"] = {
+            f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
+            for c in dry["cells"]}
     log(f"spike_hist f64 {rows}x{cols}, 6 bin sizes [{card}]: kernel "
         f"{sh['ms']:.4f} ms (L2 flushed; {sh['warm_ms']:.4f} ms warm), plain "
         f"{sh['plain_ms']:.4f} ms, bound {hist_bound:.4f} ms "
@@ -5125,7 +5298,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "lm_kernels": lp, "serve": sp, "ssm_kernel": ssp,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
-                       "serve_cross": cross_sp, "train": train}, f, indent=1)
+                       "serve_cross": cross_sp, "train": train,
+                       "dryrun": dry}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

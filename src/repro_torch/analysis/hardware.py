@@ -16,6 +16,10 @@ arXiv:2208.11035) is expressed through two multiplicative fields on
 Both default to exactly 1.0, which is bit-exact with the pre-fleet model
 (multiplying by 1.0 is an IEEE identity); ``repro_torch.fleet.DeviceInventory``
 draws seeded per-device values around 1.0.
+
+``H100`` is the card the port runs on, for its roofline (``analysis.roofline``)
+and the kernels' bounds; it is not in ``CHIP_MODELS``, so the simulated fleet
+stays the reference's.
 """
 from __future__ import annotations
 
@@ -41,6 +45,19 @@ class ChipSpec:
     # per-instance silicon variability (1.0 = the nominal chip)
     perf_scale: float = 1.0
     power_scale: float = 1.0
+
+    @property
+    def f32_rate(self) -> float:
+        """FLOP/s of work off the bf16 product units: a TPU's chip model
+        gives none, so its bf16 peak."""
+        return self.peak_flops_bf16
+
+    def compute_time(self, flops: float, tensor_flops: float) -> float:
+        """Seconds for ``flops``, of which ``tensor_flops`` run at the bf16
+        peak and the rest at ``f32_rate`` (with ``tensor_flops == flops``
+        exactly ``flops / peak_flops_bf16``)."""
+        return tensor_flops / self.peak_flops_bf16 \
+            + (flops - tensor_flops) / self.f32_rate
 
     @property
     def machine_balance(self) -> float:
@@ -72,6 +89,34 @@ V5P = ChipSpec(name="tpu-v5p", peak_flops_bf16=459e12, hbm_bw=2765e9,
 V6E = ChipSpec(name="tpu-v6e", peak_flops_bf16=918e12, hbm_bw=1640e9,
                hbm_bytes=32 * 2**30, ici_link_bw=100e9, ici_links=4,
                tdp_w=300.0, idle_w=80.0)
+
+
+@dataclass(frozen=True)
+class GpuSpec(ChipSpec):
+    """A GPU's ``ChipSpec`` with the rates off its tensor cores (FLOP/s of
+    float32 and float64, exp/s on the special-function units) and its
+    streaming multiprocessors.  A subclass, so that ``ChipSpec``'s fields,
+    which the fleet's records carry, stay the reference's."""
+    peak_flops_f32: float = 0.0
+    peak_flops_f64: float = 0.0
+    peak_exp: float = 0.0
+    sms: int = 0
+
+    @property
+    def f32_rate(self) -> float:
+        return self.peak_flops_f32
+
+
+# One NVIDIA H100 SXM (data sheet, dense rates at the 700 W limit): bf16 on
+# the tensor cores, float32 and float64 outside them, 3.35 TB/s of HBM3, 80
+# GB, 18 NVLink 4 links of 25 GB/s each way; exp on the special-function
+# units: 16 a clock an SM (CUDA guide, compute capability 9.0) x 132 SMs x
+# the 1,980 MHz boost clock.  The power-model fields (idle_w, the DVFS
+# range, max_excursion) keep the class defaults and are not read for it.
+H100 = GpuSpec(name="h100-sxm", peak_flops_bf16=989e12, hbm_bw=3.35e12,
+               hbm_bytes=80e9, ici_link_bw=25e9, ici_links=18, tdp_w=700.0,
+               peak_flops_f32=67e12, peak_flops_f64=34e12,
+               peak_exp=16 * 132 * 1.98e9, sms=132)
 
 # the chip-model registry the fleet inventory draws from
 CHIP_MODELS: dict[str, ChipSpec] = {s.name: s for s in (V5E, V5P, V6E)}

@@ -13,9 +13,20 @@ import.
 ``LAUNCHES`` counts kernel launches per kernel name (the sources' names,
 and ``rmsnorm_bwd`` for the backward entry points of ``rmsnorm.cu``); each
 wrapper adds one where it launches its kernel and nowhere else.
+
+Where a wrapper runs follows its tensors (``device_of``): on the CPU its
+plain twin, on a CUDA device its kernel (or it raises), on ``meta`` neither
+(the wrapper allocates the card path's outputs on meta and returns them,
+for a dry run of a step that moves no data).  Each wrapper allocates its
+outputs before it branches, the same on every device, and runs the launch,
+the twin or nothing inside ``counted``: an active cost counter
+(``repro_torch.analysis.cost.CostCounter``) skips the ops inside and
+charges the call its kernel's work (``Work``) and workspace instead, so a
+step counts the same on the CPU, on meta and on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -25,8 +36,12 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Callable, NamedTuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+from repro_torch.analysis.hardware import H100
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("spike_hist", "ema_scan", "flash_attention",
@@ -192,23 +207,76 @@ def wants_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def on_card(what: str, ts) -> bool:
-    """False for tensors on the CPU (the plain twin's case), True for
-    tensors on one CUDA device; raises for anything else, and for CUDA
-    inputs that want a gradient: a kernel's output has no ``grad_fn`` and
-    would cut the graph (``ops`` routes those through the kernels'
-    ``autograd.Function``s)."""
+def device_of(what: str, ts) -> str:
+    """Where a kernel call on tensors ``ts`` runs: ``"cpu"`` (the plain
+    twin), ``"cuda"`` (the kernel, on one CUDA device) or ``"meta"`` (no
+    launch).  Raises for tensors on several devices or on any other, and
+    for CUDA or meta inputs that want a gradient: a kernel's output has no
+    ``grad_fn`` and would cut the graph (``ops`` routes those through the
+    kernels' ``autograd.Function``s)."""
     devices = {t.device for t in ts}
-    if devices == {torch.device("cpu")}:
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu with every tensor on "
-                         f"one device, not {sorted(map(str, devices))}")
+    kind = next(iter(devices)).type if len(devices) == 1 else None
+    if kind == "cpu":
+        return kind
+    if kind not in ("cuda", "meta"):
+        raise ValueError(f"{what} runs on cuda, cpu or meta with every "
+                         f"tensor on one device, not "
+                         f"{sorted(map(str, devices))}")
     if wants_grad(*ts):
         raise RuntimeError(f"{what}: an input requires grad, and the "
                            f"kernel's output would cut the graph; call it "
                            f"through repro_torch.kernels.ops")
-    return True
+    return kind
+
+
+class Work(NamedTuple):
+    """One kernel call's work, as its bound counts it: operations (of which
+    ``tensor_flops`` on the tensor cores), exps, and bytes (each input read
+    once, each output written once); and the bytes of workspace the call
+    allocates for itself (``scratch``, live only while it runs)."""
+    flops: float
+    bytes: float
+    exps: float = 0.0
+    tensor_flops: float = 0.0
+    scratch: int = 0
+
+
+def work(counts: dict, scratch: int = 0) -> Work:
+    """``Work`` of a work function's ``dict(bytes=, exps=, flops=)``."""
+    return Work(counts["flops"], counts["bytes"], counts["exps"],
+                scratch=scratch)
+
+
+def counter():
+    """The innermost active dispatch mode that counts kernel calls (it has
+    ``kernel_call``), or None."""
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "kernel_call"):
+            return mode
+    return None
+
+
+_NOTHING = contextlib.nullcontext()
+
+
+def counted(name: str, work_of: Callable[[], Work]):
+    """The context of one call of kernel ``name`` (the launch, the twin on
+    the CPU, or nothing on meta): with a counter active, it ignores the ops
+    inside and charges the call ``work_of()`` (asked only then); else
+    nothing."""
+    c = counter()
+    return _NOTHING if c is None else c.kernel_call(name, work_of)
+
+
+def sms(device: torch.device) -> int:
+    """Streaming multiprocessors the launch plans are made for: the CUDA
+    device's own, else an H100's (the card the meta and CPU counts
+    stand for)."""
+    return sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device()) \
+        if device.type == "cuda" else H100.sms
 
 
 @functools.lru_cache(maxsize=None)

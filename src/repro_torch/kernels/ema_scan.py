@@ -16,7 +16,9 @@ Two entries, both through the CUDA kernels of ``csrc/ema_scan.cu``:
   kernel and to the reference's NumPy blocks.
 
 A wrapper takes the plain version for a CPU tensor only; for a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises; for a meta tensor it allocates the output
+and launches nothing.  ``ema_rows_work`` and ``ema_blocks_work`` count the
+bytes and operations of one call.
 """
 from __future__ import annotations
 
@@ -56,28 +58,48 @@ def ema_scan_plain(x: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def ema_rows_work(rows: int, n: int) -> dict:
+    """Bytes and float32 operations of one ``ema_scan_rows`` call: each
+    sample read and its filtered value written (4 bytes each); a multiply,
+    a multiply and an add a sample."""
+    return dict(bytes=8 * rows * n, exps=0, flops=3 * rows * n)
+
+
+def ema_blocks_work(samples: int, rows: int, row_bytes: int) -> dict:
+    """Bytes and float64 operations of one ``ema_scan_blocks`` call over
+    ``samples`` samples in ``rows`` rows: each sample read and written (8
+    bytes each) and ``row_bytes`` a row (its slot index, state and flag
+    read and written, its ragged bounds); 17 operations a sample (the
+    seeding multiply and eight doubling steps of a multiply and an add) and
+    2 a row (the carried state's multiply and add)."""
+    return dict(bytes=samples * 16 + rows * row_bytes, exps=0,
+                flops=samples * 17 + rows * 2)
+
+
 def ema_scan_rows(x: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
     """float32 (n,) or (rows, n) -> EMA-filtered float32 of the same shape."""
     _check(x)
     if not 0.0 < alpha <= 1.0:
         raise ValueError(f"alpha must be in (0, 1], got {alpha}")
-    if x.device.type == "cpu":
-        return ema_scan_plain(x, alpha)
-    if x.device.type != "cuda":
-        raise ValueError(f"ema_scan runs on cuda or cpu, not {x.device}")
-    if not x.is_contiguous():
+    where = build.device_of("ema_scan", (x,))
+    if where == "cuda" and not x.is_contiguous():
         raise ValueError("ema_scan needs a contiguous tensor")
     out = torch.empty_like(x)
     rows = 1 if x.dim() == 1 else x.shape[0]
     n = x.shape[-1]
     if rows == 0 or n == 0:
         return out
-    lib = build.library("ema_scan")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(lib.ema_scan_f32(x.data_ptr(), out.data_ptr(), rows, n,
-                                 float(alpha), float(1.0 - alpha), stream),
-                "ema_scan")
-    build.LAUNCHES["ema_scan"] += 1
+    with build.counted("ema_scan",
+                       lambda: build.work(ema_rows_work(rows, n))):
+        if where == "cpu":
+            out.copy_(ema_scan_plain(x, alpha))
+        elif where == "cuda":
+            lib = build.library("ema_scan")
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            build.check(lib.ema_scan_f32(x.data_ptr(), out.data_ptr(), rows,
+                                         n, float(alpha), float(1.0 - alpha),
+                                         stream), "ema_scan")
+            build.LAUNCHES["ema_scan"] += 1
     return out
 
 
@@ -254,14 +276,8 @@ def ema_scan_blocks(x: torch.Tensor, state=None, has=False,
     """
     rows, n, offs = _blocks_args(x, state, has, alpha, n, offsets, index,
                                  state_out, has_out, block)
-    if x.device.type == "cpu":
-        return ema_scan_blocks_plain(
-            x, state, has, alpha, n=n, offsets=offsets, index=index,
-            state_out=state_out, has_out=has_out, block=block)
-    if x.device.type != "cuda":
-        raise ValueError(f"ema_scan_blocks runs on cuda or cpu, not "
-                         f"{x.device}")
-    if int(block) != EMA_BLOCK:
+    where = build.device_of("ema_scan", (x,))
+    if where != "cpu" and int(block) != EMA_BLOCK:
         raise ValueError(f"the kernel filters blocks of {EMA_BLOCK} samples, "
                          f"not {block}")
     host_offs = off_t = None
@@ -269,23 +285,35 @@ def ema_scan_blocks(x: torch.Tensor, state=None, has=False,
         out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     else:
         out = torch.empty(int(offs[-1]), dtype=x.dtype, device=x.device)
-        if rows <= _INLINE_ROWS:
-            host_offs = offs.ctypes.data      # copied into the launch
-        elif out.numel():
-            # through pinned memory: the copy neither syncs the host nor
-            # reuses the buffer before the card has read it
-            off_t = torch.from_numpy(offs).pin_memory().to(x.device,
-                                                           non_blocking=True)
     if rows == 0 or out.numel() == 0:
         return out
-    lib = build.library("ema_scan")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    build.check(lib.ema_blocks_f64(
-        x.data_ptr(), out.data_ptr(), host_offs, ptr(off_t), rows, n or 0,
-        x.stride(0) if x.dim() == 2 else 0, ptr(state),
-        None if isinstance(has, bool) else has.data_ptr(),
-        int(has is True), ptr(index), ptr(state_out), ptr(has_out),
-        float(alpha), float(1.0 - alpha), stream), "ema_scan")
-    build.LAUNCHES["ema_scan"] += 1
+    # a row's own bytes: slot index, state (and flag) read, state and flag
+    # written, ragged bounds
+    row_bytes = (8 * (index is not None) + 8 * (state is not None)
+                 + (not isinstance(has, bool)) + 9 * (state_out is not None)
+                 + 8 * (offs is not None))
+    with build.counted("ema_scan", lambda: build.work(ema_blocks_work(
+            out.numel(), rows, row_bytes))):
+        if where == "cpu":
+            out.copy_(ema_scan_blocks_plain(
+                x, state, has, alpha, n=n, offsets=offsets, index=index,
+                state_out=state_out, has_out=has_out, block=block))
+        elif where == "cuda":
+            if offs is not None and rows <= _INLINE_ROWS:
+                host_offs = offs.ctypes.data      # copied into the launch
+            elif offs is not None:
+                # through pinned memory: the copy neither syncs the host nor
+                # reuses the buffer before the card has read it
+                off_t = torch.from_numpy(offs).pin_memory().to(
+                    x.device, non_blocking=True)
+            lib = build.library("ema_scan")
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            ptr = (lambda t: None if t is None else t.data_ptr())
+            build.check(lib.ema_blocks_f64(
+                x.data_ptr(), out.data_ptr(), host_offs, ptr(off_t), rows,
+                n or 0, x.stride(0) if x.dim() == 2 else 0, ptr(state),
+                None if isinstance(has, bool) else has.data_ptr(),
+                int(has is True), ptr(index), ptr(state_out), ptr(has_out),
+                float(alpha), float(1.0 - alpha), stream), "ema_scan")
+            build.LAUNCHES["ema_scan"] += 1
     return out

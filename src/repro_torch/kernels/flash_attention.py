@@ -16,7 +16,10 @@ without a key and is refused.
 ``ref.flash_attention_ref`` in plain PyTorch.  The wrapper takes it for a
 CPU tensor only; for a CUDA tensor it launches the kernel or raises.
 ``attn_work`` counts the work of one call (the visible (query, key) pairs
-the mask keeps), from which a bound on the card's time follows.
+the mask keeps), from which a bound on the card's time follows, and
+``attn_bwd_work`` that of one backward call.  On ``meta`` tensors both
+wrappers allocate what the card path allocates and launch nothing
+(``build.device_of``).
 
 The gradient: ``with_lse=True`` also returns each row's log-sum-exp of its
 scaled scores (float32 ``(b, H, sq)``, natural log), and
@@ -285,44 +288,77 @@ def bwd_plan(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
     return dataclasses.replace(plan, split=max(split, 1), simt=simt)
 
 
+def attn_bwd_work(b: int, sq: int, skv: int, H: int, KV: int, dh: int,
+                  elem: int, causal: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of one backward call: 10*dh flops (five products: q
+    k^T, do v^T, dV, dK, dQ) a visible pair and head, 2.5 times
+    ``attn_work``'s; q, k, v, o and do read and dq, dk, dv written (twice
+    ``attn_work``'s bytes), and the float32 lse read."""
+    flops, nbytes = attn_work(b, sq, skv, H, KV, dh, elem, causal)
+    return flops * 2.5, nbytes * 2 + b * H * sq * 4
+
+
+def _work(fn, q, k, causal: bool, scratch: int = 0) -> build.Work:
+    """``build.Work`` of ``fn`` (``attn_work`` or ``attn_bwd_work``) at q
+    and k's shapes: on the tensor cores in bfloat16, else on the float32
+    pipes."""
+    b, sq, H, dh = q.shape
+    flops, nbytes = fn(b, sq, k.shape[1], H, k.shape[2], dh,
+                       q.element_size(), causal)
+    return build.Work(flops, nbytes, tensor_flops=flops
+                      if q.dtype == torch.bfloat16 else 0.0,
+                      scratch=scratch)
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """q (b, sq, H, dh); k, v (b, skv, KV, dh) -> (b, sq, H, dh), and with
     ``with_lse`` the rows' log-sum-exp (b, H, sq) float32."""
     _check(q, k, v, causal)
-    if not build.on_card("flash_attention", (q, k, v)):
-        return flash_attention_plain(q, k, v, causal, with_lse)
-    if q.dtype not in _NAMES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+    where = build.device_of("flash_attention", (q, k, v))
     b, sq, H, dh = q.shape
     skv, KV = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} needs dh contiguous, "
-                             f"16-byte aligned rows (strides "
-                             f"{t.stride()})")
-    if max(b, H) > 65535 or b * H * -(-sq // BLOCK_Q) > 2**31 - 1 \
-            or skv > 2**31 - 1:
-        raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
-                         f"{tuple(k.shape)} exceeds the kernel's grid")
+    if where != "cpu":
+        if q.dtype not in _NAMES:
+            raise TypeError(f"flash_attention takes float32 or bfloat16, "
+                            f"got {q.dtype}")
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"flash_attention kernel takes head_dim in "
+                             f"{HEAD_DIMS}, got {dh}")
+        vec = 16 // q.element_size()
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
+                    or t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} needs dh "
+                                 f"contiguous, 16-byte aligned rows "
+                                 f"(strides {t.stride()})")
+        if max(b, H) > 65535 or b * H * -(-sq // BLOCK_Q) > 2**31 - 1 \
+                or skv > 2**31 - 1:
+            raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
+                             f"{tuple(k.shape)} exceeds the kernel's grid")
     out = torch.empty((b, sq, H, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    fn = getattr(build.library("flash_attention"),
-                 f"flash_attention_{_NAMES[q.dtype]}")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   0 if lse is None else lse.data_ptr(), b, sq, skv, H, KV,
-                   dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                   *out.stride()[:3], int(bool(causal)), stream),
-                "flash_attention")
-    build.LAUNCHES["flash_attention"] += 1
+    with build.counted("flash_attention",
+                       lambda: _work(attn_work, q, k, causal)):
+        if where == "cpu":
+            got = flash_attention_plain(q, k, v, causal, with_lse)
+            if with_lse:
+                out.copy_(got[0])
+                lse.copy_(got[1])
+            else:
+                out.copy_(got)
+        elif where == "cuda":
+            fn = getattr(build.library("flash_attention"),
+                         f"flash_attention_{_NAMES[q.dtype]}")
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(),
+                           0 if lse is None else lse.data_ptr(), b, sq, skv,
+                           H, KV, dh, *q.stride()[:3], *k.stride()[:3],
+                           *v.stride()[:3], *out.stride()[:3],
+                           int(bool(causal)), stream), "flash_attention")
+            build.LAUNCHES["flash_attention"] += 1
     return (out, lse) if with_lse else out
 
 
@@ -342,45 +378,54 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if not build.on_card("flash_attention_bwd", (q, k, v, o, lse, do)):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    if q.dtype not in _NAMES or o.dtype != q.dtype or do.dtype != q.dtype \
-            or lse.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16 q, "
-                        f"o, do and a float32 lse, got {q.dtype}, {o.dtype}, "
-                        f"{do.dtype}, {lse.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd takes head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
-    if max(b, H, KV) > 65535:
-        raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} / "
-                         f"{tuple(k.shape)} exceeds the kernel's grid")
+    where = build.device_of("flash_attention_bwd", (q, k, v, o, lse, do))
+    if where != "cpu":
+        if q.dtype not in _NAMES or o.dtype != q.dtype \
+                or do.dtype != q.dtype or lse.dtype != torch.float32:
+            raise TypeError(f"flash_attention_bwd takes float32 or bfloat16"
+                            f" q, o, do and a float32 lse, got {q.dtype}, "
+                            f"{o.dtype}, {do.dtype}, {lse.dtype}")
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"flash_attention_bwd takes head_dim in "
+                             f"{HEAD_DIMS}, got {dh}")
+        if max(b, H, KV) > 65535:
+            raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} "
+                             f"/ {tuple(k.shape)} exceeds the kernel's grid")
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.data_ptr() % 16:
+        if where == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
                              f"aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    plan = bwd_plan(b, sq, skv, H, KV, dh, build.sm_count(q.device.index),
-                    causal, simt=q.dtype == torch.float32)
-    work = torch.empty(plan.work_floats, dtype=torch.float32,
-                       device=q.device)
-    fn = getattr(build.library("flash_attention_bwd"),
-                 f"flash_attention_bwd_{_NAMES[q.dtype]}")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
-                                            work)),
-                   b, sq, skv, H, KV, dh, int(bool(causal)), plan.split,
-                   stream),
-                "flash_attention_bwd")
-    build.LAUNCHES["flash_attention_bwd"] += 1
+
+    def make_plan():
+        return bwd_plan(b, sq, skv, H, KV, dh, build.sms(q.device), causal,
+                        simt=q.dtype != torch.bfloat16)
+    with build.counted("flash_attention_bwd", lambda: _work(
+            attn_bwd_work, q, k, causal, make_plan().scratch_bytes)):
+        if where == "cpu":
+            for out, got in zip((dq, dk, dv), flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, causal)):
+                out.copy_(got)
+        elif where == "cuda":
+            plan = make_plan()
+            work = torch.empty(plan.work_floats, dtype=torch.float32,
+                               device=q.device)
+            fn = getattr(build.library("flash_attention_bwd"),
+                         f"flash_attention_bwd_{_NAMES[q.dtype]}")
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            build.check(fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq,
+                                                    dk, dv, work)),
+                           b, sq, skv, H, KV, dh, int(bool(causal)),
+                           plan.split, stream), "flash_attention_bwd")
+            build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention whose forward saves (q, k, v, o, lse) and whose backward
     is ``flash_attention_bwd`` (the kernel on the card, the plain twin on
-    the CPU)."""
+    the CPU, shapes alone on meta)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):

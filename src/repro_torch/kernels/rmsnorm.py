@@ -7,7 +7,9 @@ CUDA kernel ``csrc/rmsnorm.cu`` (a CTA a row, x read once).
 vector.
 ``rmsnorm_plain`` is the same function in plain PyTorch, the twin of the
 reference's ``ref.rmsnorm_ref``.  The wrapper takes the plain version for a
-CPU tensor only; for a CUDA tensor it launches the kernel or raises.
+CPU tensor only; for a CUDA tensor it launches the kernel or raises; for a
+meta tensor it allocates the output and launches nothing.  ``norm_work``
+and ``norm_bwd_work`` count the bytes and operations of one call.
 
 The gradient: ``rmsnorm_bwd(x, scale, dy, eps)`` returns ``(dx, dscale)``
 (dx in x's dtype; dscale summed over the rows in float32, in scale's dtype)
@@ -102,6 +104,33 @@ def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
             (gy * xh).sum(0).to(scale.dtype))
 
 
+def norm_work(n: int, d: int, x_bytes: int, s_bytes: int) -> dict:
+    """Bytes and float32 operations of one forward call: x read and the
+    output written at ``x_bytes`` an element, scale read once at
+    ``s_bytes``; four operations an element (square, add; two
+    multiplies)."""
+    return dict(bytes=2 * n * d * x_bytes + d * s_bytes, exps=0,
+                flops=4 * n * d)
+
+
+def norm_bwd_work(n: int, d: int, x_bytes: int, s_bytes: int) -> dict:
+    """Least bytes and float32 operations of one backward call: x and dy
+    read and dx written at ``x_bytes`` an element, scale read and dscale
+    written at ``s_bytes``; eleven operations an element (x^2 and its sum,
+    x^ = x r, g = dy scale, g x^ and its sum, dx = r (g - x^ mean), dy x^
+    and its sum over the rows)."""
+    return dict(bytes=3 * n * d * x_bytes + 2 * d * s_bytes, exps=0,
+                flops=11 * n * d)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte aligned data: on the card its address; elsewhere its offset
+    in its storage (the card's allocator aligns a storage to 512 bytes)."""
+    if t.device.type == "cuda":
+        return t.data_ptr() % _VEC_BYTES == 0
+    return t.storage_offset() * t.element_size() % _VEC_BYTES == 0
+
+
 def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
                  *, pdl: bool = False) -> torch.Tensor:
     """(n, d) float32/bfloat16 -> (n, d) of the same dtype.
@@ -113,24 +142,29 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     weight (``models.layers.Norm``); a decode step's chain of residual adds
     and norms is faster with it (``PERF.md``)."""
     _check(x, scale)
-    if not build.on_card("rmsnorm", (x, scale)):
-        return rmsnorm_plain(x, scale, eps)
-    dev = x.device
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm needs contiguous x and scale")
+    where = build.device_of("rmsnorm", (x, scale))
     n, d = x.shape
-    if n > 2**31 - 1 or d > 2**31 - 1:
-        raise ValueError(f"rmsnorm takes fewer than 2**31 rows and columns, "
-                         f"got {tuple(x.shape)}")
+    if where != "cpu":
+        if not (x.is_contiguous() and scale.is_contiguous()):
+            raise ValueError("rmsnorm needs contiguous x and scale")
+        if n > 2**31 - 1 or d > 2**31 - 1:
+            raise ValueError(f"rmsnorm takes fewer than 2**31 rows and "
+                             f"columns, got {tuple(x.shape)}")
     out = torch.empty_like(x)
-    vectorized = (d % (_VEC_BYTES // _SIZES[x.dtype]) == 0
-                  and x.data_ptr() % _VEC_BYTES == 0
-                  and out.data_ptr() % _VEC_BYTES == 0
-                  and scale.data_ptr() % _VEC_BYTES == 0)
-    build.check(_kernel(x.dtype, scale.dtype)(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, float(eps),
-        int(vectorized), int(pdl), _raw_stream(dev)), "rmsnorm")
-    build.LAUNCHES["rmsnorm"] += 1
+    with build.counted("rmsnorm", lambda: build.work(norm_work(
+            n, d, x.element_size(), scale.element_size()))):
+        if where == "cpu":
+            out.copy_(rmsnorm_plain(x, scale, eps))
+        elif where == "cuda":
+            vectorized = (d % (_VEC_BYTES // _SIZES[x.dtype]) == 0
+                          and x.data_ptr() % _VEC_BYTES == 0
+                          and out.data_ptr() % _VEC_BYTES == 0
+                          and scale.data_ptr() % _VEC_BYTES == 0)
+            build.check(_kernel(x.dtype, scale.dtype)(
+                x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+                float(eps), int(vectorized), int(pdl),
+                _raw_stream(x.device)), "rmsnorm")
+            build.LAUNCHES["rmsnorm"] += 1
     return out
 
 
@@ -252,37 +286,50 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} does "
                          f"not match x {tuple(x.shape)} {x.dtype}")
-    if not build.on_card("rmsnorm_bwd", (x, scale, dy)):
-        return rmsnorm_bwd_plain(x, scale, dy, eps)
+    where = build.device_of("rmsnorm_bwd", (x, scale, dy))
     x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
     n, d = x.shape
     dx = torch.empty_like(x)
     if n == 0:
         return dx, torch.zeros_like(scale)
-    vectorized = d % (_VEC_BYTES // _SIZES[x.dtype]) == 0 and all(
-        t.data_ptr() % _VEC_BYTES == 0 for t in (x, scale, dy, dx))
-    plan = bwd_plan(n, d, _SIZES[x.dtype], _SIZES[scale.dtype], vectorized,
-                    build.sm_count(x.device.index))
     dscale = torch.empty_like(scale)
-    partial = torch.empty(plan.partial_floats, dtype=torch.float32,
-                          device=x.device)
-    stream = _raw_stream(x.device)
-    tickets = _ticket_counters(x.device, stream)
-    fn = getattr(build.library("rmsnorm"),
-                 f"rmsnorm_bwd_{_NAMES[x.dtype]}_{_NAMES[scale.dtype]}")
-    build.check(fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                   dx.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
-                   dscale.data_ptr(), n, d, float(eps), int(vectorized),
-                   plan.ctas, plan.per, plan.warps, plan.stages, plan.cols,
-                   plan.col_width, plan.col_chunks, plan.smem_bytes, stream),
-                "rmsnorm_bwd")
-    build.LAUNCHES["rmsnorm_bwd"] += 1
+    vectorized = d % (_VEC_BYTES // _SIZES[x.dtype]) == 0 and all(
+        map(_aligned, (x, scale, dy, dx)))
+
+    def make_plan():
+        return bwd_plan(n, d, _SIZES[x.dtype], _SIZES[scale.dtype],
+                        vectorized, build.sms(x.device))
+    with build.counted("rmsnorm_bwd", lambda: build.work(norm_bwd_work(
+            n, d, x.element_size(), scale.element_size()),
+            4 * make_plan().partial_floats)):
+        if where == "cpu":
+            for out, got in zip((dx, dscale),
+                                rmsnorm_bwd_plain(x, scale, dy, eps)):
+                out.copy_(got)
+        elif where == "cuda":
+            plan = make_plan()
+            partial = torch.empty(plan.partial_floats, dtype=torch.float32,
+                                  device=x.device)
+            stream = _raw_stream(x.device)
+            tickets = _ticket_counters(x.device, stream)
+            fn = getattr(build.library("rmsnorm"),
+                         f"rmsnorm_bwd_{_NAMES[x.dtype]}_"
+                         f"{_NAMES[scale.dtype]}")
+            build.check(fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                           dx.data_ptr(), partial.data_ptr(),
+                           tickets.data_ptr(), dscale.data_ptr(), n, d,
+                           float(eps), int(vectorized), plan.ctas, plan.per,
+                           plan.warps, plan.stages, plan.cols,
+                           plan.col_width, plan.col_chunks, plan.smem_bytes,
+                           stream), "rmsnorm_bwd")
+            build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dscale
 
 
 class RMSNormFn(torch.autograd.Function):
     """RMSNorm over the rows of (n, d) whose backward is ``rmsnorm_bwd``
-    (the kernel on the card, the plain twin on the CPU)."""
+    (the kernel on the card, the plain twin on the CPU, shapes alone on
+    meta)."""
 
     @staticmethod
     def forward(ctx, x, scale, eps: float, pdl: bool):

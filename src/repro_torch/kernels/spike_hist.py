@@ -18,7 +18,8 @@ does, a repeated index included, and returns ``out``.
 
 ``spike_hist_batch_plain`` is the same function in plain PyTorch.  The
 wrapper takes it for a CPU tensor only; for a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; for a meta tensor it allocates the counts and launches
+nothing.  ``hist_work`` counts the bytes and operations of one call.
 """
 from __future__ import annotations
 
@@ -218,6 +219,40 @@ def _device_tables(device, dtype, sizes, offsets):
     return t
 
 
+def hist_work(rows: int, F: int, elem: int, n_sizes: int, total: int,
+              n_spike: int, *, divisor: int = 0, out: bool = False,
+              index: bool = False) -> dict:
+    """Bytes and operations of one call on a (rows, F) block of ``elem``
+    bytes an element with ``n_sizes`` bin sizes of ``total`` bins in all:
+    the samples (and ``divisor``'s elements) read once, then the int32
+    counts written, or with ``out`` the float64 histograms read and written
+    (with ``index``, the int64 row index read).  Operations: a compare a
+    sample (and its divide by the divisor), then for each of the
+    ``n_spike`` samples at or above ``lo`` a subtract and, per size, its
+    quotient and its bin."""
+    nbytes = rows * F * elem + divisor * elem + (
+        rows * total * 4 if not out
+        else 2 * rows * total * 8 + (rows * 8 if index else 0))
+    ops = rows * F * (2 if divisor else 1) + n_spike * (1 + 2 * n_sizes)
+    return dict(bytes=nbytes, exps=0, flops=ops)
+
+
+def _work(r, lo, sizes, total, out, rows, divisor, where) -> build.Work:
+    """``hist_work`` of one call; the samples at or above ``lo`` counted
+    from the data (on meta there is none: every sample counts)."""
+    n, F = r.shape
+    if where == "meta":
+        n_spike = n * F
+    else:
+        rel = r if divisor is None else r / (
+            divisor[:, None] if divisor.dim() else divisor)
+        n_spike = int((rel >= lo).sum())
+    return build.work(hist_work(
+        n, F, r.element_size(), len(sizes), total, n_spike,
+        divisor=0 if divisor is None else divisor.numel(),
+        out=out is not None, index=rows is not None))
+
+
 def spike_hist_batch(r: torch.Tensor, bin_sizes, n_bins, lo: float = 0.5,
                      *, out: torch.Tensor | None = None,
                      rows: torch.Tensor | None = None,
@@ -225,12 +260,8 @@ def spike_hist_batch(r: torch.Tensor, bin_sizes, n_bins, lo: float = 0.5,
     """(rows, F) float64/float32 -> (rows, sum(n_bins)) int32 counts, or
     ``out`` with the counts added (see the module's docstring)."""
     _check_block(r)
-    if r.device.type == "cpu":
-        return spike_hist_batch_plain(r, bin_sizes, n_bins, lo, out=out,
-                                      rows=rows, divisor=divisor)
-    if r.device.type != "cuda":
-        raise ValueError(f"spike_hist runs on cuda or cpu, not {r.device}")
-    if not r.is_contiguous():
+    where = build.device_of("spike_hist", (r,))
+    if where == "cuda" and not r.is_contiguous():
         raise ValueError("spike_hist needs a contiguous block")
     sizes, n_bins, offsets = _check_layout(bin_sizes, n_bins)
     total = offsets[-1]
@@ -249,21 +280,30 @@ def spike_hist_batch(r: torch.Tensor, bin_sizes, n_bins, lo: float = 0.5,
         result = out
     if n == 0 or F == 0:
         return result
-    lib = build.library("spike_hist")
-    fn = lib.spike_hist_f64 if r.dtype == torch.float64 \
-        else lib.spike_hist_f32
-    sizes_t, starts_t, tops_t, scales_t, code = _device_tables(
-        r.device, r.dtype, sizes, offsets)
-    vectorized = r.data_ptr() % 16 == 0 and F * r.element_size() % 16 == 0
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    build.check(fn(r.data_ptr(), n, F, sizes_t.data_ptr(),
-                   starts_t.data_ptr(), tops_t.data_ptr(),
-                   scales_t.data_ptr(), len(sizes), code, float(lo),
-                   0 if divisor is None else divisor.data_ptr(),
-                   int(divisor is not None and divisor.dim() == 1),
-                   result.data_ptr(), int(out is not None),
-                   0 if rows is None else rows.data_ptr(), result.shape[0],
-                   total, group, splits, int(vectorized), stream),
-                "spike_hist")
-    build.LAUNCHES["spike_hist"] += 1
+    with build.counted("spike_hist", lambda: _work(
+            r, lo, sizes, total, out, rows, divisor, where)):
+        if where == "cpu":
+            got = spike_hist_batch_plain(r, sizes, n_bins, lo, out=out,
+                                         rows=rows, divisor=divisor)
+            if out is None:
+                result.copy_(got)
+        elif where == "cuda":
+            lib = build.library("spike_hist")
+            fn = lib.spike_hist_f64 if r.dtype == torch.float64 \
+                else lib.spike_hist_f32
+            sizes_t, starts_t, tops_t, scales_t, code = _device_tables(
+                r.device, r.dtype, sizes, offsets)
+            vectorized = r.data_ptr() % 16 == 0 \
+                and F * r.element_size() % 16 == 0
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            build.check(fn(r.data_ptr(), n, F, sizes_t.data_ptr(),
+                           starts_t.data_ptr(), tops_t.data_ptr(),
+                           scales_t.data_ptr(), len(sizes), code, float(lo),
+                           0 if divisor is None else divisor.data_ptr(),
+                           int(divisor is not None and divisor.dim() == 1),
+                           result.data_ptr(), int(out is not None),
+                           0 if rows is None else rows.data_ptr(),
+                           result.shape[0], total, group, splits,
+                           int(vectorized), stream), "spike_hist")
+            build.LAUNCHES["spike_hist"] += 1
     return result

@@ -23,9 +23,11 @@ forward is ``ssm_scan_bsd`` and whose backward is ``ssm_scan_bwd``;
 plain PyTorch (the first the twin of the reference's ``ref.ssm_scan_ref``,
 the second its gradient as an explicit reverse-time loop).  The wrappers
 take them for CPU tensors only; for CUDA tensors they launch the kernels
-or raise, and the bare wrappers refuse CUDA inputs that require grad (a
-kernel's output would cut the graph).  ``scan_work`` and ``scan_bwd_work``
-count the bytes, exps and other float32 operations of one call.
+or raise; for meta tensors they allocate the card path's outputs and
+launch nothing; and the bare wrappers refuse CUDA and meta inputs that
+require grad (a kernel's output would cut the graph).  ``scan_work`` and
+``scan_bwd_work`` count the bytes, exps and other float32 operations of
+one call.
 """
 from __future__ import annotations
 
@@ -161,11 +163,10 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h0, h_out (b, di, ds) or None -> (y (b, s, di), h_last (b, di, ds))."""
     _check(x, dt, A, B, C, D, h0, h_out)
     given = [t for t in (x, dt, A, B, C, D, h0, h_out) if t is not None]
-    if not build.on_card("ssm_scan", given):
-        return ssm_scan_plain(x, dt, A, B, C, D, h0, h_out)
+    where = build.device_of("ssm_scan", given)
     b, s, di = x.shape
     ds = A.shape[1]
-    if b > 65535 or max(s, di) > 2**31 - 1:
+    if where != "cpu" and (b > 65535 or max(s, di) > 2**31 - 1):
         raise ValueError(f"ssm_scan: shape {tuple(x.shape)} exceeds the "
                          f"kernel's grid")
     Af, Bf, Cf = (t.to(torch.float32).contiguous() for t in (A, B, C))
@@ -174,14 +175,24 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)
     h_last = h_out if h_out is not None else torch.empty(
         (b, di, ds), dtype=torch.float32, device=x.device)
-    fn = getattr(build.library("ssm_scan"),
-                 f"ssm_scan_{_NAMES[x.dtype]}_{_NAMES[dt.dtype]}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(fn(x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
-                   Cf.data_ptr(), 0 if Df is None else Df.data_ptr(),
-                   0 if h0f is None else h0f.data_ptr(), y.data_ptr(),
-                   h_last.data_ptr(), b, s, di, ds, stream), "ssm_scan")
-    build.LAUNCHES["ssm_scan"] += 1
+    with build.counted("ssm_scan", lambda: build.work(scan_work(
+            b, s, di, ds, x.element_size(), dt.element_size(),
+            skip=D is not None, h0=h0 is not None))):
+        if where == "cpu":
+            got = ssm_scan_plain(x, dt, Af, Bf, Cf, Df, h0f)
+            y.copy_(got[0])
+            h_last.copy_(got[1])
+        elif where == "cuda":
+            fn = getattr(build.library("ssm_scan"),
+                         f"ssm_scan_{_NAMES[x.dtype]}_{_NAMES[dt.dtype]}")
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            build.check(fn(x.data_ptr(), dt.data_ptr(), Af.data_ptr(),
+                           Bf.data_ptr(), Cf.data_ptr(),
+                           0 if Df is None else Df.data_ptr(),
+                           0 if h0f is None else h0f.data_ptr(),
+                           y.data_ptr(), h_last.data_ptr(), b, s, di, ds,
+                           stream), "ssm_scan")
+            build.LAUNCHES["ssm_scan"] += 1
     return y, h_last
 
 
@@ -316,9 +327,8 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ds = A.shape[1]
     _check_bwd(x, dy, dh_last, b, di, ds)
     given = [t for t in (x, dt, A, B, C, D, h0, dy, dh_last) if t is not None]
-    if not build.on_card("ssm_scan_bwd", given):
-        return ssm_scan_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_last)
-    if b > 65535 or max(s, di) > 2**31 - 1:
+    where = build.device_of("ssm_scan_bwd", given)
+    if where != "cpu" and (b > 65535 or max(s, di) > 2**31 - 1):
         raise ValueError(f"ssm_scan_bwd: shape {tuple(x.shape)} exceeds the "
                          f"kernel's grid")
     dev, f32 = x.device, torch.float32
@@ -340,28 +350,44 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if dh0 is not None and dhf is not None and s == 0:
             dh0.copy_(dhf)
         return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
-    plan = bwd_plan(b, s, di, ds, build.sm_count(dev.index))
-    work = torch.empty(plan.workspace_floats(D is not None), dtype=f32,
-                       device=dev)
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-    fn = getattr(build.library("ssm_scan_bwd"),
-                 f"ssm_scan_bwd_{_NAMES[x.dtype]}_{_NAMES[dt.dtype]}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(fn(x.data_ptr(), dt.data_ptr(), Af.data_ptr(), Bf.data_ptr(),
-                   Cf.data_ptr(), ptr(Df), ptr(h0f), dyx.data_ptr(), ptr(dhf),
-                   dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-                   dBC.data_ptr(), ptr(dD), ptr(dh0), work.data_ptr(), b, s,
-                   di, ds, plan.lanes, stream), "ssm_scan_bwd")
-    build.LAUNCHES["ssm_scan_bwd"] += 1
+    def make_plan():
+        return bwd_plan(b, s, di, ds, build.sms(dev))
+    with build.counted("ssm_scan_bwd", lambda: build.work(scan_bwd_work(
+            b, s, di, ds, x.element_size(), dt.element_size(),
+            skip=D is not None, h0=h0 is not None,
+            dh_last=dh_last is not None),
+            4 * make_plan().workspace_floats(D is not None))):
+        if where == "cpu":
+            got = ssm_scan_bwd_plain(x, dt, Af, Bf, Cf, Df, h0f, dy, dhf)
+            for out, g in zip((dx, ddt, dA, dBC[0], dBC[1], dD, dh0), got):
+                if out is not None:
+                    out.copy_(g)
+        elif where == "cuda":
+            plan = make_plan()
+            work = torch.empty(plan.workspace_floats(D is not None),
+                               dtype=f32, device=dev)
+
+            def ptr(t):
+                return 0 if t is None else t.data_ptr()
+            fn = getattr(build.library("ssm_scan_bwd"),
+                         f"ssm_scan_bwd_{_NAMES[x.dtype]}_{_NAMES[dt.dtype]}")
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            build.check(fn(x.data_ptr(), dt.data_ptr(), Af.data_ptr(),
+                           Bf.data_ptr(), Cf.data_ptr(), ptr(Df), ptr(h0f),
+                           dyx.data_ptr(), ptr(dhf), dx.data_ptr(),
+                           ddt.data_ptr(), dA.data_ptr(), dBC.data_ptr(),
+                           ptr(dD), ptr(dh0), work.data_ptr(), b, s, di, ds,
+                           plan.lanes, stream), "ssm_scan_bwd")
+            build.LAUNCHES["ssm_scan_bwd"] += 1
     return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
 
 
 class SSMScanFn(torch.autograd.Function):
     """The scan whose forward is ``ssm_scan_bsd`` (saving its inputs, no
     state a step) and whose backward is ``ssm_scan_bwd`` (the kernel on the
-    card, the plain twin on the CPU); returns ``(y, h_last)``."""
+    card, the plain twin on the CPU, shapes alone on meta); returns ``(y,
+    h_last)``."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0):

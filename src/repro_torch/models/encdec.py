@@ -37,6 +37,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from torch.utils._python_dispatch import _disable_current_modes
+
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ONE_DEVICE, Topo, maybe_remat
@@ -48,13 +50,16 @@ from repro_torch.models.transformer import (ModelBase, SubLayer,
 @functools.lru_cache(maxsize=None)
 def _frequencies(dim: int, device: torch.device) -> torch.Tensor:
     """exp(-log(10000) i / (half - 1)) in float32, made on the host once per
-    device (a host-to-device copy at every step would wait for the card)."""
+    device (a host-to-device copy at every step would wait for the card).
+    A constant, not a step's work: made outside any dispatch mode (a cost
+    counter), so a step counts the same whether or not it is the first."""
     half = dim // 2
     f32 = torch.float32
-    freqs = torch.exp(torch.tensor(-math.log(10000.0), dtype=f32)
-                      * torch.arange(half, dtype=f32)
-                      / torch.tensor(float(max(half - 1, 1)), dtype=f32))
-    return freqs.to(device)
+    with _disable_current_modes():
+        freqs = torch.exp(torch.tensor(-math.log(10000.0), dtype=f32)
+                          * torch.arange(half, dtype=f32)
+                          / torch.tensor(float(max(half - 1, 1)), dtype=f32))
+        return freqs.to(device)
 
 
 def sinusoidal(positions: torch.Tensor, dim: int) -> torch.Tensor:

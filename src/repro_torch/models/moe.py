@@ -30,6 +30,15 @@ from repro_torch.models.common import ParamDef, ParamModule, ParamStore
 PLACEMENTS = ("ep", "gathered", "ep_decode", "tp_decode")
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as its CUDA path computes it, a scatter
+    of ones into zeros, on every device: on the CPU ``F.one_hot`` first
+    checks the indices on the host, on meta it compares, so a step would
+    count other ops on each."""
+    return torch.zeros(idx.shape + (n,), dtype=torch.int64,
+                       device=idx.device).scatter_(-1, idx[..., None], 1)
+
+
 class Route(NamedTuple):
     """The routing of (G, S) groups: for each token's j-th choice, its
     expert ``topi`` (G, S, k), its slot ``pos`` in that expert's group
@@ -117,14 +126,14 @@ class MoE(ParamModule):
         topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
         # aux load-balancing loss (Switch) from the first choices
-        frac_tokens = F.one_hot(topi[..., 0], E).to(torch.float32).mean(
+        frac_tokens = _one_hot(topi[..., 0], E).to(torch.float32).mean(
             dim=(0, 1))
         aux = E * torch.sum(frac_tokens * probs.mean(dim=(0, 1)))
 
         counts = torch.zeros((G, E), dtype=torch.int64, device=xg.device)
         pos = torch.empty_like(topi)
         for j in range(k):
-            mask = F.one_hot(topi[..., j], E)                    # (G, S, E)
+            mask = _one_hot(topi[..., j], E)                    # (G, S, E)
             before = counts[:, None, :] + torch.cumsum(mask, dim=1) - mask
             pos[..., j] = before.gather(-1, topi[..., j:j + 1])[..., 0]
             keep = pos[..., j] < C

@@ -1349,3 +1349,27 @@ def test_reduced_glm_loss_and_gradients_on_card_match_host(cuda):
     assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
     for a, w in zip(gc, gh):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["glm4-9b", "falcon-mamba-7b"])
+def test_reduced_train_step_counts_the_same_on_meta_and_card(cuda, arch):
+    """A reduced train step counted by ``analysis.cost.CostCounter`` on meta
+    tensors and on the card: equal costs, products, kernel calls (each a
+    launch) and, within 5 %, peak memory."""
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch import dryrun
+    cfg = ARCHS[arch].reduced()
+    shape = ShapeConfig("t", 256, 2, "train")
+    meta, _ = dryrun.count_cell(dryrun.make_cell(cfg, shape, "meta"))
+    cell = dryrun.make_cell(cfg, shape, cuda)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    card, _ = dryrun.count_cell(cell)
+    torch.cuda.synchronize()
+    launched = {k: build.LAUNCHES[k] - before[k] for k in before
+                if build.LAUNCHES[k] != before[k]}
+    assert card.cost == meta.cost
+    assert card.matmul_flops == meta.matmul_flops
+    assert card.calls == meta.calls == launched
+    assert abs(card.peak_bytes - meta.peak_bytes) <= 0.05 * meta.peak_bytes
