@@ -4,8 +4,8 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17, 18, 19, 20 and 21 run last,
-after phase 11):
+16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21 and 22 run
+last, after phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -282,7 +282,22 @@ after phase 11):
      allocated before the cell's tensors were made); then each step
      timed (median of 5 after a warm-up) beside its roofline at the H100
      data sheet: ``t_compute``, ``t_memory``, ``bound_time``, bound over
-     step and ``mfu`` (model flops over the step at 989 TFLOP/s).
+     step and ``mfu`` (model flops over the step at 989 TFLOP/s);
+ 22. the tail of the reference — ``repro_torch.lint`` over the port's
+     tree in this process (0 active findings; the counts printed), both
+     facade examples (``examples/quickstart_torch.py``,
+     ``examples/fleet_power_planner_torch.py``, each planner with a
+     temporary store of its own) on the card and then on the host, their
+     lines equal but the planner's build seconds and the byte count of the
+     quickstart's report (which of them differed is printed), and
+     ``spike_hist`` and ``ema_scan`` launched in each card run; then
+     ``repro_torch.legacy``'s seed loops against the kernels on the card
+     at ``tests/test_profiling_engine.py``'s tolerances: the float32 EMA
+     within rtol 2e-4 + atol 2e-3 and the engine's blocked float64 EMA
+     within 1e-9 of ``ema_filter_loop`` (3,000 samples, seed 3), and
+     ``spike_hist`` over traces of 96·128, 1,280, 130, 125·128 and 250·128
+     samples in float32 and float64 counting every sample >= 0.5 once,
+     equal to the plain twin.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -300,7 +315,8 @@ without a result line (for work on a kernel); ``--session-only`` and
 device time of the MoE blocks' routing, dispatch and combine beside their
 expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
-``--dryrun-only`` builds them and runs phase 21 alone; ``--out DIR`` writes
+``--dryrun-only`` builds them and runs phase 21 alone; ``--tail-only``
+builds them and runs phase 22 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -4891,6 +4907,176 @@ def dryrun_phase(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tail of the reference — the port's contract checker over
+# the tree, the two facade examples on the card and on the host, and the
+# frozen seed loops against the profiling kernels
+# ---------------------------------------------------------------------------
+TAIL_EXAMPLES = ("quickstart_torch.py", "fleet_power_planner_torch.py")
+# lines whose numbers may differ between two runs that decide alike: the
+# planner's library build time, and the byte count of the quickstart's
+# session report (its floats print with as many digits as they need)
+TAIL_MASKS = (re.compile(r"(# built reference library: \d+ profiles in )"
+                         r"[\d.]+(s)$"),
+              re.compile(r"(session report: .*, )\d+( bytes as JSON)$"))
+# tests/test_profiling_engine.py's inputs and tolerances: 3,000 samples of
+# seed 3; the float32 kernel within rtol 2e-4 + atol 2e-3 of the loop, the
+# float64 engine within 1e-9; the partial-block trace lengths
+TAIL_EMA_N, TAIL_EMA_SEED = 3000, 3
+TAIL_EMA_F32_TOL = dict(rtol=2e-4, atol=2e-3)
+TAIL_EMA_F64_TOL = dict(rtol=1e-9, atol=1e-9)
+TAIL_HIST_N = (96 * 128, 1280, 130, 125 * 128, 250 * 128)
+
+
+def tail_lint() -> dict:
+    """The port's contract checker over its default scan, in-process: no
+    active finding may remain."""
+    from pathlib import Path
+
+    from repro_torch.lint import load_context, run
+    ctx = load_context(Path(ROOT))
+    findings = run(ctx)
+    active = [f for f in findings if not f.suppressed]
+    by_rule: dict[str, int] = {}
+    for f in findings:
+        if f.suppressed:
+            by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    out = dict(files=len(ctx.files), findings=len(active),
+               suppressed=len(findings) - len(active),
+               suppressed_by_rule=by_rule)
+    log(f"phase 22 lint: {out['files']} files, {out['findings']} "
+        f"finding(s), {out['suppressed']} suppressed "
+        f"{json.dumps(by_rule, sort_keys=True)}")
+    if active:
+        raise AssertionError("repro_torch.lint: " + "; ".join(
+            f.render() for f in active))
+    return out
+
+
+def mask_numbers(line: str) -> str:
+    for pattern in TAIL_MASKS:
+        line = pattern.sub(r"\1N\2", line)
+    return line
+
+
+def run_example(name: str, *args) -> list[str]:
+    """``examples/<name>``'s ``main(*args)`` in this process; its lines."""
+    import io
+    import runpy
+    g = runpy.run_path(os.path.join(ROOT, "examples", name),
+                       run_name="example")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        g["main"](*args)
+    return buf.getvalue().splitlines()
+
+
+def tail_examples(dev, card: str, workdir: str) -> dict:
+    """Both ``_torch`` examples on the card, then on the host (one thread,
+    as the CPU tests run them), each planner with a store of its own:
+    every line equal but the masked numbers; ``spike_hist`` and
+    ``ema_scan`` launched in each card run."""
+    out = {}
+    for name in TAIL_EXAMPLES:
+        planner = name.startswith("fleet")
+        runs = {}
+        for where, device in (("card", str(dev)), ("host", "cpu")):
+            args = (device, os.path.join(workdir, f"tail_store_{where}")) \
+                if planner else (device,)
+            take_launches()
+            t0 = time.perf_counter()
+            if where == "host":
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    lines = run_example(name, *args)
+                finally:
+                    torch.set_num_threads(threads)
+            else:
+                lines = run_example(name, *args)
+                sync(dev)
+            runs[where] = dict(seconds=time.perf_counter() - t0,
+                               launches=take_launches(), lines=lines)
+        card_lines, host_lines = runs["card"]["lines"], runs["host"]["lines"]
+        if [mask_numbers(x) for x in card_lines] != \
+                [mask_numbers(x) for x in host_lines] or not card_lines:
+            diff = [f"card {a!r} / host {b!r}" for a, b in
+                    zip(card_lines, host_lines) if a != b]
+            raise AssertionError(f"{name}: the card's lines differ from the "
+                                 f"host's: {diff or (card_lines, host_lines)}")
+        launched = runs["card"]["launches"]
+        if min(launched.values()) == 0:
+            raise AssertionError(f"{name} on the card launched {launched}")
+        if any(runs["host"]["launches"].values()):
+            raise AssertionError(f"{name} on the host launched "
+                                 f"{runs['host']['launches']}")
+        out[name] = dict(card_s=runs["card"]["seconds"],
+                         host_s=runs["host"]["seconds"], launches=launched,
+                         lines=card_lines,
+                         identical=card_lines == host_lines)
+        same = "identical" if card_lines == host_lines \
+            else "but masked numbers"
+        log(f"phase 22 {name} [{card}]: {len(card_lines)} lines, card = host "
+            f"({same}), card {runs['card']['seconds']:.3f} s, host "
+            f"{runs['host']['seconds']:.3f} s, launches {json.dumps(launched)}")
+    return out
+
+
+def tail_golden(dev, card: str) -> dict:
+    """The seed loops of ``repro_torch.legacy`` against the kernels on the
+    card, at the reference's tolerances (these launches are checks, not a
+    main path)."""
+    from repro_torch import legacy
+    from repro_torch.kernels.ema_scan import ema_scan_blocks
+    from repro_torch.kernels.ops import ema_scan
+    from repro_torch.kernels.spike_hist import (spike_hist_batch,
+                                                spike_hist_batch_plain)
+    take_launches()
+    x = np.random.default_rng(TAIL_EMA_SEED).uniform(40.0, 600.0, TAIL_EMA_N)
+    want = legacy.ema_filter_loop(x, 0.5)
+    xt = torch.from_numpy(x).to(dev)
+    f32 = ema_scan(xt, 0.5).to(torch.float64).cpu().numpy()
+    f64 = ema_scan_blocks(xt, alpha=0.5).cpu().numpy()
+    np.testing.assert_allclose(f32, want, **TAIL_EMA_F32_TOL)
+    np.testing.assert_allclose(f64, want, **TAIL_EMA_F64_TOL)
+    out = dict(ema_f32_err=float(np.max(np.abs(f32 - want))),
+               ema_f64_err=float(np.max(np.abs(f64 - want))), hist=[])
+    for n in TAIL_HIST_N:
+        p = np.random.default_rng(n).uniform(0.4, 2.2, n)
+        for dtype in (torch.float32, torch.float64):
+            r = torch.from_numpy(p).to(dtype)
+            counts = spike_hist_batch(r.to(dev)[None, :], (0.1,), (15,))
+            plain = spike_hist_batch_plain(r[None, :], (0.1,), (15,))
+            above = int((r >= 0.5).sum())
+            if int(counts.sum()) != above or \
+                    not torch.equal(counts.cpu(), plain):
+                raise AssertionError(
+                    f"spike_hist over {n} samples ({dtype}): "
+                    f"{int(counts.sum())} counted, {above} at or above 0.5")
+            out["hist"].append(dict(n=n, dtype=str(dtype), counted=above))
+    out["launches"] = take_launches()
+    if min(out["launches"].values()) == 0:
+        raise AssertionError(f"phase 22's checks launched {out['launches']}")
+    log(f"phase 22 seed loops vs kernels [{card}]: ema_scan f32 max err "
+        f"{out['ema_f32_err']:.3e} (rtol 2e-4, atol 2e-3), f64 blocks "
+        f"{out['ema_f64_err']:.3e} (1e-9); spike_hist counted every sample "
+        f">= 0.5 once at n = {', '.join(map(str, TAIL_HIST_N))} (float32 and "
+        f"float64, equal to the plain twin)")
+    return out
+
+
+def tail_phase(dev, card: str, workdir: str) -> dict:
+    """Phase 22: the port's lint over the tree, both facade examples on the
+    card and the host, the seed loops against the kernels."""
+    t_phase = time.perf_counter()
+    out = dict(lint=tail_lint(), examples=tail_examples(dev, card, workdir),
+               golden=tail_golden(dev, card))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 22 (lint, examples, seed loops): {out['seconds']:.3f} s "
+        f"[{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -4945,6 +5131,11 @@ def main() -> int:
                          "and train steps and falcon-mamba-7b's train step "
                          "held against the card's, and their roofline); "
                          "prints no result line")
+    ap.add_argument("--tail-only", action="store_true",
+                    help="build the kernels and run phase 22 alone (the "
+                         "port's lint over the tree, both _torch examples "
+                         "on the card and the host, the seed loops against "
+                         "the kernels); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -5042,6 +5233,13 @@ def main() -> int:
                     json.dump({"card": card, "train": train}, f, indent=1)
             log("phases 19 and 20 alone (--train-only): no result line")
             return 0
+        if args.tail_only:
+            tail = tail_phase(dev, card, workdir)
+            if args.out is not None:
+                with open(os.path.join(args.out, "tail.json"), "w") as f:
+                    json.dump({"card": card, "tail": tail}, f, indent=1)
+            log("phase 22 alone (--tail-only): no result line")
+            return 0
         return run_phases(args, dev, card, kind, flush, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5049,7 +5247,7 @@ def main() -> int:
 
 def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                workdir: str) -> int:
-    """Phases 3-18 (the whole run, or phase 12 alone or phases 13 and 16
+    """Phases 3-22 (the whole run, or phase 12 alone or phases 13 and 16
     with ``--session-only`` / ``--discovery-only``); prints the result
     lines."""
     from repro_torch.configs import ARCHS
@@ -5119,6 +5317,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         train["trace_whisper"] = trace_train(dev, card, args.out, WHISPER)
         train["trace_mamba"] = trace_train(dev, card, args.out, MAMBA)
     dry = dryrun_phase(dev, card)
+    tail = tail_phase(dev, card, workdir)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -5299,7 +5498,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
                        "serve_cross": cross_sp, "train": train,
-                       "dryrun": dry}, f, indent=1)
+                       "dryrun": dry, "tail": tail}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

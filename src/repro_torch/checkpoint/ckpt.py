@@ -29,7 +29,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.convert import to_numpy
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array, bit for bit: bfloat16 as its uint16
+    bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:

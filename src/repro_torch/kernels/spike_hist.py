@@ -179,7 +179,8 @@ def _quotient_plan(sizes, dtype) -> tuple[tuple[int, int, float], ...]:
         m, e = math.frexp(c)
         if abs(e) > 100:                         # keep the scales in range
             plan.append((b, DIVIDE, 1.0))
-        elif m == 0.5:                           # c = 2**(e - 1)
+        # frexp's mantissa is exact: m is 0.5 exactly when c = 2**(e - 1)
+        elif m == 0.5:  # minoslint: disable=W501
             shifted.append((b, FROM_SHIFTED, math.ldexp(1.0, 1 - e)))
             continue
         else:

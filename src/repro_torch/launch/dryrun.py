@@ -45,8 +45,7 @@ from repro_torch.configs import ARCHS, ALL_SHAPES, SHAPES, shape_applicable
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.launch.mesh import MESHES
 from repro_torch.models.model_zoo import build_model, input_specs, make_batch
-from repro_torch.optim import init_opt_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -106,10 +105,7 @@ def make_cell(cfg: ModelConfig, shape: ShapeConfig, device="meta",
     if kind == "train":
         run_cfg = RunConfig(microbatches=microbatches, moment_dtype=(
             "bfloat16" if cfg.param_count() > 50e9 else "float32"))
-        for p in params.values():
-            p.requires_grad_(True)
-        state = {"params": params,
-                 "opt": init_opt_state(params, run_cfg.moment_dtype)}
+        state = make_state(params, run_cfg)
         step = make_train_step(model, run_cfg)
         args = {"state": state, "batch": batch}
         return Cell(cfg, shape, microbatches,

@@ -23,13 +23,13 @@ import argparse
 import os
 import tempfile
 
-from repro_torch.api import MinosSession, ReferenceLibrary
+from repro_torch.api import (MinosSession, ReferenceLibrary,
+                             build_reference_library)
 from repro_torch.configs import ARCHS, SHAPES, RunConfig
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import device_memory_bytes
 from repro_torch.models.common import DTYPES
-from repro_torch.pipeline.library import build_reference_library
 from repro_torch.sched import SimActuator
 from repro_torch.telemetry import TPUPowerModel
 from repro_torch.telemetry.kernel_stream import build_stream

@@ -17,14 +17,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.models.common import DTYPES
 
 _SLICE = 1 << 26                      # elements of a leaf updated at once
+# the moments' dtypes a RunConfig names
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def init_opt_state(params: dict[str, torch.Tensor],
                    moment_dtype: str = "float32") -> dict:
-    dt = DTYPES[moment_dtype]
+    dt = _DTYPES[moment_dtype]
     first = next(iter(params.values()))
     return {
         "m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)

@@ -284,7 +284,7 @@ def _grouped(entries):
         # id() keys group by *object identity* within one call only —
         # never ordered, compared, or serialized (dict insertion order is
         # first-appearance, which is deterministic given the input order)
-        groups.setdefault((id(ctl.clf), ctl.bin_candidates),
+        groups.setdefault((id(ctl.clf), ctl.bin_candidates),  # minoslint: disable=W304
                           []).append(entry)
     return groups.values()
 
@@ -325,8 +325,8 @@ def observe_fleet(pairs) -> list:
         if eng is not None and not getattr(builder, "_released", True):
             # identity grouping within this call only: iteration is in
             # first-appearance order and keys are never serialized
-            by_engine.setdefault(id(eng), []).append(i)
-            engines[id(eng)] = eng
+            by_engine.setdefault(id(eng), []).append(i)  # minoslint: disable=W304
+            engines[id(eng)] = eng  # minoslint: disable=W304
     for key, ids in by_engine.items():
         eng = engines[key]
         counts, n_ing, tdps = eng.gate_columns([pairs[i][1].slot for i in ids])
@@ -391,8 +391,8 @@ def finalize_fleet(pairs) -> list:
         if eng is not None and not getattr(builder, "_released", True):
             # identity grouping within this call only: iteration is in
             # first-appearance order and keys are never serialized
-            by_engine.setdefault(id(eng), []).append(i)
-            engines[id(eng)] = eng
+            by_engine.setdefault(id(eng), []).append(i)  # minoslint: disable=W304
+            engines[id(eng)] = eng  # minoslint: disable=W304
     for key, ids in by_engine.items():
         profs.update(zip(ids, engines[key].finalize_batch(
             [pairs[i][1].slot for i in ids])))

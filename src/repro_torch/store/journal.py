@@ -202,7 +202,7 @@ class EventJournal:
         seq = self._seq + 1
         # ts is informational wall-clock metadata, never replayed into
         # session state; deterministic callers pin it via the parameter
-        ts = time.time() if ts is None else float(ts)
+        ts = time.time() if ts is None else float(ts)  # minoslint: disable=W301
         rec = {"seq": seq, "ts": ts, "kind": str(kind), "data": data}
         rec["sha"] = _checksum(seq, ts, rec["kind"], data)
         fh = self._handle()

@@ -63,7 +63,7 @@ class SnapshotStore:
         os.makedirs(self.directory, exist_ok=True)
         # ts is informational metadata (recovery keys on seq, not ts);
         # deterministic callers pin it via the parameter
-        ts = time.time() if ts is None else float(ts)
+        ts = time.time() if ts is None else float(ts)  # minoslint: disable=W301
         payload = {"seq": int(seq), "ts": ts, "state": state,
                    "sha": _checksum(int(seq), ts, state)}
         path = self._path(int(seq))

@@ -32,6 +32,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core import spikes as spk
+from repro_torch.core.classify import WorkloadProfile
+from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.telemetry.kernel_stream import KernelStream
 from repro_torch.telemetry.power_model import (
     OVERSHOOT_TAU, TPUPowerModel,
@@ -264,3 +266,42 @@ def integrate_events(t0: np.ndarray, t1: np.ndarray, pw: np.ndarray,
     cum[0] = 0.0
     np.cumsum(np.diff(uniq) * rate[:-1], out=cum[1:])
     return np.interp(edges, uniq, cum)
+
+
+def profile_workload(stream: KernelStream, model: TPUPowerModel,
+                     freqs, tdp: float, seed: int = 0,
+                     sample_dt: float = 1e-3,
+                     target_duration: float = 4.0,
+                     device=DEFAULT_DEVICE) -> WorkloadProfile:
+    """DEPRECATED batch sweep — routes through the streaming
+    ``ProfileBuilder`` (``repro_torch.pipeline.stream_profile_workload``) on
+    ``device``, the one profiling implementation."""
+    import warnings
+    warnings.warn(
+        "repro_torch.telemetry.profile_workload is deprecated; use "
+        "repro_torch.pipeline.stream_profile_workload (or "
+        "repro_torch.api.MinosSession)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.pipeline.builder import stream_profile_workload
+    return stream_profile_workload(stream, model, freqs, tdp, seed=seed,
+                                   sample_dt=sample_dt,
+                                   target_duration=target_duration,
+                                   device=device)
+
+
+def profile_once(stream: KernelStream, model: TPUPowerModel, tdp: float,
+                 freq: float = 1.0, seed: int = 0,
+                 device=DEFAULT_DEVICE) -> WorkloadProfile:
+    """DEPRECATED single low-cost profile — routes through the streaming
+    ``ProfileBuilder`` (``repro_torch.pipeline.stream_profile_once``) on
+    ``device``."""
+    import warnings
+    warnings.warn(
+        "repro_torch.telemetry.profile_once is deprecated; use "
+        "repro_torch.pipeline.stream_profile_once (or "
+        "repro_torch.api.MinosSession.submit)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.pipeline.builder import stream_profile_once
+    return stream_profile_once(stream, model, tdp, freq=freq, seed=seed,
+                               device=device)
+

@@ -25,7 +25,12 @@ def init_state(model, run_cfg: RunConfig,
                generator: torch.Generator) -> dict:
     """The model's seeded init (in place) and zero moments."""
     model.init_params(generator)
-    params = dict(model.named_parameters())
+    return make_state(dict(model.named_parameters()), run_cfg)
+
+
+def make_state(params: dict[str, torch.Tensor], run_cfg: RunConfig) -> dict:
+    """The train state over ``params`` (made trainable in place) with zero
+    AdamW moments in ``run_cfg.moment_dtype``."""
     for p in params.values():
         p.requires_grad_(True)
     return {"params": params,
