@@ -58,11 +58,13 @@ last, after phase 11):
      1,600 image tokens, at 32 / 8 heads, dh 128; whisper's non-causal
      encoder over (4, 1500) and (1, 1500) frames at 16 / 16 heads, dh 64,
      its causal decoder at (4, 64) and (1, 384) and its cross-attention of
-     those over 1,500) and ``rmsnorm`` (bfloat16 at
+     those over 1,500; ``train_lm_torch``'s (16, 128) causal at 10 / 2
+     heads, dh 64) and ``rmsnorm`` (bfloat16 at
      (4096, 4096), the prefill rows
      (4000, 4096) and the decode rows (4, 4096); float32; and the MoE
      paths' norms, bfloat16 rows and scale at granite's width 1536,
-     deepseek's 5120 and MLA's latent 512 over 4000, 2048, 4 and 1 rows,
+     deepseek's 5120, MLA's latent 512 and ``train_lm_torch``'s 640 over
+     4000, 2048, 4 and 1 rows,
      with and without pdl) against their plain versions on the card; times
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
@@ -205,16 +207,17 @@ last, after phase 11):
      heads (4, 1024) and (1, 4096) causal, granite-moe's (24 / 8, dh 64) at
      (4, 1024), the vlm's cross-attention (4, 1024 x 1600, 32 / 8, dh 128)
      and whisper's encoder (4, 1024, 16 / 16, dh 64), non-causal, dh 64
-     and 32, non-causal 300 x 700 and a ragged causal 333, each in
+     and 32, non-causal 300 x 700, a ragged causal 333 and
+     ``train_lm_torch``'s (16, 128, 10 / 2, dh 64) causal, each in
      bfloat16 (the wgmma kernels) and float32 (the SIMT kernels; ptxas
      must report no spill in any float32 instantiation), each shape's plan
      printed (tiles, split, CTAs); ``rmsnorm_bwd`` at glm4-9b's (4096,
-     4096), granite-moe's (4096, 1536) and deepseek's latent (4096, 512)
-     with every pair of bfloat16 / float32 x and scale (each shape's plan
+     4096), granite-moe's (4096, 1536), deepseek's latent (4096, 512)
+     and ``train_lm_torch``'s (2048, 640) with every pair of bfloat16 / float32 x and scale (each shape's plan
      printed: warps a row, rows a step, stages, CTAs); dq, dk, dv, dx,
      dscale within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16), two
      launches bitwise equal; the five training shapes in both dtypes,
-     the three bf16 norms and the float32 (4096, 4096) norm timed
+     the four bf16 norms and the float32 (4096, 4096) norm timed
      beside their plain twins, their bounds (10 dh flops a visible pair
      at the bf16 tensor or the float32 rate; x and dy read, dx written),
      the library calls' forward + backward through autograd
@@ -297,7 +300,29 @@ last, after phase 11):
      within 1e-9 of ``ema_filter_loop`` (3,000 samples, seed 3), and
      ``spike_hist`` over traces of 96·128, 1,280, 130, 125·128 and 250·128
      samples in float32 and float64 counting every sample >= 0.5 once,
-     equal to the plain twin.
+     equal to the plain twin; then the two LM examples through their
+     command lines: ``examples/serve_lm_torch.py --arch A`` for each of the
+     ten archs (reduced, at the example's defaults: 4 requests of 32
+     tokens, 24 sampled) on the card (its default device) and with
+     ``--device cpu`` on the host, the request line and the prefill /
+     decode counts equal (the wall time masked), 24 ids in the vocabulary
+     on both (the generators differ), and the card's launches exactly what
+     the reduced model dictates (flash per prefill, rmsnorm and
+     ``ssm_scan`` per forward: ``serve_example_launches``), none on the
+     host; each card request then replayed on the host with the card's
+     weights, each decode step fed the id the card sampled: every
+     forward's logits within ``LM_TOL[bf16]``, or, for the three archs
+     with MoE blocks, every sublayer on the host's input
+     (``serve_replay``); and ``examples/train_lm_torch.py`` at the
+     reference example's defaults (the ~100M glm4 reduction, 300 steps of
+     16 x 128, checkpoints
+     every 100 steps under this run's temporary directory, removed after):
+     every loss finite and the last below the first, three checkpoints,
+     20 flash, 10 ``flash_attention_bwd``, 41 rmsnorm and 21
+     ``rmsnorm_bwd`` launches a step (``train_launches(10)``), step ms
+     (median and spread), tokens/s, checkpoint seconds and peak GiB
+     printed; its Minos part launching ``spike_hist`` and ``ema_scan``,
+     its line equal to the host's (``classify_job`` on the CPU).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -363,6 +388,8 @@ SUSTAIN_WINDOW = 50
 GLM = "glm4-9b"
 # granite-moe-3b-a800m's prefill heads: 24 query heads over 8 KV heads
 GRANITE_HEADS = dict(H=24, KV=8, dh=64)
+# train_lm_torch's ~100M glm4 reduction: 10 query heads over 2 KV heads
+LM_TRAIN_HEADS = dict(H=10, KV=2, dh=64)
 # tests/test_kernels.py's tolerances (bf16 rounding of the output, f32
 # rounding of a softmax / mean of squares in another order)
 KERNEL_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -1425,7 +1452,8 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
              ((4, 1000, 1000, torch.bfloat16), GRANITE_HEADS),
              ((1, 2048, 2048, torch.bfloat16), GRANITE_HEADS),
              ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
-             ((2, 1000, 1000, torch.bfloat16), dict(packed=True))]
+             ((2, 1000, 1000, torch.bfloat16), dict(packed=True)),
+             ((16, 128, 128, torch.bfloat16), LM_TRAIN_HEADS)]
     # the float32 kernel around its 64-key tiles and its 64- and 128-row
     # blocks (128 at dh 128 from b H ceil(sq / 128) >= the SM count: b 3 x
     # H 96), dh 32 / 64 / 128, GQA 1 / 4 / 8, causal sq < skv, one query
@@ -1468,12 +1496,15 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         rn_err = max(rn_err, err)
         log(f"rmsnorm check ({n}, {d}) {dtype}: max|err| {err:.3e} vs plain")
     # the MoE paths' norms (granite's and deepseek's widths, MLA's latent
-    # norm), bfloat16 rows and scale, prefill and decode rows, launched as
-    # the models launch them (pdl) and without pdl
+    # norm) and train_lm_torch's ~100M model's (640), bfloat16 rows and
+    # scale, prefill and decode rows (2048 = its 16 x 128 batch), launched
+    # as the models launch them (pdl) and without pdl
     gcfg, dcfg = ARCHS[GRANITE], ARCHS[DEEPSEEK]
+    lm = example_globals("train_lm_torch.py")["hundred_m_config"]()
     for dw, eps in ((gcfg.d_model, gcfg.norm_eps),
                     (dcfg.d_model, dcfg.norm_eps),
-                    (dcfg.kv_lora_rank, dcfg.norm_eps)):
+                    (dcfg.kv_lora_rank, dcfg.norm_eps),
+                    (lm.d_model, lm.norm_eps)):
         sc = (1 + 0.1 * torch.randn(dw, generator=g, device=dev)).to(
             torch.bfloat16)
         w_err = 0.0
@@ -3905,12 +3936,14 @@ def discovery_phase(dev, card: str, lib, want_scale: dict, workdir: str,
 # vlm's cross-attention (4 x 1024 queries against 1,600 image embeddings)
 # and whisper's encoder and cross-attention (4 x 1024 frames and tokens;
 # SyntheticTokens' frames are as long as its tokens), the last two the
-# float32 backward's main paths
+# float32 backward's main paths; then train_lm_torch's ~100M model (16 x
+# 128)
 TRAIN_FLASH = (
     (4, 1024, 1024, None, True, True), (1, 4096, 4096, None, True, True),
     (4, 1024, 1024, GRANITE_HEADS, True, True),
     (4, 1024, 1600, VLM_HEADS, False, True),
     (4, 1024, 1024, WHISPER_HEADS, False, True),
+    (16, 128, 128, LM_TRAIN_HEADS, True, False),
     (2, 512, 512, dict(H=16, KV=4, dh=64), True, False),
     (2, 512, 512, dict(H=8, KV=2, dh=32), True, False),
     (2, 300, 700, None, False, False),          # non-causal, sq != skv
@@ -3918,10 +3951,10 @@ TRAIN_FLASH = (
     (1, 333, 333, dict(H=16, KV=4, dh=64), True, False),   # ragged causal
 )
 # the norm backward's checked shapes: glm4-9b's rows (both training shapes
-# give 4096 rows), granite-moe's width, deepseek's MLA latent norm; each
-# in every pair of x and scale dtypes, timed in bf16 and, at glm4-9b's,
-# in float32 too
-TRAIN_NORMS = ((4096, 4096), (4096, 1536), (4096, 512))
+# give 4096 rows), granite-moe's width, deepseek's MLA latent norm,
+# train_lm_torch's ~100M model (16 x 128 rows of 640); each in every pair
+# of x and scale dtypes, timed in bf16 and, at glm4-9b's, in float32 too
+TRAIN_NORMS = ((4096, 4096), (4096, 1536), (4096, 512), (2048, 640))
 TRAIN_NORM_F32_TIMED = (4096, 4096)
 BWD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
            torch.float32: dict(rtol=1e-4, atol=1e-4)}
@@ -4959,16 +4992,49 @@ def mask_numbers(line: str) -> str:
     return line
 
 
-def run_example(name: str, *args) -> list[str]:
-    """``examples/<name>``'s ``main(*args)`` in this process; its lines."""
+@contextlib.contextmanager
+def host_threads(where: str):
+    """One thread for a host run, as the CPU tests run the examples; the
+    card's runs keep the process's threads."""
+    threads = torch.get_num_threads()
+    if where == "host":
+        torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def printed(fn, *args) -> list[str]:
+    """The lines ``fn(*args)`` prints."""
     import io
-    import runpy
-    g = runpy.run_path(os.path.join(ROOT, "examples", name),
-                       run_name="example")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        g["main"](*args)
+        fn(*args)
     return buf.getvalue().splitlines()
+
+
+def example_globals(name: str) -> dict:
+    """The module globals of ``examples/<name>`` (what its ``main`` reads,
+    so an entry replaced there is what ``main`` calls)."""
+    import runpy
+    return runpy.run_path(os.path.join(ROOT, "examples", name),
+                          run_name="example")["main"].__globals__
+
+
+def run_example(name: str, *args) -> list[str]:
+    """``examples/<name>``'s ``main(*args)`` in this process; its lines."""
+    return printed(example_globals(name)["main"], *args)
+
+
+def run_cli(g: dict, *argv: str) -> list[str]:
+    """``g``'s ``main()`` under ``sys.argv = [file, *argv]``; its lines."""
+    before = sys.argv
+    sys.argv = [g["__file__"], *argv]
+    try:
+        return printed(g["main"])
+    finally:
+        sys.argv = before
 
 
 def tail_examples(dev, card: str, workdir: str) -> dict:
@@ -4985,16 +5051,9 @@ def tail_examples(dev, card: str, workdir: str) -> dict:
                 if planner else (device,)
             take_launches()
             t0 = time.perf_counter()
-            if where == "host":
-                threads = torch.get_num_threads()
-                torch.set_num_threads(1)
-                try:
-                    lines = run_example(name, *args)
-                finally:
-                    torch.set_num_threads(threads)
-            else:
+            with host_threads(where):
                 lines = run_example(name, *args)
-                sync(dev)
+            sync(dev)
             runs[where] = dict(seconds=time.perf_counter() - t0,
                                launches=take_launches(), lines=lines)
         card_lines, host_lines = runs["card"]["lines"], runs["host"]["lines"]
@@ -5065,15 +5124,330 @@ def tail_golden(dev, card: str) -> dict:
     return out
 
 
+# the two LM examples (serve_lm_torch.py, train_lm_torch.py), run through
+# their CLI as a user runs them: every arch served at the example's
+# defaults, on the card (the default device) and on the host, the card's
+# request replayed on the host with its weights; the ~100M model trained
+# on the card at the reference example's defaults (its kernels are held
+# to their plain versions at its shapes in phases 6 and 19)
+LM_SERVE_TOKENS, LM_SERVE_BATCH, LM_SERVE_PROMPT = 24, 4, 32
+LM_SERVE_IDS = "sampled ids (first request): "
+LM_SERVE_STATS = re.compile(r"(prefill tokens: \d+  decode steps: \d+  )"
+                            r"wall: ([\d.]+)s \(([\d.]+) tok/s incl\. "
+                            r"compile\)$")
+LM_TRAIN_STEPS, LM_TRAIN_SHAPE = 300, (16, 128)   # (batch, tokens)
+LM_TRAIN_SAVES = 3               # checkpoint_every 100 over 300 steps
+
+
+def serve_example_launches(cfg, tokens: int) -> dict:
+    """What ``serve_lm_torch``'s one request of a reduced arch dictates:
+    flash per prefill, rmsnorm and ssm_scan per forward (the prefill and
+    ``tokens`` decode steps), as phases 14, 17 and the serving phases
+    count them."""
+    if cfg.is_encoder_decoder:
+        return encdec_launches(cfg, 1, tokens)
+    if cfg.family == "vlm":
+        return vlm_launches(cfg, 1, tokens)
+    L = cfg.num_layers
+    per = MOE_REDUCED_LAUNCHES.get(cfg.name) or (
+        {"flash_attention": 0, "rmsnorm": L + 1, "ssm_scan": L}
+        if cfg.family == "ssm" else
+        {"flash_attention": L, "rmsnorm": 2 * L + 1, "ssm_scan": 0})
+    forwards = 1 + tokens
+    return {"flash_attention": per["flash_attention"],
+            "rmsnorm": per["rmsnorm"] * forwards,
+            "ssm_scan": per["ssm_scan"] * forwards}
+
+
+def serve_example_lines(lines: list[str], cfg, what: str) -> tuple:
+    """The request line and the counts line of one ``serve_lm_torch`` run
+    (the wall time and rate masked), and its ids, which must be
+    ``--tokens`` of the arch's vocabulary."""
+    import ast
+    stats = LM_SERVE_STATS.match(lines[2]) if len(lines) == 3 else None
+    if stats is None or not lines[1].startswith(LM_SERVE_IDS):
+        raise AssertionError(f"{what}: printed {lines}")
+    ids = ast.literal_eval(lines[1][len(LM_SERVE_IDS):])
+    if len(ids) != LM_SERVE_TOKENS or \
+            not all(0 <= i < cfg.vocab_size for i in ids):
+        raise AssertionError(f"{what}: sampled {ids}, not {LM_SERVE_TOKENS} "
+                             f"ids in [0, {cfg.vocab_size})")
+    return (lines[0], stats.group(1)), ids
+
+
+def recording_engine(engine_cls, rec: dict):
+    """``engine_cls`` whose ``generate`` keeps, in ``rec``, the engine, the
+    request, the ids it returns and the logits of every forward (the
+    prefill's, then each decode step's, as float32 host copies)."""
+    class RecordingEngine(engine_cls):
+        def generate(self, batch, num_tokens, greedy=True, generator=None):
+            model, logits = self.model, []
+
+            def recorded(fn):
+                def call(*args):
+                    out = fn(*args)
+                    logits.append(out[0].float().cpu())
+                    return out
+                return call
+            model.prefill = recorded(model.prefill)
+            model.decode_step = recorded(model.decode_step)
+            try:
+                ids = super().generate(batch, num_tokens, greedy, generator)
+            finally:
+                del model.prefill, model.decode_step
+            rec.update(engine=self, batch=batch, ids=ids, logits=logits)
+            return ids
+    return RecordingEngine
+
+
+def serve_replay(dev, rec: dict, arch: str) -> dict:
+    """The card's ``serve_lm_torch`` request replayed on the host with the
+    card engine's weights, each decode step fed the token the card sampled.
+    Without an MoE block, the logits of every forward the card ran (the
+    prefill and each decode step) are held to the host's at
+    ``LM_TOL[bf16]``; with one, where a near-tie routing flip between the
+    devices moves a token's output by O(1), every sublayer of the prefill
+    and each decode step is held on the host's input instead
+    (``moe_sublayers_vs_host``, near ties only left out).  Launches made
+    here do not count."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+    card, batch, ids = rec["engine"], rec["batch"], rec["ids"]
+    before = dict(build.LAUNCHES)
+    host = ServeEngine(card.cfg, max_len=card.max_len, device="cpu")
+    host.model.load_state_dict(card.model.state_dict())
+    fed = [torch.from_numpy(ids[:, i]).long() for i in range(ids.shape[1])]
+    bf16 = LM_TOL[torch.bfloat16]
+    kinds = {kind for _, kind in getattr(card.model, "period_kinds", ())}
+    with host_threads("host"), torch.no_grad():
+        if "moe" in kinds:
+            sub = moe_sublayers_vs_host(host, card.model, dev,
+                                        batch["tokens"], fed, torch.bfloat16,
+                                        arch)
+            out = dict(how="sublayers", err=sub["err"],
+                       of_tolerance=sub["of_tolerance"],
+                       flips=len(sub["flips"]))
+        else:
+            logits, caches = host.model.prefill(batch)
+            mem = batch["frames"].shape[1] if "frames" in batch else None
+            caches = host._pad_caches(caches, ids.shape[0], memory_len=mem)
+            errs = []
+            s = batch["tokens"].shape[1]
+            for i, got in enumerate(rec["logits"]):
+                errs.append(close(got, logits, bf16, f"phase 22 serve_lm_"
+                                  f"torch --arch {arch} logits of forward "
+                                  f"{i} (0 = prefill), card vs host"))
+                if i < len(fed):
+                    logits, caches = host.model.decode_step(caches, fed[i],
+                                                            s + i)
+            out = dict(how="logits", forwards=len(errs), err=max(errs))
+    build.LAUNCHES.update(before)
+    return out
+
+
+def lm_serve_examples(dev, card: str) -> dict:
+    """``serve_lm_torch.py --arch A`` for every arch of ``ARCHS`` on the
+    card (its default device), then with ``--device cpu`` on the host: the
+    request line and the counts equal, the ids in range on both, the
+    card's launches exactly what the reduced model dictates, none on the
+    host; then the card's request replayed on the host with the card's
+    weights (``serve_replay``)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    out, totals = {}, dict.fromkeys(build.LAUNCHES, 0)
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        runs, rec = {}, {}
+        for where, extra in (("card", ()), ("host", ("--device", "cpu"))):
+            g = example_globals("serve_lm_torch.py")
+            if where == "card":
+                g["ServeEngine"] = recording_engine(g["ServeEngine"], rec)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            with host_threads(where):
+                lines = run_cli(g, "--arch", arch, *extra)
+            sync(dev)
+            runs[where] = dict(seconds=time.perf_counter() - t0,
+                               launches=dict(build.LAUNCHES), lines=lines)
+        what = f"phase 22 serve_lm_torch --arch {arch}"
+        card_k, card_ids = serve_example_lines(runs["card"]["lines"], cfg,
+                                               f"{what} [card]")
+        host_k, _ = serve_example_lines(runs["host"]["lines"], cfg,
+                                        f"{what} [host]")
+        if card_k != host_k:
+            raise AssertionError(f"{what}: card {card_k} / host {host_k}")
+        want = serve_example_launches(cfg, LM_SERVE_TOKENS)
+        want = {k: want.get(k, 0) for k in build.LAUNCHES}
+        if runs["card"]["launches"] != want:
+            raise AssertionError(f"{what}: the card launched "
+                                 f"{runs['card']['launches']}, the reduced "
+                                 f"model dictates {want}")
+        if any(runs["host"]["launches"].values()):
+            raise AssertionError(f"{what}: the host launched "
+                                 f"{runs['host']['launches']}")
+        for k, v in runs["card"]["launches"].items():
+            totals[k] += v
+        if rec["ids"][0].tolist() != card_ids:
+            raise AssertionError(f"{what}: printed {card_ids}, generate "
+                                 f"returned {rec['ids'][0].tolist()}")
+        t0 = time.perf_counter()
+        replay = serve_replay(dev, rec, arch)
+        replay["seconds"] = time.perf_counter() - t0
+        wall, rate = LM_SERVE_STATS.match(runs["card"]["lines"][2]).groups(
+        )[1:]
+        out[arch] = dict(lines=runs["card"]["lines"],
+                         host_lines=runs["host"]["lines"],
+                         card_s=runs["card"]["seconds"],
+                         host_s=runs["host"]["seconds"],
+                         wall_s=float(wall), tokens_per_s=float(rate),
+                         launches={k: v for k, v in
+                                   runs["card"]["launches"].items() if v},
+                         replay=replay)
+        held = (f"logits of all {replay['forwards']} forwards, max|err| "
+                f"{replay['err']:.3e}" if replay["how"] == "logits" else
+                "every sublayer, " + ", ".join(
+                    f"{k} {v:.3e} ({replay['of_tolerance'][k]:.2f} of the "
+                    f"tolerance)" for k, v in replay["err"].items())
+                + f", {replay['flips']} near-tie flip(s)")
+        log(f"phase 22 serve_lm_torch --arch {arch} [{card}]: lines card = "
+            f"host (ids masked), wall {wall} s ({rate} tok/s incl. the first "
+            f"call), host {runs['host']['seconds']:.3f} s; launches "
+            f"{json.dumps(out[arch]['launches'])}; replayed on the host with "
+            f"the card's weights and ids ({replay['seconds']:.3f} s): {held}")
+    return dict(archs=out, launches=totals)
+
+
+def lm_train_example(dev, card: str, workdir: str) -> dict:
+    """``train_lm_torch.py`` at the reference example's defaults (300 steps
+    of 16 x 128 on the ~100M glm4 reduction, checkpoints every 100 steps
+    into a ``tempfile.mkdtemp`` directory, here in ``workdir``, removed
+    after) on the card, its ``Trainer`` and ``classify_job`` wrapped to
+    read the launches, times and peak memory of each part: every loss
+    finite and the last below the first; the training's launches exactly
+    ``train_launches(L)`` a step; ``spike_hist`` and ``ema_scan`` launched
+    by the Minos part; its line equal to the host's (``classify_job`` on
+    the CPU, no training)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+    g = example_globals("train_lm_torch.py")
+    classify, rec = g["classify_job"], dict(saves=[])
+
+    class RecordingTrainer(Trainer):
+        def _save(self, state, step, collect=False):
+            sync(self.device)
+            t0 = time.perf_counter()
+            super()._save(state, step, collect)
+            rec["saves"].append(time.perf_counter() - t0)
+            rec["last_saved"] = ckpt.latest_step(
+                self.run_cfg.checkpoint_dir)
+
+        def run(self, num_steps=None, generator=None):
+            sync(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = super().run(num_steps, generator)
+            sync(self.device)
+            rec.update(seconds=time.perf_counter() - t0, result=res,
+                       launches=dict(build.LAUNCHES), cfg=self.cfg,
+                       peak_gib=torch.cuda.max_memory_allocated(self.device)
+                       / 2**30)
+            return res
+
+    def recording_classify(cfg, shape, device="cuda"):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        sel = classify(cfg, shape, device)
+        sync(dev)
+        rec.update(minos_s=time.perf_counter() - t0, shape=shape,
+                   minos_launches=dict(build.LAUNCHES))
+        return sel
+
+    g["Trainer"], g["classify_job"] = RecordingTrainer, recording_classify
+    before = tempfile.tempdir
+    tempfile.tempdir = workdir
+    try:
+        lines = run_cli(g)
+    finally:
+        tempfile.tempdir = before
+        for d in os.listdir(workdir):
+            if d.startswith("repro_100m_"):
+                shutil.rmtree(os.path.join(workdir, d), ignore_errors=True)
+    res, cfg = rec["result"], rec["cfg"]
+    losses = res.losses
+    if len(losses) != LM_TRAIN_STEPS or \
+            not all(np.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm_torch: {len(losses)} losses, first "
+                             f"{losses[:3]}, last {losses[-3:]}")
+    if len(rec["saves"]) != LM_TRAIN_SAVES or \
+            rec["last_saved"] != LM_TRAIN_STEPS:
+        raise AssertionError(f"train_lm_torch wrote {len(rec['saves'])} "
+                             f"checkpoints, the last at step "
+                             f"{rec['last_saved']}")
+    check_train_launches("train_lm_torch on the card",
+                         {k: rec["launches"][k] for k in
+                          train_launches(cfg.num_layers)},
+                         cfg.num_layers, LM_TRAIN_STEPS)
+    minos = rec["minos_launches"]
+    if not (minos["spike_hist"] and minos["ema_scan"]) or any(
+            v for k, v in minos.items() if k not in ("spike_hist",
+                                                     "ema_scan")):
+        raise AssertionError(f"train_lm_torch's Minos part launched {minos}")
+    with host_threads("host"):
+        host = printed(classify, cfg, rec["shape"], "cpu")
+    if lines[-2:] != host or not lines[-1].startswith(
+            "Minos classification of this job: power-neighbor="):
+        raise AssertionError(f"train_lm_torch's Minos line: card "
+                             f"{lines[-2:]}, host {host}")
+    steps_ms = np.asarray(res.step_durations) * 1e3
+    b, s = LM_TRAIN_SHAPE
+    out = dict(lines=lines, losses=losses, num_layers=cfg.num_layers,
+               n_params=cfg.param_count(), seconds=rec["seconds"],
+               step_ms=dict(first=float(steps_ms[0]),
+                            median=float(np.median(steps_ms)),
+                            p10=float(np.percentile(steps_ms, 10)),
+                            p90=float(np.percentile(steps_ms, 90)),
+                            min=float(steps_ms.min()),
+                            max=float(steps_ms.max())),
+               tokens_per_s=b * s / float(np.median(steps_ms)) * 1e3,
+               checkpoint_s=rec["saves"], peak_gib=rec["peak_gib"],
+               launches=rec["launches"], minos_s=rec["minos_s"],
+               minos_launches=minos)
+    sm = out["step_ms"]
+    log(f"phase 22 train_lm_torch [{card}]: {cfg.param_count()} parameters "
+        f"({cfg.num_layers} layers), {LM_TRAIN_STEPS} steps of {b} x {s}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step median "
+        f"{sm['median']:.3f} ms (p10 {sm['p10']:.3f}, p90 {sm['p90']:.3f}, "
+        f"min {sm['min']:.3f}, max {sm['max']:.3f}, the first "
+        f"{sm['first']:.3f}), {out['tokens_per_s']:.1f} tokens/s; "
+        f"checkpoints {', '.join(f'{x:.3f}' for x in rec['saves'])} s; "
+        f"peak {rec['peak_gib']:.3f} GiB; run {rec['seconds']:.3f} s; "
+        f"launches {json.dumps({k: v for k, v in rec['launches'].items() if v})}")
+    log(f"phase 22 train_lm_torch Minos part [{card}]: {lines[-1]!r} = the "
+        f"host's; {rec['minos_s']:.3f} s, launches "
+        f"{json.dumps({k: v for k, v in minos.items() if v})}")
+    return out
+
+
 def tail_phase(dev, card: str, workdir: str) -> dict:
     """Phase 22: the port's lint over the tree, both facade examples on the
-    card and the host, the seed loops against the kernels."""
+    card and the host, the seed loops against the kernels, both LM
+    examples (every arch served card vs host, the ~100M model trained)."""
     t_phase = time.perf_counter()
     out = dict(lint=tail_lint(), examples=tail_examples(dev, card, workdir),
                golden=tail_golden(dev, card))
+    t0 = time.perf_counter()
+    out["serve_lm"] = lm_serve_examples(dev, card)
+    out["serve_lm"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_lm"] = lm_train_example(dev, card, workdir)
+    out["train_lm"]["phase_s"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 22 (lint, examples, seed loops): {out['seconds']:.3f} s "
-        f"[{card}]")
+    log(f"phase 22 (lint, examples, seed loops, LM examples): "
+        f"{out['seconds']:.3f} s (serve_lm_torch {out['serve_lm']['seconds']:.3f}"
+        f" s, train_lm_torch {out['train_lm']['phase_s']:.3f} s) [{card}]")
     return out
 
 
@@ -5133,9 +5507,10 @@ def main() -> int:
                          "prints no result line")
     ap.add_argument("--tail-only", action="store_true",
                     help="build the kernels and run phase 22 alone (the "
-                         "port's lint over the tree, both _torch examples "
-                         "on the card and the host, the seed loops against "
-                         "the kernels); prints no result line")
+                         "port's lint over the tree, the four _torch "
+                         "examples on the card and the host, the seed "
+                         "loops against the kernels); prints no result "
+                         "line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -5472,6 +5847,14 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                                       "dtype", "dt_dtype", "ms",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in tk["ssm_scan"] if "ms" in r]})
+    for rec in kernels:               # phase 22's LM examples
+        rec["launches_lm_examples"] = {
+            "serve_lm_torch, 10 reduced archs":
+            tail["serve_lm"]["launches"][rec["name"]],
+            f"train_lm_torch, {LM_TRAIN_STEPS} steps":
+            tail["train_lm"]["launches"][rec["name"]],
+            "train_lm_torch, Minos part":
+            tail["train_lm"]["minos_launches"][rec["name"]]}
     for rec in kernels:               # phase 21's card steps
         rec["launches_dryrun"] = {
             f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
