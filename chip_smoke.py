@@ -4,7 +4,7 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21 and 22 run
+16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21, 22 and 23 run
 last, after phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
@@ -59,12 +59,14 @@ last, after phase 11):
      encoder over (4, 1500) and (1, 1500) frames at 16 / 16 heads, dh 64,
      its causal decoder at (4, 64) and (1, 384) and its cross-attention of
      those over 1,500; ``train_lm_torch``'s (16, 128) causal at 10 / 2
-     heads, dh 64) and ``rmsnorm`` (bfloat16 at
+     heads, dh 64; command-r-35b's (4, 1000) causal at 64 / 8 heads and
+     at a phase-23 rank's 16 / 2, dh 128) and ``rmsnorm`` (bfloat16 at
      (4096, 4096), the prefill rows
      (4000, 4096) and the decode rows (4, 4096); float32; and the MoE
      paths' norms, bfloat16 rows and scale at granite's width 1536,
      deepseek's 5120, MLA's latent 512 and ``train_lm_torch``'s 640 over
-     4000, 2048, 4 and 1 rows,
+     4000, 2048, 4 and 1 rows, and command-r-35b's 8192 over 4000, 1000, 4
+     and 1 rows (one card's and a phase-23 rank's prefill, decode),
      with and without pdl) against their plain versions on the card; times
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
@@ -322,7 +324,26 @@ last, after phase 11):
      ``rmsnorm_bwd`` launches a step (``train_launches(10)``), step ms
      (median and spread), tokens/s, checkpoint seconds and peak GiB
      printed; its Minos part launching ``spike_hist`` and ``ema_scan``,
-     its line equal to the host's (``classify_job`` on the CPU).
+     its line equal to the host's (``classify_job`` on the CPU);
+ 23. tensor-parallel serving — command-r-35b (32.38 B parameters, 64.8 GB
+     in bfloat16: one card holds its weights only just) over a (1, 4)
+     mesh with the reference's layouts (``models.common.Topo``): prints
+     the cards there are and the group; with 4 cards or more, 4 NCCL
+     processes (one a card) serve all 40 layers; with fewer, the 4 ranks
+     are ``LocalGroup`` threads on the cards there are and serve 8 of the
+     40 layers (said on a line of its own).  Either way the 4 ranks on 8
+     of 40 layers, seeded as one card seeds, are held to the unsharded
+     model on one card at 4 x 1000: prefill logits and 8 teacher-forced
+     decode steps within ``LM_TOL[bf16]``, greedy ids equal on every rank
+     and to one card's, a row up to a step where one card's choice is a
+     near tie (one card's preference within the two logit rows'
+     difference at the two tokens, and the ranks' own logits preferring
+     the ranks' token; printed);
+     every rank launches exactly L ``flash_attention`` a prefill and 2L +
+     1 ``rmsnorm`` a forward (counted on the rank alone,
+     ``build.rank_counts``); each rank's first-token ms, decode ms/step
+     (median and spread), weights and peak GiB, and the bytes each
+     collective took in a prefill and a decode step are printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -341,7 +362,8 @@ device time of the MoE blocks' routing, dispatch and combine beside their
 expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
 ``--dryrun-only`` builds them and runs phase 21 alone; ``--tail-only``
-builds them and runs phase 22 alone; ``--out DIR`` writes
+builds them and runs phase 22 alone; ``--tp-only`` builds them and runs
+phase 23 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -390,6 +412,10 @@ GLM = "glm4-9b"
 GRANITE_HEADS = dict(H=24, KV=8, dh=64)
 # train_lm_torch's ~100M glm4 reduction: 10 query heads over 2 KV heads
 LM_TRAIN_HEADS = dict(H=10, KV=2, dh=64)
+# command-r-35b's heads on one card and on each rank of phase 23's (1, 4)
+# mesh: a GQA group of 8 at head_dim 128
+TP_HEADS = dict(H=64, KV=8, dh=128)
+TP_RANK_HEADS = dict(H=16, KV=2, dh=128)
 # tests/test_kernels.py's tolerances (bf16 rounding of the output, f32
 # rounding of a softmax / mean of squares in another order)
 KERNEL_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -1453,7 +1479,9 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
              ((1, 2048, 2048, torch.bfloat16), GRANITE_HEADS),
              ((2, 200, 333, torch.bfloat16), dict(H=8, KV=8, dh=32)),
              ((2, 1000, 1000, torch.bfloat16), dict(packed=True)),
-             ((16, 128, 128, torch.bfloat16), LM_TRAIN_HEADS)]
+             ((16, 128, 128, torch.bfloat16), LM_TRAIN_HEADS),
+             ((4, 1000, 1000, torch.bfloat16), TP_RANK_HEADS),
+             ((4, 1000, 1000, torch.bfloat16), TP_HEADS)]
     # the float32 kernel around its 64-key tiles and its 64- and 128-row
     # blocks (128 at dh 128 from b H ceil(sq / 128) >= the SM count: b 3 x
     # H 96), dh 32 / 64 / 128, GQA 1 / 4 / 8, causal sq < skv, one query
@@ -1499,16 +1527,18 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
     # norm) and train_lm_torch's ~100M model's (640), bfloat16 rows and
     # scale, prefill and decode rows (2048 = its 16 x 128 batch), launched
     # as the models launch them (pdl) and without pdl
-    gcfg, dcfg = ARCHS[GRANITE], ARCHS[DEEPSEEK]
+    gcfg, dcfg, tcfg = ARCHS[GRANITE], ARCHS[DEEPSEEK], ARCHS[TP_ARCH]
     lm = example_globals("train_lm_torch.py")["hundred_m_config"]()
-    for dw, eps in ((gcfg.d_model, gcfg.norm_eps),
-                    (dcfg.d_model, dcfg.norm_eps),
-                    (dcfg.kv_lora_rank, dcfg.norm_eps),
-                    (lm.d_model, lm.norm_eps)):
+    for dw, eps, rows in ((gcfg.d_model, gcfg.norm_eps, (4000, 2048, 4, 1)),
+                          (dcfg.d_model, dcfg.norm_eps, (4000, 2048, 4, 1)),
+                          (dcfg.kv_lora_rank, dcfg.norm_eps,
+                           (4000, 2048, 4, 1)),
+                          (lm.d_model, lm.norm_eps, (4000, 2048, 4, 1)),
+                          (tcfg.d_model, tcfg.norm_eps, (4000, 1000, 4, 1))):
         sc = (1 + 0.1 * torch.randn(dw, generator=g, device=dev)).to(
             torch.bfloat16)
         w_err = 0.0
-        for n in (4000, 2048, 4, 1):
+        for n in rows:
             x = (torch.randn((n, dw), generator=g, device=dev) * 3).to(
                 torch.bfloat16)
             want = rmsnorm_plain(x, sc, eps)
@@ -1519,8 +1549,9 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
                 w_err = max(w_err, close(got, want,
                                          KERNEL_TOL[torch.bfloat16], what))
         rn_err = max(rn_err, w_err)
-        log(f"rmsnorm check d={dw} bf16 (rows 4000, 2048, 4, 1; pdl on and "
-            f"off): max|err| {w_err:.3e} vs plain")
+        log(f"rmsnorm check d={dw} bf16 (rows "
+            f"{', '.join(map(str, rows))}; pdl on and off): max|err| "
+            f"{w_err:.3e} vs plain")
 
     # timings at the serving path's prefill shapes (glm4-9b's, granite's,
     # the vlm's and whisper's): the kernel, the plain version and
@@ -5451,6 +5482,280 @@ def tail_phase(dev, card: str, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: tensor-parallel dense serving over a (1, 4) mesh
+# ---------------------------------------------------------------------------
+TP = 4
+TP_ARCH = "command-r-35b"
+TP_CHECK_LAYERS = 8        # the comparison with one card: 8 of 40 layers
+TP_REQUEST = (4, 1000)     # (batch, prompt tokens)
+TP_STEPS = 8               # teacher-forced decode steps held to one card
+
+
+def tp_launches(layers: int, prefills: int, forwards: int) -> dict:
+    """What a rank of a dense model dictates: one flash launch per layer
+    and prefill (on the rank's heads), one rmsnorm per norm (two a layer
+    and the final one) and forward (on the rank's rows)."""
+    return {"flash_attention": layers * prefills,
+            "rmsnorm": (2 * layers + 1) * forwards}
+
+
+def tp_teacher_forced(engine, tokens: np.ndarray, ids: np.ndarray,
+                      **step_kw) -> dict:
+    """Prefill logits and ``len(ids[0])`` decode steps fed ``ids``, as
+    float32 host tensors over the vocabulary."""
+    dev, vocab = engine.device, engine.cfg.vocab_size
+    logits, caches = engine.model.prefill({"tokens": tokens})
+    out = [logits[:, :vocab].float().cpu()]
+    caches = engine._pad_caches(caches, tokens.shape[0])
+    for i in range(ids.shape[1]):
+        logits, caches = engine.decode_model.decode_step(
+            caches, torch.from_numpy(ids[:, i]).to(dev),
+            tokens.shape[1] + i, **step_kw)
+        out.append(logits[:, :vocab].float().cpu())
+    return {"logits": out}
+
+
+def tp_one_card(dev, cfg, tokens: np.ndarray) -> dict:
+    """The unsharded model on one card with the seeded init: its greedy
+    ids (``TP_STEPS``), then the prefill and those ids fed back."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, max_len=tokens.shape[1] + NEW_TOKENS + 4,
+                      device=dev)
+    eng.init_params(0)
+    ids = eng.generate({"tokens": tokens}, TP_STEPS)
+    out = dict(tp_teacher_forced(eng, tokens, ids), ids=ids)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_greedy_flips(ids: np.ndarray, want: np.ndarray, logits: list,
+                    want_logits: list) -> list:
+    """The ranks' greedy ids against one card's, row by row up to the
+    first that differs (the sequences part there): at that step the
+    ranks' own logits must prefer the ranks' token, and one card's
+    preference for its token must be no more than the two logit rows'
+    difference at those two tokens (the rounding of another order decides
+    such a tie either way); every other id equal.  ``logits[k]`` are the
+    ranks' logits that chose token k, ``want_logits[k]`` one card's, on
+    one card's ids in both.  Returns the flips."""
+    flips = []
+    for row in range(want.shape[0]):
+        diff = np.nonzero(ids[row] != want[row])[0]
+        if not len(diff):
+            continue
+        k = int(diff[0])
+        mine, theirs = int(ids[row, k]), int(want[row, k])
+        a, w = logits[k][row], want_logits[k][row]
+        gap = float(w[theirs] - w[mine])
+        d = a - w
+        reach = abs(float(d[theirs] - d[mine]))
+        flip = dict(row=row, step=k, one_card=theirs, ranks=mine, gap=gap,
+                    logit_diff=reach,
+                    ranks_prefer=float(a[mine] - a[theirs]))
+        if gap > reach or a[mine] < a[theirs]:
+            raise AssertionError(f"greedy ids part at a token that is not a"
+                                 f" near tie: {json.dumps(flip)}")
+        flips.append(flip)
+    return flips
+
+
+def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
+            ids: np.ndarray, new_tokens: int) -> dict:
+    """One rank of phase 23 (a thread of a ``LocalGroup`` or a process of
+    an NCCL group): ``cfg_check`` with the seeded init (the rank's blocks
+    of the tensors one card draws), its prefill and ``ids`` fed back, then
+    ``generate``'s greedy ids; then one request of ``tokens``' shape and
+    ``new_tokens`` through ``generate`` on ``cfg_serve`` (``None``: the check model
+    again), timed step by step, with the launches of each part counted on
+    this rank alone, and the bytes each collective took in its prefill
+    and in one decode step."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import tp_mesh
+    from repro_torch.models.common import Topo
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import ServeStats
+    dev = group.device
+    topo = Topo(tp_mesh(group.size))
+    b, s = tokens.shape
+    max_len = s + new_tokens + 4
+    out = {"rank": group.rank}
+
+    def engine(cfg):
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, max_len=max_len, device=dev, topo=topo,
+                          group=group)
+        eng.init_params(0)
+        sync(dev)
+        return eng, time.perf_counter() - t0
+
+    eng, init_s = engine(cfg_check)
+    with build.rank_counts() as launches:
+        check = tp_teacher_forced(eng, tokens, ids, cache_len=max_len)
+        check["ids"] = eng.generate({"tokens": tokens}, ids.shape[1])
+    check.update(launches=dict(launches), init_s=init_s)
+    if group.rank != 0:          # rank 0 brings the logits; the rest agree
+        check["digest"] = [float(x.double().sum()) for x in
+                           check.pop("logits")]
+    out["check"] = check
+    if cfg_serve is not None:
+        del eng
+        torch.cuda.empty_cache()
+        eng, init_s = engine(cfg_serve)
+    cfg = eng.cfg
+    serve_tokens = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, tokens.shape).astype(np.int32)
+    eng.stats = ServeStats()
+    card = dev.type == "cuda"       # a rehearsal on the host measures none
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with build.rank_counts() as launches:
+        t0 = time.perf_counter()
+        got = eng.generate({"tokens": serve_tokens}, new_tokens)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    steps_ms = sorted(x * 1e3 for x in eng.stats.step_s)
+    serve = dict(
+        num_layers=cfg.num_layers, init_s=init_s, wall_s=wall,
+        launches=dict(launches), ids_in_range=bool(
+            got.min() >= 0 and got.max() < cfg.vocab_size),
+        ids=got, first_token_ms=eng.stats.first_token_s * 1e3,
+        decode_ms_median=steps_ms[len(steps_ms) // 2],
+        decode_ms_min=steps_ms[0], decode_ms_max=steps_ms[-1],
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if card
+        else float("nan"),
+        weights_gib=sum(p.numel() * p.element_size() for p in {
+            id(p): p for m in (eng.model, eng.decode_model)
+            for p in m.parameters()}.values()) / 2**30)
+    group.reset_counts()          # the collectives of one prefill ...
+    logits, caches = eng.model.prefill({"tokens": serve_tokens})
+    serve["prefill_collectives"] = {k: dict(v) for k, v in
+                                    group.counts.items()}
+    caches = eng._pad_caches(caches, b)
+    group.reset_counts()          # ... and of one decode step
+    eng.decode_model.decode_step(caches, logits.argmax(-1), s,
+                                 cache_len=max_len)
+    serve["step_collectives"] = {k: dict(v) for k, v in
+                                 group.counts.items()}
+    out["serve"] = serve
+    return out
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 23: command-r-35b served over a (1, 4) mesh.  With 4 cards or
+    more, 4 NCCL processes (one a card) serve all 40 layers; with fewer,
+    the 4 ranks are ``LocalGroup`` threads on the cards there are, over 8
+    of the 40 layers.  Either way the 4 ranks on 8 of 40 layers are held to
+    the unsharded model on one card with the same seeded weights: prefill
+    logits and ``TP_STEPS`` teacher-forced steps within ``LM_TOL[bf16]``,
+    greedy ids equal but at near ties (``tp_greedy_flips``); and every
+    rank's launches are pinned."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parallel import run_local, spawn
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    nccl = n >= TP
+    cfg = ARCHS[TP_ARCH]
+    cfg_check = dataclasses.replace(cfg, num_layers=TP_CHECK_LAYERS)
+    group = "nccl, one process a card" if nccl else \
+        f"local, {TP} threads on {n} card(s)"
+    log(f"phase 23 (tensor-parallel serving, tp = {TP}): "
+        f"torch.cuda.device_count() = {n}; group: {group}")
+    if not nccl:
+        log(f"fewer than {TP} cards: {TP_ARCH} at full width on "
+            f"{TP_CHECK_LAYERS} of its {cfg.num_layers} layers, the {TP} "
+            f"ranks as LocalGroup threads on the {n} card(s) there are")
+    tokens = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, TP_REQUEST).astype(np.int32)
+    t0 = time.perf_counter()
+    one = tp_one_card(dev, cfg_check, tokens)
+    one_s = time.perf_counter() - t0
+    args = (cfg_check, cfg if nccl else None, tokens, one["ids"],
+            NEW_TOKENS)
+    t0 = time.perf_counter()
+    if nccl:
+        ranks = spawn(tp_rank, TP, "nccl", timeout=900.0, args=args)
+    else:
+        ranks = run_local(lambda g: tp_rank(g, *args), TP,
+                          [torch.device("cuda", i) for i in range(n)]
+                          if dev.type == "cuda" else [dev])
+    ranks_s = time.perf_counter() - t0
+    tol = LM_TOL[torch.bfloat16]
+    got = ranks[0]["check"]
+    errs = []
+    for i, (a, w) in enumerate(zip(got["logits"], one["logits"])):
+        err = float((a - w).abs().max())
+        share = float(((a - w).abs() / (tol["atol"] + tol["rtol"]
+                                        * w.abs())).max())
+        errs.append(dict(step=i, max_abs_err=err, share_of_tol=share))
+        if share > 1.0:
+            raise AssertionError(f"tp = {TP} vs one card, "
+                                 f"{'prefill' if i == 0 else f'step {i}'}:"
+                                 f" logits {err} apart, {share:.3f} of "
+                                 f"LM_TOL[bf16]")
+    digest = [float(x.double().sum()) for x in got["logits"]]
+    for r in ranks:
+        if r["rank"] and (r["check"]["digest"] != digest or not
+                          np.array_equal(r["check"]["ids"], got["ids"])):
+            raise AssertionError(f"rank {r['rank']}'s logits or ids differ "
+                                 f"from rank 0's")
+    flips = tp_greedy_flips(got["ids"], one["ids"], got["logits"],
+                            one["logits"])
+    want_check = tp_launches(TP_CHECK_LAYERS, 2, 2 + 2 * TP_STEPS)
+    layers = ranks[0]["serve"]["num_layers"]
+    want_serve = tp_launches(layers, 1, 1 + NEW_TOKENS)
+    for r in ranks:
+        for part, want in (("check", want_check), ("serve", want_serve)):
+            got_l = {k: r[part]["launches"][k] for k in want}
+            if got_l != want:
+                raise AssertionError(f"rank {r['rank']} {part}: launches "
+                                     f"{got_l}, the model dictates {want}")
+        if not r["serve"]["ids_in_range"] or not np.array_equal(
+                r["serve"]["ids"], ranks[0]["serve"]["ids"]):
+            raise AssertionError(f"rank {r['rank']}: served ids out of "
+                                 f"range or unlike rank 0's")
+    worst = max(errs, key=lambda e: e["share_of_tol"])
+    log(f"tp = {TP} vs one card [{card}]: {TP_ARCH} on {TP_CHECK_LAYERS} "
+        f"of {cfg.num_layers} layers at {TP_REQUEST[0]} x {TP_REQUEST[1]}, "
+        f"prefill and {TP_STEPS} teacher-forced steps within LM_TOL[bf16] "
+        f"(largest {worst['max_abs_err']:.4g}, {worst['share_of_tol']:.3f}"
+        f" of it, {'prefill' if worst['step'] == 0 else 'step %d' % worst['step']}"
+        f"), greedy ids equal on every rank and to one card's "
+        f"{'up to near ties ' + json.dumps(flips) if flips else 'at every step'}"
+        f"; launches a rank {json.dumps(want_check)} (one card {one_s:.1f} s)")
+    per_step = {}
+    for r in ranks:
+        sv = r["serve"]
+        per_step = {k: sv["step_collectives"][k]["bytes"]
+                    for k in sv["step_collectives"]}
+        log(f"  rank {r['rank']} [{card}]: {TP_ARCH} {sv['num_layers']} "
+            f"layers, {TP_REQUEST[0]} x {TP_REQUEST[1]} -> {NEW_TOKENS} "
+            f"tokens: first token {sv['first_token_ms']:.3f} ms, decode "
+            f"{sv['decode_ms_median']:.3f} ms/step (median; "
+            f"{sv['decode_ms_min']:.3f}-{sv['decode_ms_max']:.3f}), "
+            f"weights {sv['weights_gib']:.3f} GiB, peak "
+            f"{sv['peak_gib']:.3f} GiB"
+            f"{'' if nccl else ' (the card, shared by its ranks)'}, init "
+            f"{sv['init_s']:.3f} s; launches "
+            f"{json.dumps({k: v for k, v in sv['launches'].items() if v})}")
+    sv = ranks[0]["serve"]
+    log(f"  collective bytes a rank hands in [{card}]: prefill "
+        f"{json.dumps({k: v['bytes'] for k, v in sv['prefill_collectives'].items()})}"
+        f", a decode step {json.dumps(per_step)}")
+    out = dict(device_count=n, group=group, tp=TP, arch=TP_ARCH,
+               check_layers=TP_CHECK_LAYERS, request=list(TP_REQUEST),
+               errors=errs, flips=flips, one_card_s=one_s, ranks_s=ranks_s,
+               launches_check=want_check, launches_serve=want_serve,
+               ranks=[{part: {k: v for k, v in r[part].items()
+                              if k not in ("logits", "ids", "digest")}
+                       for part in ("check", "serve")} for r in ranks])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 23 (tensor-parallel serving): {out['seconds']:.3f} s "
+        f"[{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -5510,6 +5815,12 @@ def main() -> int:
                          "port's lint over the tree, the four _torch "
                          "examples on the card and the host, the seed "
                          "loops against the kernels); prints no result "
+                         "line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels and run phase 23 alone "
+                         "(command-r-35b served over 4 ranks: NCCL "
+                         "processes with 4 cards or more, else LocalGroup "
+                         "threads; held to one card); prints no result "
                          "line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
@@ -5584,6 +5895,13 @@ def main() -> int:
             with open(os.path.join(args.out, "cross.json"), "w") as f:
                 json.dump({"card": card, "cross": cross}, f, indent=1)
         log("phases 17 and 18 alone (--cross-only): no result line")
+        return 0
+    if args.tp_only:
+        tp = tp_phase(dev, card)
+        if args.out is not None:
+            with open(os.path.join(args.out, "tp.json"), "w") as f:
+                json.dump({"card": card, "tp": tp}, f, indent=1)
+        log("phase 23 alone (--tp-only): no result line")
         return 0
     if args.dryrun_only:
         dry = dryrun_phase(dev, card)
@@ -5693,6 +6011,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         train["trace_mamba"] = trace_train(dev, card, args.out, MAMBA)
     dry = dryrun_phase(dev, card)
     tail = tail_phase(dev, card, workdir)
+    torch.cuda.empty_cache()
+    tp = tp_phase(dev, card)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -5855,6 +6175,11 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             tail["train_lm"]["launches"][rec["name"]],
             "train_lm_torch, Minos part":
             tail["train_lm"]["minos_launches"][rec["name"]]}
+    for rec in kernels[2:4]:          # phase 23's ranks, each counted apart
+        rec["launches_tp_serving"] = {
+            f"rank {r} ({tp['ranks'][r]['serve']['num_layers']} layers)":
+            tp["ranks"][r]["serve"]["launches"][rec["name"]]
+            for r in range(len(tp["ranks"]))}
     for rec in kernels:               # phase 21's card steps
         rec["launches_dryrun"] = {
             f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
@@ -5881,7 +6206,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
                        "serve_cross": cross_sp, "train": train,
-                       "dryrun": dry, "tail": tail}, f, indent=1)
+                       "dryrun": dry, "tail": tail, "tp": tp}, f,
+                      indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,9 @@ import.
 
 ``LAUNCHES`` counts kernel launches per kernel name (the sources' names,
 and ``rmsnorm_bwd`` for the backward entry points of ``rmsnorm.cu``); each
-wrapper adds one where it launches its kernel and nowhere else.
+wrapper adds one (``launched``) where it launches its kernel and nowhere
+else.  ``rank_counts`` counts one thread's launches apart, for ranks that
+are threads of one process.
 
 Where a wrapper runs follows its tensors (``device_of``): on the CPU its
 plain twin, on a CUDA device its kernel (or it raises), on ``meta`` neither
@@ -100,9 +102,37 @@ _SIGNATURES = {
 }
 
 
+_rank = threading.local()
+_count_lock = threading.Lock()
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launched(name: str) -> None:
+    """Count one launch of kernel ``name``: in ``LAUNCHES`` (under a lock,
+    since the ranks of a ``LocalGroup`` are threads) and, while the calling
+    thread has ``rank_counts`` open, in its own counts."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+    own = getattr(_rank, "counts", None)
+    if own is not None:
+        own[name] += 1
+
+
+@contextlib.contextmanager
+def rank_counts():
+    """The launches of the calling thread alone (one rank of a
+    ``LocalGroup``) while the context is open, as a dict by kernel."""
+    counts = {name: 0 for name in KERNELS}
+    outer = getattr(_rank, "counts", None)
+    _rank.counts = counts
+    try:
+        yield counts
+    finally:
+        _rank.counts = outer
 
 
 def build_dir() -> str:

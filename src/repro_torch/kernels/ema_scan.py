@@ -99,7 +99,7 @@ def ema_scan_rows(x: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
             build.check(lib.ema_scan_f32(x.data_ptr(), out.data_ptr(), rows,
                                          n, float(alpha), float(1.0 - alpha),
                                          stream), "ema_scan")
-            build.LAUNCHES["ema_scan"] += 1
+            build.launched("ema_scan")
     return out
 
 
@@ -315,5 +315,5 @@ def ema_scan_blocks(x: torch.Tensor, state=None, has=False,
                 None if isinstance(has, bool) else has.data_ptr(),
                 int(has is True), ptr(index), ptr(state_out), ptr(has_out),
                 float(alpha), float(1.0 - alpha), stream), "ema_scan")
-            build.LAUNCHES["ema_scan"] += 1
+            build.launched("ema_scan")
     return out

@@ -358,7 +358,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            H, KV, dh, *q.stride()[:3], *k.stride()[:3],
                            *v.stride()[:3], *out.stride()[:3],
                            int(bool(causal)), stream), "flash_attention")
-            build.LAUNCHES["flash_attention"] += 1
+            build.launched("flash_attention")
     return (out, lse) if with_lse else out
 
 
@@ -418,7 +418,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     dk, dv, work)),
                            b, sq, skv, H, KV, dh, int(bool(causal)),
                            plan.split, stream), "flash_attention_bwd")
-            build.LAUNCHES["flash_attention_bwd"] += 1
+            build.launched("flash_attention_bwd")
     return dq, dk, dv
 
 

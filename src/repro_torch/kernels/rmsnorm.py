@@ -164,7 +164,7 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
                 x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
                 float(eps), int(vectorized), int(pdl),
                 _raw_stream(x.device)), "rmsnorm")
-            build.LAUNCHES["rmsnorm"] += 1
+            build.launched("rmsnorm")
     return out
 
 
@@ -322,7 +322,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                            plan.warps, plan.stages, plan.cols,
                            plan.col_width, plan.col_chunks, plan.smem_bytes,
                            stream), "rmsnorm_bwd")
-            build.LAUNCHES["rmsnorm_bwd"] += 1
+            build.launched("rmsnorm_bwd")
     return dx, dscale
 
 

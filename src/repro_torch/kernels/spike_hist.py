@@ -306,5 +306,5 @@ def spike_hist_batch(r: torch.Tensor, bin_sizes, n_bins, lo: float = 0.5,
                            0 if rows is None else rows.data_ptr(),
                            result.shape[0], total, group, splits,
                            int(vectorized), stream), "spike_hist")
-            build.LAUNCHES["spike_hist"] += 1
+            build.launched("spike_hist")
     return result

@@ -192,7 +192,7 @@ def ssm_scan_bsd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            0 if h0f is None else h0f.data_ptr(),
                            y.data_ptr(), h_last.data_ptr(), b, s, di, ds,
                            stream), "ssm_scan")
-            build.LAUNCHES["ssm_scan"] += 1
+            build.launched("ssm_scan")
     return y, h_last
 
 
@@ -379,7 +379,7 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            ddt.data_ptr(), dA.data_ptr(), dBC.data_ptr(),
                            ptr(dD), ptr(dh0), work.data_ptr(), b, s, di, ds,
                            plan.lanes, stream), "ssm_scan_bwd")
-            build.LAUNCHES["ssm_scan_bwd"] += 1
+            build.launched("ssm_scan_bwd")
     return dx, ddt, dA, dBC[0], dBC[1], dD, dh0
 
 

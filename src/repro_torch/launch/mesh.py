@@ -1,11 +1,13 @@
 """Mesh layouts (the reference's ``repro.launch.mesh``).
 
-The port runs on one card and shards nothing (``models.common.Topo`` is
-one device), so it has no counterpart of the reference's
-``make_production_mesh``: ``CARD`` (one H100, every axis of size 1) is the
-only layout its dry run takes.  ``mesh_config`` returns the reference's
-pod layouts, as there, for records that name them.  Importing this module
-touches no device.
+The port runs one card (``CARD``, every axis of size 1) or a (1, tp) mesh
+of tp ranks (``tp_mesh``: data 1, model tp), over which the dense family
+serves with the reference's tensor-parallel layouts
+(``models.common.Topo``, ``models.parallel``).  Meshes with data > 1, and
+so the reference's ``make_production_mesh``, are not ported (ROADMAP queue
+1, item 3); the dry run takes one layout, ``card``.  ``mesh_config``
+returns the reference's pod layouts, as there, for records that name them.
+Importing this module touches no device.
 """
 from __future__ import annotations
 
@@ -14,6 +16,11 @@ from repro_torch.configs.base import MULTI_POD, SINGLE_POD, MeshConfig
 # one H100: n_chips = 1, the weights split tp = 1 way
 CARD = MeshConfig(shape=(1, 1), axis_names=("data", "model"))
 MESHES = {"card": CARD}
+
+
+def tp_mesh(tp: int) -> MeshConfig:
+    """The (1, tp) mesh: tp ranks on the "model" axis."""
+    return MeshConfig(shape=(1, tp), axis_names=("data", "model"))
 
 
 def mesh_config(*, multi_pod: bool = False) -> MeshConfig:

@@ -9,6 +9,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-3.2-vision-11b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch command-r-35b \\
+        --tp 4 --group nccl
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch command-r-35b \\
+        --smoke --tp 2 --group local --device cpu
 
 The full configuration runs on the card by default, with the port's seeded
 init (no checkpoint); ``--smoke`` takes the reduced configuration.  Every
@@ -22,6 +26,14 @@ launcher draws them.  A configuration whose
 bfloat16 weights exceed the device's memory (deepseek-v2-236b and
 jamba-1.5-large-398b at full size) is refused before anything is
 allocated.
+
+``--tp N`` serves a dense model over a (1, N) mesh with the reference's
+tensor-parallel layouts; ``--group`` chooses how the ranks run, and is
+required with it: ``nccl`` spawns N processes, rank r on card r (the
+kernels built once, before the spawn); ``local`` runs N threads of
+this process, rank r on card r % (the cards there are), or on the CPU with
+``--device cpu``.  ``check_fits`` then counts the weights a card holds:
+its ranks' blocks of both layouts.
 """
 from __future__ import annotations
 
@@ -35,6 +47,9 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import tp_mesh
+from repro_torch.models.common import Topo
+from repro_torch.models.parallel import LocalGroup, run_local, spawn
 from repro_torch.serve import ServeEngine
 
 
@@ -45,15 +60,64 @@ def device_memory_bytes(device: torch.device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+def rank_weight_bytes(cfg: ModelConfig, tp: int = 1) -> int:
+    """Bytes of the bfloat16 weights one rank holds: on one device the
+    config's count; over tp ranks, rank 0's engine's parameters (its
+    prefill and decode models, a shared block once), counted on meta."""
+    if tp == 1:
+        return 2 * cfg.param_count()
+    eng = ServeEngine(cfg, 1, device="meta", topo=Topo(tp_mesh(tp)),
+                      group=LocalGroup.make(tp)[0])
+    params = {id(p): p for m in (eng.model, eng.decode_model)
+              for p in m.parameters()}
+    return 2 * sum(p.numel() for p in params.values())
+
+
+def check_fits(cfg: ModelConfig, device: torch.device, tp: int = 1,
+               ranks_per_device: int = 1) -> None:
     """Raise ``ValueError`` when the bfloat16 weights alone exceed the
-    device."""
-    need, have = 2 * cfg.param_count(), device_memory_bytes(device)
+    device: ``ranks_per_device`` ranks of a (1, tp) mesh on it."""
+    need = ranks_per_device * rank_weight_bytes(cfg, tp)
+    have = device_memory_bytes(device)
     if need > have:
         raise ValueError(
             f"{cfg.name}: {need / 1e9:.1f} GB of bfloat16 weights do not fit "
             f"in the {have / 1e9:.1f} GB of {device}; pass --smoke for the "
             f"reduced configuration")
+
+
+def make_batch(cfg: ModelConfig, batch: int, prompt_len: int,
+               seed: int) -> dict:
+    """The launcher's request: tokens uniform in the vocabulary, and the
+    vlm's or whisper's stub embeddings, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["image_embeds"] = rng.standard_normal(
+            (batch, cfg.num_image_tokens, cfg.d_model)).astype(
+                np.float32) * 0.02
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32) * 0.02
+    return out
+
+
+def serve_rank(group, cfg: ModelConfig, max_len: int, seed: int,
+               batch: dict, tokens: int) -> dict:
+    """One rank of ``--tp``, on the group's device: its engine, the seeded
+    init, one request; the ids, the seconds and the stats."""
+    dev = group.device
+    engine = ServeEngine(cfg, max_len=max_len, device=dev,
+                         topo=Topo(tp_mesh(group.size)), group=group)
+    engine.init_params(seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = engine.generate(batch, tokens)
+    sync()
+    return {"ids": out, "seconds": time.perf_counter() - t0,
+            "stats": engine.stats, "device": str(dev)}
 
 
 def main() -> None:
@@ -65,26 +129,21 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--group", choices=("nccl", "local"))
     args = ap.parse_args()
 
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = cfg.reduced()
+    max_len = args.prompt_len + args.tokens + 4
+    batch = make_batch(cfg, args.batch, args.prompt_len, args.seed)
+    if args.tp > 1:
+        serve_tp(args, cfg, max_len, batch)
+        return
     check_fits(cfg, resolve_device(args.device))
-    engine = ServeEngine(cfg, max_len=args.prompt_len + args.tokens + 4,
-                         device=args.device)
+    engine = ServeEngine(cfg, max_len=max_len, device=args.device)
     engine.init_params(args.seed)
-    rng = np.random.default_rng(args.seed)
-    batch = {"tokens": rng.integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)}
-    if cfg.family == "vlm":
-        batch["image_embeds"] = rng.standard_normal(
-            (args.batch, cfg.num_image_tokens, cfg.d_model)).astype(
-                np.float32) * 0.02
-    if cfg.family == "audio":
-        batch["frames"] = rng.standard_normal(
-            (args.batch, args.prompt_len, cfg.d_model)).astype(
-                np.float32) * 0.02
     sync = torch.cuda.synchronize if engine.device.type == "cuda" \
         else (lambda: None)
     sync()
@@ -96,6 +155,38 @@ def main() -> None:
     print(f"prefill_tokens={engine.stats.prefill_tokens} "
           f"decode_steps={engine.stats.decode_steps} "
           f"seconds={elapsed:.3f} device={engine.device}")
+
+
+def serve_tp(args, cfg: ModelConfig, max_len: int, batch: dict) -> None:
+    """``--tp``: every rank serves the request; their ids must agree."""
+    if args.group is None:
+        raise SystemExit("--tp needs --group nccl (a process a card) or "
+                         "--group local (threads of this process)")
+    dev = resolve_device(args.device)
+    if args.group == "nccl":
+        if dev.type != "cuda" or torch.cuda.device_count() < args.tp:
+            raise SystemExit(f"--group nccl needs {args.tp} cards, this "
+                             f"host has {torch.cuda.device_count()}")
+        check_fits(cfg, torch.device("cuda", 0), args.tp)
+        ranks = spawn(serve_rank, args.tp, "nccl", args=(
+            cfg, max_len, args.seed, batch, args.tokens))
+    else:
+        devices = [dev] if dev.type != "cuda" else \
+            [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        check_fits(cfg, devices[0], args.tp, -(-args.tp // len(devices)))
+        ranks = run_local(lambda g: serve_rank(
+            g, cfg, max_len, args.seed, batch, args.tokens), args.tp,
+            devices)
+    for r in ranks[1:]:
+        if not np.array_equal(r["ids"], ranks[0]["ids"]):
+            raise RuntimeError("the ranks generated different ids")
+    stats = ranks[0]["stats"]
+    print("generated token ids:\n", ranks[0]["ids"])
+    print(f"prefill_tokens={stats.prefill_tokens} "
+          f"decode_steps={stats.decode_steps} "
+          f"seconds={max(r['seconds'] for r in ranks):.3f} tp={args.tp} "
+          f"group={args.group} devices="
+          f"{','.join(r['device'] for r in ranks)}")
 
 
 if __name__ == "__main__":

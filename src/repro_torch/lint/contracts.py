@@ -103,6 +103,13 @@ PINNED_DIRS = (
 #:   and the selective scan to the hand-written CUDA kernels, where the
 #:   reference's models compute ``jnp``.
 #:
+#: The process groups of a (1, tp) mesh (``models.parallel``: the
+#: collectives the sharded layers run, the ranks as threads or as
+#: ``torch.distributed`` processes) live in ``models``, whose layers call
+#: them; ``serve`` and ``launch`` reach them through their edges to
+#: ``models``, and they build the kernels before ranks start through
+#: ``models -> kernels``.  So they need no node or edge of their own.
+#:
 #: ``core`` never importing ``api`` (or ``fleet``) is the north-star edge;
 #: ``store`` importing nothing keeps durability stdlib-only and
 #: cycle-free.  ``kernels`` importing nothing keeps the build stdlib +

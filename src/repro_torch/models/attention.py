@@ -27,40 +27,84 @@ for q, k and v.  So it is the one attention path without the kernel:
 reference rounds.  Its latent RMS norm is the ``rmsnorm`` kernel's
 function and goes through ``ops.rmsnorm``.
 
-The weight layouts (``megatron``, ``fsdp_sp``, ``decode_rp``) decide only
-how the reference shards; on one card they name the same tensors and are
-kept as metadata.
+The weight layouts (``megatron``, ``fsdp_sp``, ``decode_rp``) decide how
+the reference shards; on one card they name the same tensors.  On a rank
+of a (1, tp) mesh (a ``group``) a GQA block holds its blocks by the
+reference's pspecs and runs two of them:
+
+* ``megatron`` (prefill): the normed residual gathered over the sequence;
+  q on the rank's heads, k and v on the rank's run of ``head_dim`` and
+  gathered over it before RoPE (the rotation needs whole heads); the
+  rank's flash kernel launch on its heads against the KV heads they read;
+  ``wo`` row-parallel over the heads, its float32 partials
+  reduce-scattered onto the rank's run of the sequence.  The caches it
+  returns are whole.
+* ``decode_rp``: ``wq``/``wk``/``wv`` cut over d_model, so the rank's run
+  of x gives partial q, k, v, summed over the ranks in float32; the new
+  token's k and v written by the rank whose run of the cache holds
+  position t; ``decode_attention`` over the sequence-sharded cache; ``wo``
+  cut over its output d, gathered after.
+
+``fsdp_sp`` (heads that tp does not divide), cross-attention and MLA under
+tp > 1 are not ported (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDef, ParamModule, ParamStore
-from repro_torch.models.layers import apply_rope, matmul
+from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
+                                       ParamModule, ParamStore)
+from repro_torch.models.layers import (apply_rope, matmul, matmul_f32,
+                                       reduce_partials)
 
 _NEG = -1e30
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, t: int,
-                     softmax_scale: float | None = None) -> torch.Tensor:
-    """q (b, H, dh) against caches (b, S, KV, dh) at positions <= t."""
+                     softmax_scale: float | None = None, group=None,
+                     lo: int = 0) -> torch.Tensor:
+    """q (b, H, dh) against caches (b, S, KV, dh) at positions <= t; the
+    caches hold positions [lo, lo + S).  With a ``group`` they are the
+    rank's run of a sequence-sharded cache: the scores stay local, their
+    max and the softmax's sum are reduced over the ranks, the weights
+    ``p / l`` rounded to the cache's dtype where the reference rounds them,
+    and the local products with v summed over the ranks in float32."""
     b, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
     qg = (q * scale).reshape(b, KV, H // KV, dh)
     s = torch.einsum("bkpd,bskd->bkps", qg.to(torch.float32),
                      k_cache.to(torch.float32))
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(lo, lo + S, device=q.device)
     s = s.masked_fill(pos > t, _NEG)
     m = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = group.all_reduce(m, "max")
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if group is not None:
+        l = group.all_reduce(l)
     o = torch.einsum("bkps,bskd->bkpd",
                      (p / l).to(v_cache.dtype).to(torch.float32),
                      v_cache.to(torch.float32))
+    if group is not None:
+        o = group.all_reduce(o)
     return o.reshape(b, H, dh).to(q.dtype)
+
+
+def rank_kv_heads(H: int, KV: int, tp: int, rank: int):
+    """The KV heads that q heads [rank H/tp, (rank + 1) H/tp) read under
+    GQA (head h reads h // (H / KV)): a slice when the kernel's own map of
+    the local heads onto it (h' // (H_local / KV_local)) pairs them right,
+    else an index of one KV head per q head."""
+    hl, g = H // tp, H // KV
+    kv = [(rank * hl + h) // g for h in range(hl)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    if hl % n == 0 and all(kv[h] == lo + h // (hl // n) for h in range(hl)):
+        return slice(lo, lo + n)
+    return torch.tensor(kv)
 
 
 class Attention(ParamModule):
@@ -69,7 +113,7 @@ class Attention(ParamModule):
                  rope_theta: float = 10_000.0, use_rope: bool = True,
                  qkv_bias: bool = False, out_bias: bool = False,
                  causal: bool = True, is_cross: bool = False, *, device,
-                 dtype=None):
+                 dtype=None, topo=ONE_DEVICE, group=None):
         super().__init__()
         self.name, self.d_model = name, d_model
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
@@ -77,7 +121,11 @@ class Attention(ParamModule):
         self.rope_theta, self.use_rope = rope_theta, use_rope
         self.qkv_bias, self.out_bias = qkv_bias, out_bias
         self.causal, self.is_cross = causal, is_cross
-        self._materialize(device, dtype)
+        if group is not None and (is_cross or layout == "fsdp_sp"):
+            raise NotImplementedError(
+                f"{name}: {'cross-attention' if is_cross else layout} "
+                f"over ranks {NOT_RUN}")
+        self._materialize(device, dtype, topo, group)
 
     def register(self, store: ParamStore) -> None:
         d, H, KV, dh = (self.d_model, self.num_heads, self.num_kv_heads,
@@ -131,9 +179,14 @@ class Attention(ParamModule):
 
     # -- full-sequence forward (prefill) ---------------------------------
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                return_kv: bool = False, memory: torch.Tensor | None = None):
+                return_kv: bool = False, memory: torch.Tensor | None = None,
+                seq_sharded: bool = False):
         """x (b, s, d), positions (s,) [, memory (b, sm, d) for a cross
-        block] -> (b, s, d) [and (k, v)]."""
+        block] -> (b, s, d) [and (k, v)].  On a rank: x and the output are
+        the rank's run of the sequence when ``seq_sharded``, and k, v whole
+        (b, s, KV, dh)."""
+        if self.tp_group is not None:
+            return self._megatron(x, positions, return_kv, seq_sharded)
         if self.is_cross and memory is None:
             raise ValueError(f"{self.name}: a cross-attention block needs "
                              f"memory")
@@ -149,14 +202,51 @@ class Attention(ParamModule):
             return out, (k, v)
         return out
 
+    def _megatron(self, x: torch.Tensor, positions: torch.Tensor,
+                  return_kv: bool, seq_sharded: bool):
+        g = self.tp_group
+        if seq_sharded:
+            x = g.all_gather(x, 1)
+        heads = self.block("wq")[1]
+        q = self._proj(x, self.wq)
+        if self.qkv_bias:
+            q = q + self.bq[heads]
+        k = self._proj(x, self.wk)
+        v = self._proj(x, self.wv)
+        if self.split("wk"):                     # the rank's run of head_dim
+            k = g.all_gather(k, -1)
+            v = g.all_gather(v, -1)
+        if self.qkv_bias:
+            k = k + self.bk
+            v = v + self.bv
+        if self.use_rope:
+            q = apply_rope(q, positions, self.rope_theta)
+            k = apply_rope(k, positions, self.rope_theta)
+        kv = rank_kv_heads(self.num_heads, self.num_kv_heads, g.size,
+                           g.rank)
+        o = ops.flash_attention(q, k[:, :, kv], v[:, :, kv],
+                                causal=self.causal)
+        H, dh, d = self.wo.shape
+        partial = matmul_f32(o.flatten(-2), self.wo.reshape(H * dh, d))
+        out = reduce_partials(partial, g, seq_sharded,
+                              torch.promote_types(o.dtype, self.wo.dtype))
+        if self.out_bias:
+            out = out + self.bo
+        return (out, (k, v)) if return_kv else out
+
     # -- single-token decode against the cache ---------------------------
     def decode(self, x: torch.Tensor, t: int, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, update_cache: bool = True):
+               v_cache: torch.Tensor, lo: int | None = None,
+               update_cache: bool = True):
         """x (b, d) at position t.  Writes this token's k and v into the
         caches (b, S, KV, dh) in place at position t, then attends to
         positions <= t.  A cross block projects q alone and attends to
         the whole memory cache, left as it is.  Returns (out (b, d),
-        (k_cache, v_cache))."""
+        (k_cache, v_cache)).  On a rank the caches hold positions
+        [lo, lo + S) of a sequence-sharded cache, or (``lo`` None) all
+        of it."""
+        if self.tp_group is not None:
+            return self._decode_rp(x, t, k_cache, v_cache, lo)
         if self.is_cross:
             q = self._q(x[:, None])
             o = decode_attention(q[:, 0], k_cache, v_cache,
@@ -172,6 +262,40 @@ class Attention(ParamModule):
             v_cache[:, t] = v[:, 0].to(v_cache.dtype)
         o = decode_attention(q[:, 0], k_cache, v_cache, t)
         return self._out(o), (k_cache, v_cache)
+
+    def _decode_rp(self, x: torch.Tensor, t: int, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, lo: int | None):
+        g = self.tp_group
+        H, KV, dh = self.num_heads, self.num_kv_heads, self.head_dim
+        ws = [w.reshape(w.shape[0], -1) for w in (self.wq, self.wk, self.wv)]
+        dt = torch.promote_types(x.dtype, self.wq.dtype)
+        if self.split("wq"):                     # the rank's run of d_model
+            rows = self.block("wq")[0]
+            qkv = g.all_reduce(torch.cat([matmul_f32(x[:, rows], w)
+                                          for w in ws], -1)).to(dt)
+        else:
+            qkv = torch.cat([matmul(x, w) for w in ws], -1)
+        q, k, v = qkv.split([H * dh, KV * dh, KV * dh], -1)
+        q, k, v = (q.unflatten(-1, (H, dh)), k.unflatten(-1, (KV, dh)),
+                   v.unflatten(-1, (KV, dh)))
+        if self.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        if self.use_rope:
+            pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
+            q = apply_rope(q[:, None], pos, self.rope_theta)[:, 0]
+            k = apply_rope(k[:, None], pos, self.rope_theta)[:, 0]
+        start = 0 if lo is None else lo
+        if start <= t < start + k_cache.shape[1]:
+            k_cache[:, t - start] = k.to(k_cache.dtype)
+            v_cache[:, t - start] = v.to(v_cache.dtype)
+        o = decode_attention(q, k_cache, v_cache, t,
+                             group=None if lo is None else g, lo=start)
+        out = matmul(o.flatten(-2), self.wo.reshape(H * dh, -1))
+        if self.split("wo"):                     # the rank's output columns
+            out = g.all_gather(out, -1)
+        if self.out_bias:
+            out = out + self.bo
+        return out, (k_cache, v_cache)
 
 
 class MLAttention(ParamModule):

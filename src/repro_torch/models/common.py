@@ -1,16 +1,28 @@
-"""Shared model plumbing: parameter definitions, seeded init, topology.
+"""Shared model plumbing: logical-axis sharding, parameter definitions,
+seeded init.
 
-The reference shards every tensor over a device mesh through logical axes.
-The port runs on one card, so ``Topo`` keeps only what decides a code path:
-``axis_size`` (1 for every logical axis, so layouts are chosen as the
-reference chooses them on a one-device mesh) and no sharding constraints.
+Logical axes map to mesh axes as in the reference (``Topo``):
+
+* ``"batch"`` and ``"fsdp"`` -> ``("pod", "data")``, ``"tp"`` and
+  ``"seq_tp"`` -> ``"model"``, ``"all"`` -> all three, ``"none"`` -> ();
+* every application is divisibility-checked: a dim that the mesh axes do
+  not divide falls back to a shorter run of them (dropping the leading
+  axis), and finally to replication, never to an error.
+
+A pspec is a plain tuple of mesh-axis names, tuples of them or ``None``,
+trailing ``None``s trimmed, as the reference's ``PartitionSpec`` holds
+them.  ``axis_size``, ``resolve`` and ``pspec`` take any mesh; the port
+runs one layout of blocks, a (1, tp) mesh (data 1, model tp), and
+``shard_slices`` gives a rank's block of a tensor there.  ``ONE_DEVICE``
+is the (1, 1) mesh: every block is the whole tensor.
 
 Parameters are described by ``ParamDef``s and collected by a
 ``ParamStore``, as in the reference; the modules of ``layers``,
 ``attention`` and ``transformer`` materialise their own defs as
-``nn.Parameter``s (``ParamModule``) and ``init_param_`` fills them from an
-explicit ``torch.Generator``.  The reference draws from ``jax.random`` keys,
-so the same seed gives other numbers here; the parity tests carry the
+``nn.Parameter``s (``ParamModule``), on a rank of a (1, tp) mesh as that
+rank's blocks, and ``init_param_`` fills them from an explicit
+``torch.Generator``.  The reference draws from ``jax.random`` keys, so the
+same seed gives other numbers here; the parity tests carry the
 reference's values over with ``models.convert.params_from_jax``.
 """
 from __future__ import annotations
@@ -24,20 +36,106 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.configs.base import MeshConfig
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+Pspec = tuple          # entries: a mesh axis, a tuple of them, or None
+
+# the sharding the port does not run yet: ROADMAP queue 1, item 3
+NOT_RUN = "(ROADMAP queue 1, item 3: sharding not yet ported)"
 
 
 @dataclass(frozen=True)
 class Topo:
-    """One device: every logical axis has size 1, nothing is sharded."""
+    """A mesh and the reference's logical -> physical axis rules."""
+
+    mesh_cfg: MeshConfig
 
     def axis_size(self, logical: str) -> int:
-        if logical not in ("batch", "fsdp", "tp", "seq_tp", "all", "none"):
-            raise KeyError(f"unknown logical axis {logical!r}")
-        return 1
+        n = 1
+        for a in self._phys(logical):
+            n *= self.mesh_cfg.shape[self.mesh_cfg.axis_names.index(a)]
+        return n
+
+    def _phys(self, logical: str) -> tuple[str, ...]:
+        names = self.mesh_cfg.axis_names
+        if logical in ("batch", "fsdp"):
+            return tuple(a for a in ("pod", "data") if a in names)
+        if logical in ("tp", "seq_tp"):
+            return tuple(a for a in ("model",) if a in names)
+        if logical == "all":
+            return tuple(a for a in ("pod", "data", "model") if a in names)
+        if logical == "none":
+            return ()
+        raise KeyError(f"unknown logical axis {logical!r}")
+
+    def resolve(self, logical: str | None,
+                dim_size: int) -> tuple[str, ...] | None:
+        """Physical axes for a dim, or None if not divisible / unsharded;
+        a multi-axis logical falls back to a suffix of its axes when the
+        full product does not divide."""
+        if logical is None:
+            return None
+        phys = self._phys(logical)
+        while phys:
+            n = 1
+            for a in phys:
+                n *= self.mesh_cfg.shape[self.mesh_cfg.axis_names.index(a)]
+            if n > 0 and dim_size % n == 0:
+                return phys
+            phys = phys[1:]
+        return None
+
+    def pspec(self, axes: tuple[str | None, ...],
+              shape: tuple[int, ...]) -> Pspec:
+        entries: list = []
+        for logical, dim in zip(axes, shape):
+            phys = self.resolve(logical, dim)
+            if phys is None:
+                entries.append(None)
+            elif len(phys) == 1:
+                entries.append(phys[0])
+            else:
+                entries.append(phys)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return tuple(entries)
+
+    # -- a rank's block on a (1, tp) mesh ----------------------------------
+    @property
+    def tp(self) -> int:
+        """The ranks of the (1, tp) mesh the port runs; raises
+        ``NotImplementedError`` for a mesh with data (or pod) > 1."""
+        if self.axis_size("batch") != 1:
+            raise NotImplementedError(
+                f"the port shards over (1, tp) meshes only, not "
+                f"{dict(zip(self.mesh_cfg.axis_names, self.mesh_cfg.shape))}"
+                f" {NOT_RUN}")
+        return self.axis_size("tp")
+
+    def shard_slices(self, pspec: Pspec, shape: tuple[int, ...],
+                     rank: int) -> tuple[slice, ...]:
+        """The index of rank ``rank``'s block of a tensor of ``shape``
+        laid out by ``pspec``: each dim that names "model" is cut into
+        ``tp`` equal runs, the others are whole."""
+        tp = self.tp
+        if not 0 <= rank < tp:
+            raise ValueError(f"rank {rank} outside a mesh of {tp} ranks")
+        out = []
+        for i, dim in enumerate(shape):
+            entry = pspec[i] if i < len(pspec) else None
+            names = entry if isinstance(entry, tuple) else (entry,)
+            if "model" in names:
+                n = dim // tp
+                out.append(slice(rank * n, (rank + 1) * n))
+            else:
+                out.append(slice(0, dim))
+        return tuple(out)
 
 
-ONE_DEVICE = Topo()
+ONE_DEVICE = Topo(MeshConfig((1, 1), ("data", "model")))
 
 
 @dataclass(frozen=True)
@@ -136,19 +234,42 @@ def init_param_(t: torch.Tensor, d: ParamDef,
     return t
 
 
+def block_shape(index: tuple[slice, ...]) -> tuple[int, ...]:
+    return tuple(s.stop - s.start for s in index)
+
+
 class ParamModule(nn.Module):
     """An ``nn.Module`` whose parameters are materialised from ``ParamDef``s
-    registered by its ``register(store)`` under paths relative to it."""
+    registered by its ``register(store)`` under paths relative to it.
 
-    def _materialize(self, device: torch.device,
-                     dtype: torch.dtype | None) -> None:
+    With a ``group`` (a rank of a (1, tp) mesh, ``models.parallel``) each
+    parameter is that rank's block of its def by ``topo``; without one, the
+    whole tensor.  ``defs`` keep the whole shapes either way."""
+
+    def _materialize(self, device: torch.device, dtype: torch.dtype | None,
+                     topo: Topo = ONE_DEVICE, group=None) -> None:
         store = ParamStore()
         self.register(store)
         self.defs = store.defs
+        self.topo, self.tp_group = topo, group
         for path, d in store.defs.items():
+            shape = d.shape if group is None else block_shape(
+                self.block(path))
             self.register_parameter(path, nn.Parameter(
-                torch.empty(d.shape, dtype=dtype or DTYPES[d.dtype],
+                torch.empty(shape, dtype=dtype or DTYPES[d.dtype],
                             device=device), requires_grad=False))
+
+    def block(self, path: str) -> tuple[slice, ...]:
+        """This rank's index into the whole tensor of parameter ``path``."""
+        d = self.defs[path]
+        return self.topo.shard_slices(self.topo.pspec(d.axes, d.shape),
+                                      d.shape, self.tp_group.rank)
+
+    def split(self, path: str) -> bool:
+        """On a rank, parameter ``path`` is cut (a dim that the mesh
+        divides); else every rank holds it whole."""
+        return self.tp_group is not None and \
+            tuple(getattr(self, path).shape) != self.defs[path].shape
 
     def register(self, store: ParamStore) -> None:
         raise NotImplementedError

@@ -21,6 +21,10 @@ checkpoint stores bfloat16 so, and the JAX side views the bits as
 ``ml_dtypes.bfloat16``).  The same holds for any tree keyed like the
 parameters, such as AdamW's ``m`` and ``v``, so whole train states carry
 both ways.
+
+``rank_state_dict(full, model)`` cuts whole parameters (the reference's
+tree, or a port state dict) into the blocks that ``model``, one rank of a
+(1, tp) mesh, holds by its ``Topo``'s pspecs, for its ``load_state_dict``.
 """
 from __future__ import annotations
 
@@ -114,3 +118,15 @@ def params_to_jax(state_dict: dict[str, torch.Tensor],
         node[parts[-1]] = t.detach().cpu() if isinstance(t, torch.Tensor) \
             else t
     return tree
+
+
+def rank_state_dict(full: dict, model) -> dict[str, torch.Tensor]:
+    """Rank ``model``'s blocks of whole parameters: ``full`` is the
+    reference's nested tree (numpy leaves, stacked over layers) or a port
+    state dict; a leaf already on ``model``'s device is cut without a host
+    copy."""
+    if any(isinstance(v, dict) for v in full.values()):
+        full = params_from_jax(full)
+    return {name: (full[name] if isinstance(full[name], torch.Tensor)
+                   else to_tensor(full[name]))[index]
+            for name, index in model.blocks().items()}

@@ -81,7 +81,9 @@ class EncDecLM(ModelBase):
             raise ValueError(f"unknown kind {kind!r}")
         dev = resolve_device(device)
         self.cfg, self.topo, self.kind = cfg, topo, kind
-        layout = "decode_rp" if kind == "decode" else "megatron"
+        layout = "decode_rp" if kind == "decode" else (
+            "megatron" if cfg.num_heads % max(topo.axis_size("tp"), 1) == 0
+            else "fsdp_sp")
         d = cfg.d_model
 
         def norm(n: str) -> Norm:
@@ -99,10 +101,10 @@ class EncDecLM(ModelBase):
                                       causal=causal, is_cross=cross,
                                       device=dev, dtype=dtype))
 
-        def mlp(n: str) -> SubLayer:
+        def mlp(n: str, zero3: bool = True) -> SubLayer:
             return SubLayer(n, "mlp", norm(n), Mlp(
-                f"{n}/core", d, cfg.d_ff, cfg.mlp_activation, device=dev,
-                dtype=dtype))
+                f"{n}/core", d, cfg.d_ff, cfg.mlp_activation, zero3=zero3,
+                device=dev, dtype=dtype))
 
         # the encoder runs over the whole input, even for a decode model
         enc_layout = "megatron" if kind != "decode" else "decode_rp"
@@ -114,7 +116,7 @@ class EncDecLM(ModelBase):
         self.dec_layers = nn.ModuleList(
             nn.ModuleDict({"dec_self": attn("dec_self"),
                            "dec_cross": attn("dec_cross", cross=True),
-                           "dec_mlp": mlp("dec_mlp")})
+                           "dec_mlp": mlp("dec_mlp", kind != "decode")})
             for _ in range(cfg.num_layers))
         self.embed = Embedding("embed", cfg.padded_vocab, d, device=dev,
                                dtype=dtype)
@@ -237,3 +239,13 @@ class EncDecLM(ModelBase):
                          "v": (kvd, torch.bfloat16)},
                 "cross": {"k": (kvx, torch.bfloat16),
                           "v": (kvx, torch.bfloat16)}}
+
+    def cache_pspecs(self, batch: int, seq: int,
+                     memory_len: int | None = None) -> dict:
+        """The reference's ``cache_pspecs``: every cache sharded over the
+        sequence where the mesh divides it."""
+        axes = (None, "batch", "seq_tp", None, None)
+        return {grp: {key: self.topo.pspec(axes, shape)
+                      for key, (shape, _) in entry.items()}
+                for grp, entry in self.cache_shape_structs(
+                    batch, seq, memory_len).items()}

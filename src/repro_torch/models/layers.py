@@ -1,10 +1,31 @@
 """Core layers: norms, RoPE, MLPs, embeddings/logits.
 
 Each layer is an ``nn.Module`` that owns the parameters the reference's
-``register`` declares (same names, shapes and dtypes), on one device.  The
+``register`` declares (same names, shapes, dtypes and logical axes).  The
 RMSNorm goes through ``ops.rmsnorm`` (the CUDA kernel on the card, its
 backward a kernel too); the rest is plain PyTorch, as it is jnp in the
 reference.  ``chunked_ce_loss`` is the training loss over the logits head.
+
+On a rank of a (1, tp) mesh (a ``group``, ``models.parallel``) the layers
+hold their blocks by the reference's pspecs and run the collectives the
+reference's layouts imply, Megatron with a sequence-sharded residual:
+
+* ``Embedding``: the vocabulary cut into tp runs; a masked local lookup,
+  then a sum over the ranks onto the rank's run of the sequence
+  (``reduce_scatter``) or, for a replicated residual, whole
+  (``all_reduce``); a token's row is non-zero on one rank only, so the sum
+  is exact;
+* ``Embedding.logits``: the float32 product on the rank's vocabulary
+  columns, then ``all_gather`` over the vocabulary;
+* ``Mlp``: ``w_gate``/``w_up`` column-parallel and ``w_down``
+  row-parallel over d_ff, the input gathered over the sequence first;
+* ``Norm``: its kernel on the rank's rows (the scale is replicated).
+
+A row-parallel product's partials are taken in float32 (``matmul_f32``:
+bfloat16 operands, float32 accumulation, not rounded) and summed over the
+ranks in float32, then rounded once to the activations' dtype
+(``reduce_partials``), where the unsharded product rounds its float32
+accumulation once.
 """
 from __future__ import annotations
 
@@ -12,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import (ParamDef, ParamModule, ParamStore,
-                                       cross_entropy_loss, maybe_remat)
+from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamModule,
+                                       ParamStore, cross_entropy_loss,
+                                       maybe_remat)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -24,6 +46,35 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return x @ w
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in float32: the operands' products summed in float32 and
+    not rounded to their dtype (on the card one GEMM with a float32
+    output; on the host the operands widened, which is exact)."""
+    if x.dtype == w.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda" and x.dtype == w.dtype:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def reduce_partials(partial: torch.Tensor, group, seq_sharded: bool,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel product's float32 partials (b, s, d) or (b, d)
+    summed over the ranks in float32, onto the rank's run of the sequence
+    (``seq_sharded``) or whole, then rounded to ``dtype``."""
+    out = group.reduce_scatter(partial, 1) if seq_sharded \
+        else group.all_reduce(partial)
+    return out.to(dtype)
+
+
+def seq_run(x: torch.Tensor, group) -> torch.Tensor:
+    """The rank's run of x's sequence (dim 1)."""
+    n = x.shape[1] // group.size
+    return x.narrow(1, group.rank * n, n)
 
 
 class Norm(ParamModule):
@@ -73,25 +124,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class Mlp(ParamModule):
-    """SwiGLU or GELU MLP."""
+    """SwiGLU or GELU MLP; ``zero3`` gives its weights the reference's
+    fsdp axis (off in decode layouts)."""
 
     def __init__(self, name: str, d_model: int, d_ff: int,
-                 activation: str = "swiglu", *, device, dtype=None):
+                 activation: str = "swiglu", zero3: bool = True, *, device,
+                 dtype=None, topo=ONE_DEVICE, group=None):
         super().__init__()
         if activation not in ("swiglu", "gelu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.name, self.d_model, self.d_ff = name, d_model, d_ff
-        self.activation = activation
-        self._materialize(device, dtype)
+        self.activation, self.zero3 = activation, zero3
+        self._materialize(device, dtype, topo, group)
 
     def register(self, store: ParamStore) -> None:
         d, f = self.d_model, self.d_ff
+        fs = "fsdp" if self.zero3 else None
         if self.activation == "swiglu":
-            store.add("w_gate", ParamDef((d, f), ("fsdp", "tp")))
-        store.add("w_up", ParamDef((d, f), ("fsdp", "tp")))
-        store.add("w_down", ParamDef((f, d), ("tp", "fsdp")))
+            store.add("w_gate", ParamDef((d, f), (fs, "tp")))
+        store.add("w_up", ParamDef((d, f), (fs, "tp")))
+        store.add("w_down", ParamDef((f, d), ("tp", fs)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seq_sharded: bool = False) -> torch.Tensor:
+        """x (b, s, d) or (b, d); on a rank, ``seq_sharded`` says that x
+        holds the rank's run of the sequence (and so does the output)."""
+        grp = self.tp_group
+        if grp is not None and seq_sharded:
+            x = grp.all_gather(x, 1)
         if self.activation == "swiglu":
             g = matmul(x, self.w_gate)
             u = matmul(x, self.w_up)
@@ -99,15 +159,21 @@ class Mlp(ParamModule):
         else:
             u = matmul(x, self.w_up)
             h = F.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
-        return matmul(h, self.w_down)
+        if not self.split("w_down"):      # d_ff not cut: whole products
+            out = matmul(h, self.w_down)
+            return seq_run(out, grp) if grp is not None and seq_sharded \
+                else out
+        return reduce_partials(matmul_f32(h, self.w_down), grp, seq_sharded,
+                               torch.promote_types(h.dtype,
+                                                   self.w_down.dtype))
 
 
 class Embedding(ParamModule):
     def __init__(self, name: str, vocab: int, d_model: int, tie: bool = False,
-                 *, device, dtype=None):
+                 *, device, dtype=None, topo=ONE_DEVICE, group=None):
         super().__init__()
         self.name, self.vocab, self.d_model, self.tie = name, vocab, d_model, tie
-        self._materialize(device, dtype)
+        self._materialize(device, dtype, topo, group)
 
     def register(self, store: ParamStore) -> None:
         store.add("table", ParamDef((self.vocab, self.d_model), ("tp", "fsdp"),
@@ -116,15 +182,30 @@ class Embedding(ParamModule):
             store.add("head", ParamDef((self.d_model, self.vocab),
                                        ("fsdp", "tp")))
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.table)
+    def embed(self, tokens: torch.Tensor,
+              seq_sharded: bool = False) -> torch.Tensor:
+        """tokens (b, s) or (b,) -> (b, s, d) or (b, d); on a rank, the
+        rank's run of the sequence when ``seq_sharded``, else whole."""
+        g = self.tp_group
+        if not self.split("table"):
+            out = F.embedding(tokens, self.table)
+            return seq_run(out, g) if g is not None and seq_sharded else out
+        rows = self.block("table")[0]
+        local = tokens - rows.start
+        mine = (local >= 0) & (local < self.table.shape[0])
+        out = F.embedding(torch.where(mine, local, 0), self.table)
+        out = torch.where(mine[..., None], out, 0)
+        return g.reduce_scatter(out, 1) if seq_sharded else g.all_reduce(out)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 logits, the head cast to float32 as in the reference
         (with TF32 off, PyTorch's default for matmuls, so the product stays
-        float32 on the card)."""
+        float32 on the card); on a rank, h is whole and so are the logits,
+        gathered over the vocabulary."""
         w = self.table.T if self.tie else self.head
-        return h.to(torch.float32) @ w.to(torch.float32)
+        out = h.to(torch.float32) @ w.to(torch.float32)
+        cut = self.split("table" if self.tie else "head")
+        return self.tp_group.all_gather(out, -1) if cut else out
 
 
 def chunked_ce_loss(embedding: Embedding, h: torch.Tensor,

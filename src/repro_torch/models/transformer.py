@@ -26,6 +26,16 @@ Entry points:
     normed input, as ``prefill`` and ``decode_step`` run it, for a
     comparison layer by layer.
 
+On a rank of a (1, tp) mesh (``group``; dense family only) the layers
+hold their blocks by the reference's pspecs (``models.common.Topo``).
+``prefill`` keeps the residual stream sharded over the sequence (whole
+when tp does not divide the prompt, the reference's fallback to
+replication), gathers the last position's normed row from the rank that
+holds it and returns the logits and the caches whole on every rank.
+``decode_step`` keeps the residual whole and reads caches sharded over the
+sequence when the engine passes their length (``cache_len``), each rank
+holding its run.
+
 The vlm's cross-attention sublayer (the last layer of each period of
 ``cross_attn_period``) is gated: its output times ``tanh(gate)``, taken in
 float32 and cast to the output's dtype; the gate is zero at init, as in the
@@ -41,8 +51,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, MLAttention
-from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamStore,
-                                       Topo, init_param_, maybe_remat)
+from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
+                                       ParamStore, Topo,
+                                       init_param_, maybe_remat)
 from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
@@ -70,12 +81,15 @@ class SubLayer(nn.Module):
 
 
 def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor,
-                   memory: torch.Tensor | None = None):
+                   memory: torch.Tensor | None = None,
+                   seq_sharded: bool = False):
     """One sublayer's block on its normed input over a prompt (a cross
     block over ``memory``): ``(out, its cache entry)``, the entry ``None``
-    for a MoE or MLP block; a gated block's output is gated."""
+    for a MoE or MLP block; a gated block's output is gated.  On a rank,
+    ``seq_sharded``: x and out are the rank's run of the sequence."""
     if sub.kind in ("attn", "cross"):
-        out, (k, v) = sub.core(x, positions, return_kv=True, memory=memory)
+        out, (k, v) = sub.core(x, positions, return_kv=True, memory=memory,
+                               seq_sharded=seq_sharded)
         return sub.gate_out(out), {"k": k, "v": v}
     if sub.kind == "mla":
         out, (ckv, krope) = sub.core(x, positions, return_kv=True)
@@ -85,17 +99,18 @@ def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor,
         return out, {"state": state, "conv": conv}
     if sub.kind == "moe":
         return sub.core(x)[0], None
-    return sub.core(x), None
+    return sub.core(x, seq_sharded=seq_sharded), None
 
 
 def decode_sublayer(sub: SubLayer, x: torch.Tensor, t: int,
-                    entry: dict) -> torch.Tensor:
+                    entry: dict, lo: int | None = None) -> torch.Tensor:
     """One sublayer's block on its normed input at decode position ``t``;
     ``entry`` holds this period's cache slices, written in place (a cross
-    block's only read)."""
+    block's only read); on a rank, positions [lo, ...) of a
+    sequence-sharded cache (``lo`` None: the whole cache)."""
     if sub.kind in ("attn", "cross"):
-        return sub.gate_out(sub.core.decode(x, t, entry["k"],
-                                            entry["v"])[0])
+        return sub.gate_out(sub.core.decode(x, t, entry["k"], entry["v"],
+                                            lo)[0])
     if sub.kind == "mla":
         return sub.core.decode(x, t, entry["ckv"], entry["krope"])[0]
     if sub.kind == "mamba":
@@ -123,8 +138,9 @@ def _moe_placement(cfg: ModelConfig, topo: Topo, kind: str) -> str:
 
 
 def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
-                 dtype=None) -> tuple[list[SubLayer], int]:
-    """Sublayers of one period + number of periods."""
+                 dtype=None, group=None) -> tuple[list[SubLayer], int]:
+    """Sublayers of one period + number of periods; with a ``group``, a
+    dense period's blocks on that rank."""
     layout = _attn_layout(cfg, topo, kind)
     if cfg.family == "hybrid":
         period_len = cfg.attn_period
@@ -165,7 +181,8 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                 f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim, layout=layout, rope_theta=cfg.rope_theta,
                 use_rope=cfg.rope_theta > 0, qkv_bias=cfg.qkv_bias,
-                out_bias=cfg.attn_out_bias, device=device, dtype=dtype)))
+                out_bias=cfg.attn_out_bias, device=device, dtype=dtype,
+                topo=topo, group=group)))
         # ---- vlm cross-attention on the last layer of each period ----
         if cfg.family == "vlm" and j == period_len - 1:
             n = f"l{j}_cross"
@@ -188,7 +205,8 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
             n = f"l{j}_mlp"
             subs.append(SubLayer(n, "mlp", norm(n), Mlp(
                 f"{n}/core", cfg.d_model, cfg.d_ff, cfg.mlp_activation,
-                device=device, dtype=dtype)))
+                zero3=kind != "decode", device=device, dtype=dtype,
+                topo=topo, group=group)))
     return subs, cfg.num_layers // period_len
 
 
@@ -208,13 +226,45 @@ class ModelBase(nn.Module):
                 store.add(f"{mod_name}.{path}" if mod_name else path, d)
         return store
 
+    def blocks(self) -> dict[str, tuple[slice, ...]]:
+        """Every parameter's index into its whole tensor, by state-dict
+        name (the whole tensor off a rank)."""
+        out = {}
+        for mod_name, mod in self.named_modules():
+            for path, d in getattr(mod, "defs", {}).items():
+                name = f"{mod_name}.{path}" if mod_name else path
+                out[name] = mod.block(path) \
+                    if getattr(mod, "tp_group", None) is not None \
+                    else tuple(slice(0, n) for n in d.shape)
+        return out
+
     @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> None:
-        """Seeded init in place, parameters in sorted name order."""
+    def init_params(self, generator: torch.Generator,
+                    decode: "ModelBase | None" = None) -> None:
+        """Seeded init in place, parameters in sorted name order.  A
+        parameter that holds a rank's block is drawn whole on the
+        generator's device, as one device draws it, and its block kept, so
+        every rank keeps blocks of the same tensors; ``decode`` (the same
+        parameters in the decode layout, the engine's decode model) keeps
+        its blocks from the same draw, where it does not share the
+        tensor."""
         params = dict(self.named_parameters())
         defs = self.param_defs().defs
+        blocks = self.blocks()
+        if decode is not None:
+            dec_params, dec_blocks = dict(decode.named_parameters()), \
+                decode.blocks()
         for name in sorted(params):
-            init_param_(params[name], defs[name], generator)
+            p, d = params[name], defs[name]
+            if tuple(p.shape) == d.shape and decode is None:
+                init_param_(p, d, generator)
+                continue
+            whole = init_param_(torch.empty(d.shape, dtype=p.dtype,
+                                            device=generator.device),
+                                d, generator)
+            p.copy_(whole[blocks[name]])
+            if decode is not None and dec_params[name] is not p:
+                dec_params[name].copy_(whole[dec_blocks[name]])
 
 
 class LM(ModelBase):
@@ -224,25 +274,52 @@ class LM(ModelBase):
     bfloat16); ``None`` keeps the defs' own."""
 
     def __init__(self, cfg: ModelConfig, topo: Topo = ONE_DEVICE,
-                 kind: str = "prefill", *, device="cuda", dtype=None):
+                 kind: str = "prefill", *, device="cuda", dtype=None,
+                 group=None):
         super().__init__()
         if kind not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown kind {kind!r}")
         dev = resolve_device(device)
         self.cfg, self.topo, self.kind = cfg, topo, kind
+        self.group = group = rank_group(cfg, topo, group)
         period, self.n_periods = build_period(cfg, topo, kind, device=dev,
-                                              dtype=dtype)
+                                              dtype=dtype, group=group)
         self.period_kinds = [(s.name, s.kind) for s in period]
         layers = [nn.ModuleDict({s.name: s for s in period})]
         for _ in range(self.n_periods - 1):
-            sub, _ = build_period(cfg, topo, kind, device=dev, dtype=dtype)
+            sub, _ = build_period(cfg, topo, kind, device=dev, dtype=dtype,
+                                  group=group)
             layers.append(nn.ModuleDict({s.name: s for s in sub}))
         self.layers = nn.ModuleList(layers)
         self.embed = Embedding("embed", cfg.padded_vocab, cfg.d_model,
                                tie=cfg.tie_embeddings, device=dev,
-                               dtype=dtype)
+                               dtype=dtype, topo=topo, group=group)
         self.final_norm = Norm("final_norm", cfg.d_model, cfg.norm_type,
                                cfg.norm_eps, device=dev, dtype=dtype)
+
+    def _runs(self) -> None:
+        """Raise unless this model can run: a layout over several devices
+        runs on one of its ranks (a model built without the group holds
+        whole tensors and only describes the layout)."""
+        n = self.topo.axis_size("all")
+        if n > 1 and self.group is None:
+            raise ValueError(f"{self.cfg.name}: laid out over {n} devices; "
+                             f"build it with the group of one rank to run "
+                             f"it")
+
+    def seq_sharded(self, n: int) -> bool:
+        """A length-n sequence (a prompt, a cache) is cut over the ranks:
+        on a rank, when tp divides n."""
+        return self.group is not None and \
+            self.topo.resolve("seq_tp", n) is not None
+
+    def cache_start(self, cache_len: int | None) -> int | None:
+        """The first position of this rank's run of a sequence-sharded
+        cache of ``cache_len`` positions, or None where it holds the cache
+        whole."""
+        if cache_len is None or not self.seq_sharded(cache_len):
+            return None
+        return self.group.rank * (cache_len // self.group.size)
 
     # ------------------------------------------------------------------
     def _memory(self, batch: dict) -> torch.Tensor | None:
@@ -252,11 +329,13 @@ class LM(ModelBase):
                                                         device=self.device)
 
     def _apply_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
-                     positions: torch.Tensor, memory=None):
+                     positions: torch.Tensor, memory=None,
+                     seq_sharded: bool = False):
         kvs = {}
         for name, _ in self.period_kinds:
             sub = layer[name]
-            out, kv = apply_sublayer(sub, sub.norm(h), positions, memory)
+            out, kv = apply_sublayer(sub, sub.norm(h), positions, memory,
+                                     seq_sharded)
             if kv is not None:
                 kvs[name] = kv
             h = h + out
@@ -291,6 +370,9 @@ class LM(ModelBase):
         the MoE layers' summed load-balancing loss}), float32 scalars with
         their graph."""
         cfg = self.cfg
+        if self.group is not None:
+            raise NotImplementedError(f"sharded training {NOT_RUN}")
+        self._runs()
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         h = self.embed.embed(tokens)
@@ -313,17 +395,23 @@ class LM(ModelBase):
         (n_periods, b, s, KV, dh)} (a cross layer's over m),
         {"ckv": (n_periods, b, s, lora), "krope": (n_periods, b, s, rope)}
         or {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
-        di)}})."""
+        di)}}).  On a rank both are whole."""
+        self._runs()
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        h = self.embed.embed(tokens)
+        seq = self.seq_sharded(tokens.shape[1])
+        h = self.embed.embed(tokens, seq)
         positions = torch.arange(tokens.shape[1], device=self.device)
         memory = self._memory(batch)
         per_layer = []
         for layer in self.layers:
-            h, kvs = self._apply_layer(layer, h, positions, memory)
+            h, kvs = self._apply_layer(layer, h, positions, memory, seq)
             per_layer.append(kvs)
         h = self.final_norm(h)
-        logits = self.embed.logits(h[:, -1])
+        last = h[:, -1]
+        if seq:                  # the last position is the last rank's
+            last = self.group.broadcast(last.contiguous(),
+                                        self.group.size - 1)
+        logits = self.embed.logits(last)
         caches = {name: {key: torch.stack([kv[name][key] for kv in per_layer])
                          for key in entry}
                   for name, entry in per_layer[0].items()}
@@ -340,9 +428,14 @@ class LM(ModelBase):
                     torch.promote_types(conv.dtype, dtype))
 
     @torch.no_grad()
-    def decode_step(self, caches: dict, tokens: torch.Tensor, t: int):
+    def decode_step(self, caches: dict, tokens: torch.Tensor, t: int,
+                    cache_len: int | None = None):
         """tokens (b,) at position t -> (logits (b, padded_vocab) float32,
-        caches updated in place)."""
+        caches updated in place).  On a rank, ``cache_len`` is the whole
+        caches' length, of which a cache that tp divides holds the rank's
+        run (``cache_start``); without it the caches are whole."""
+        self._runs()
+        lo = self.cache_start(cache_len)
         h = self.embed.embed(torch.as_tensor(tokens,
                                              device=self.device).long())
         self.promote_conv(caches, h.dtype)
@@ -350,7 +443,7 @@ class LM(ModelBase):
             for name, _ in self.period_kinds:
                 sub = layer[name]
                 entry = {key: c[i] for key, c in caches.get(name, {}).items()}
-                h = h + decode_sublayer(sub, sub.norm(h), t, entry)
+                h = h + decode_sublayer(sub, sub.norm(h), t, entry, lo)
         h = self.final_norm(h)
         return self.embed.logits(h), caches
 
@@ -385,3 +478,42 @@ class LM(ModelBase):
                     "conv": ((n, batch, cfg.ssm_conv - 1, cfg.d_inner),
                              torch.bfloat16)}
         return out
+
+    def cache_pspecs(self, batch: int, seq: int) -> dict:
+        """The reference's ``cache_pspecs``: each cache's pspec under
+        ``topo``, congruent with ``cache_shape_structs``."""
+        return {name: {key: self.topo.pspec(CACHE_AXES[key], shape)
+                       for key, (shape, _) in entry.items()}
+                for name, entry in self.cache_shape_structs(batch,
+                                                            seq).items()}
+
+
+#: the logical axes of each cache (stacked over periods), as the
+#: reference's ``cache_pspecs`` names them
+CACHE_AXES = {
+    "k": (None, "batch", "seq_tp", None, None),
+    "v": (None, "batch", "seq_tp", None, None),
+    "ckv": (None, "batch", "seq_tp", None),
+    "krope": (None, "batch", "seq_tp", None),
+    "state": (None, "batch", "tp", None),
+    "conv": (None, "batch", None, "tp"),
+}
+
+
+def rank_group(cfg: ModelConfig, topo: Topo, group):
+    """The group a model of ``cfg`` runs its rank in: None on one device
+    (a group of one rank included), else ``group``, checked against the
+    mesh; a mesh with data > 1 or a family other than dense over several
+    ranks raises ``NotImplementedError``."""
+    if group is None:
+        return None
+    tp = topo.tp
+    if group.size != tp:
+        raise ValueError(f"a group of {group.size} ranks for a mesh of "
+                         f"tp = {tp}")
+    if tp == 1:
+        return None
+    if cfg.family != "dense" or cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) over {tp} "
+                                  f"ranks {NOT_RUN}")
+    return group

@@ -1,0 +1,107 @@
+"""``DistGroup`` (gloo processes started by ``parallel.spawn``) against
+``LocalGroup`` (threads): the same collectives and the same tp = 2
+serving of a reduced command-r-35b.
+
+This file imports neither JAX nor the reference, so the spawned ranks,
+which import it to find their function, start in about three seconds.
+``spawn`` takes its rendezvous port from the OS (the suite runs on several
+workers at once), has its own time limit, and joins or kills every process
+before it returns.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.configs.base import MeshConfig
+from repro_torch.models.common import Topo
+from repro_torch.models.parallel import run_local, spawn
+from repro_torch.serve import ServeEngine
+
+CFG = ARCHS["command-r-35b"].reduced(num_layers=2)
+TOKENS = np.random.default_rng(4).integers(
+    0, CFG.vocab_size, (2, 16)).astype(np.int32)
+
+
+def collectives(group) -> dict:
+    """Each collective once, on tensors that differ by rank."""
+    r = group.rank
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4) * (r + 1)
+    wide = torch.arange(24, dtype=torch.float32).reshape(3, 8) + r
+    return {"sum": group.all_reduce(x.clone()),
+            "max": group.all_reduce(-x, "max"),
+            "gather0": group.all_gather(x, 0),
+            "gather1": group.all_gather(x, 1),
+            "scatter1": group.reduce_scatter(wide, 1),
+            "broadcast": group.broadcast(x.clone() if r == 1
+                                         else torch.zeros(3, 4), 1)}
+
+
+def ranks_run(group) -> dict:
+    """The collectives, then a float32 engine on this rank (the seeded
+    init): prefill logits, 2 greedy steps' logits, the ids."""
+    out = collectives(group)
+    eng = ServeEngine(CFG, max_len=40, device="cpu", dtype=torch.float32,
+                      topo=Topo(MeshConfig((1, group.size),
+                                           ("data", "model"))),
+                      group=group)
+    eng.init_params(0)
+    logits, caches = eng.model.prefill({"tokens": TOKENS})
+    out["logits"] = [logits]
+    caches = eng._pad_caches(caches, 2)
+    for i in range(2):
+        nxt = logits[:, :CFG.vocab_size].argmax(-1)
+        logits, caches = eng.decode_model.decode_step(caches, nxt, 16 + i,
+                                                      cache_len=40)
+        out["logits"].append(logits)
+    out["ids"] = eng.generate({"tokens": TOKENS}, 3)
+    return out
+
+
+def test_dist_group_over_gloo_equals_the_threads():
+    procs = spawn(ranks_run, 2, "gloo", timeout=120.0)
+    threads = run_local(ranks_run, 2)
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    for r, (p, t) in enumerate(zip(procs, threads)):
+        for key in ("sum", "max", "gather0", "gather1", "scatter1",
+                    "broadcast"):
+            assert torch.equal(p[key], t[key]), (r, key)
+        assert torch.equal(t["sum"], 3 * x)
+        assert torch.equal(t["max"], -x)
+        assert torch.equal(t["gather0"], torch.cat([x, 2 * x], 0))
+        assert torch.equal(t["gather1"], torch.cat([x, 2 * x], 1))
+        wide = torch.arange(24, dtype=torch.float32).reshape(3, 8)
+        assert torch.equal(t["scatter1"], (2 * wide + 1)[:, 4 * r:4 * r + 4])
+        assert torch.equal(t["broadcast"], 2 * x)
+        for a, b in zip(p["logits"], t["logits"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(p["ids"], t["ids"])
+    np.testing.assert_array_equal(procs[0]["ids"], procs[1]["ids"])
+
+
+def test_the_launcher_serves_over_threads_as_on_one_device(capsys,
+                                                            monkeypatch):
+    """``launch.serve --tp 2 --group local --device cpu`` prints the ids
+    of ``--tp 1``; ``--tp`` without ``--group`` is refused; ``check_fits``
+    counts a rank's blocks of both layouts."""
+    from repro_torch.launch import serve
+
+    def run(*extra):
+        monkeypatch.setattr("sys.argv", [
+            "serve", "--arch", "command-r-35b", "--smoke", "--device",
+            "cpu", "--tokens", "4", *extra])
+        serve.main()
+        out = capsys.readouterr().out
+        return out[:out.index("prefill_tokens")]
+
+    assert run("--tp", "2", "--group", "local") == run()
+    with pytest.raises(SystemExit, match="--group"):
+        run("--tp", "2")
+    full = serve.rank_weight_bytes(CFG)
+    rank = serve.rank_weight_bytes(CFG, 4)
+    # a quarter of the weights, and the decode layout's attention blocks
+    assert full / 4 < rank < full / 4 * 1.5
+    with pytest.raises(ValueError, match="do not fit"):
+        serve.check_fits(CFG, torch.device("cpu"), 4,
+                         ranks_per_device=10**9)
