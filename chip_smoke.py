@@ -4,8 +4,8 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21, 22 and 23 run
-last, after phase 11):
+16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21, 22, 23 and 24
+run last, after phase 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -67,7 +67,11 @@ last, after phase 11):
      deepseek's 5120, MLA's latent 512 and ``train_lm_torch``'s 640 over
      4000, 2048, 4 and 1 rows, and command-r-35b's 8192 over 4000, 1000, 4
      and 1 rows (one card's and a phase-23 rank's prefill, decode),
-     with and without pdl) against their plain versions on the card; times
+     with and without pdl), and ``ssm_scan`` at phase 24's shapes
+     (jamba-1.5-large-398b's d_inner 16384 on one card and a rank's 4096,
+     d_state 16: the (4, 1000) prefill with bf16 x, and a decode step with
+     float32 and bf16 x advancing the state in place) against their plain
+     versions on the card; times
      each kernel, its plain version and the one PyTorch call that computes
      the same function (``scaled_dot_product_attention``, ``rms_norm``) at
      the serving path's shapes (flash at (4, 1000), (4, 1024) and (1, 2048),
@@ -343,7 +347,29 @@ last, after phase 11):
      1 ``rmsnorm`` a forward (counted on the rank alone,
      ``build.rank_counts``); each rank's first-token ms, decode ms/step
      (median and spread), weights and peak GiB, and the bytes each
-     collective took in a prefill and a decode step are printed.
+     collective took in a prefill and a decode step are printed;
+ 24. tensor-parallel MoE and Mamba serving — jamba-1.5-large-398b at full
+     width (d_model 8192, 64 / 8 heads, d_inner 16384, 16 experts top 2,
+     d_ff 24576) over a (1, 4) mesh, phase 23's path on its other blocks:
+     the MoE's ``ep`` experts in prefill and ``ep_decode``'s d_ff columns in
+     decode, the Mamba layers cut over their channels.  With 4 cards or
+     more, 4 NCCL processes serve one whole published period (8 layers: 7
+     Mamba + 1 attention, 4 MoE + 4 MLP; 90.5 GB in bfloat16, ~42 GB a
+     rank); with fewer, 4 threads on the cards there are serve 2 of the 72
+     layers at the reduction's interleave (layer 0 Mamba + MLP, layer 1
+     attention + MoE).  Either way the 4 ranks on those 2 layers are held
+     to the unsharded model on one card as in phase 23, the MoE routings
+     recorded on both: every rank routes alike, the MoE inputs stay
+     within ``LM_TOL[bf16]`` of one card's, a token the ranks route
+     otherwise must be a near tie (one card's margin within the router
+     noise those inputs cause), and only a row whose token was so
+     rerouted may leave
+     ``LM_TOL[bf16]`` or part its greedy ids (``tp_routes_part``); every
+     rank launches exactly one ``flash_attention`` per attention layer and
+     prefill, one ``ssm_scan`` per Mamba layer and forward and one
+     ``rmsnorm`` per sublayer and forward plus the final one
+     (``tp_launches``); the same times, memory and collectives as phase 23
+     are printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -363,7 +389,7 @@ expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
 ``--dryrun-only`` builds them and runs phase 21 alone; ``--tail-only``
 builds them and runs phase 22 alone; ``--tp-only`` builds them and runs
-phase 23 alone; ``--out DIR`` writes
+phases 23 and 24 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -1421,14 +1447,15 @@ F32_EDGES = (
 
 
 def lm_kernel_phase(dev, flush, card: str) -> dict:
-    """Both LM kernels against their plain versions, then timings of the
-    kernel, the plain version and the library call at the serving path's
-    shapes (launches made here do not count)."""
+    """Both LM kernels against their plain versions (and ``ssm_scan`` at
+    phase 24's shapes), then timings of the kernel, the plain version and
+    the library call at the serving path's shapes (launches made here do
+    not count)."""
     import torch.nn.functional as F
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import (build, flash_attention,
                                      flash_attention_plain, rmsnorm,
-                                     rmsnorm_plain)
+                                     rmsnorm_plain, ssm_scan, ssm_scan_plain)
     cfg = ARCHS[GLM]
     H, KV, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     report = build_report("flash_attention", ("HGMMA",) + F32_SASS_OPS)
@@ -1552,6 +1579,33 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         log(f"rmsnorm check d={dw} bf16 (rows "
             f"{', '.join(map(str, rows))}; pdl on and off): max|err| "
             f"{w_err:.3e} vs plain")
+    # ssm_scan at phase 24's shapes, as the Mamba block calls it: a rank's
+    # d_inner / 4 channels and one card's d_inner of jamba-1.5-large-398b,
+    # the 4 x 1000 prefill (x bf16, dt float32, no skip term) and a decode
+    # step (x float32, as the block passes it, and bf16; D, the state
+    # advanced in place)
+    jcfg = ARCHS[JAMBA]
+    scan_err = 0.0
+    for di in (jcfg.d_inner // TP, jcfg.d_inner):
+        ds = jcfg.ssm_state
+        cases = [(TP_REQUEST[0], TP_REQUEST[1], torch.bfloat16, False),
+                 (TP_REQUEST[0], 1, torch.float32, True),
+                 (TP_REQUEST[0], 1, torch.bfloat16, True)]
+        for i, (b, s, xdt, decode) in enumerate(cases):
+            args, h0 = scan_inputs(dev, b, s, di, ds, xdt, torch.float32,
+                                   60 + i, h0=decode)
+            if not decode:
+                args[5] = None
+            y_p, h_p = ssm_scan_plain(*args, h0=h0)
+            state = h0.clone() if decode else None
+            y, h = ssm_scan(*args, h0=state, h_out=state)
+            torch.cuda.synchronize()
+            what = (f"ssm_scan ({b}, {s}, {di}, {ds}) x {xdt} "
+                    f"{'decode, state in place' if decode else 'prefill'}")
+            e_y = close(y, y_p, SSM_TOL[xdt], f"{what}: y")
+            e_h = close(h, h_p, SSM_TOL[torch.float32], f"{what}: h_last")
+            scan_err = max(scan_err, e_y, e_h)
+            log(f"{what}: max|err| y {e_y:.3e}, h_last {e_h:.3e} vs plain")
 
     # timings at the serving path's prefill shapes (glm4-9b's, granite's,
     # the vlm's and whisper's): the kernel, the plain version and
@@ -1610,7 +1664,8 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         f"{rn['one_row_ms']:.4f} ms, rms_norm {rn['one_row_library_ms']:.4f}"
         f" ms")
     build.LAUNCHES.update(before)          # check/timing launches do not count
-    return {"flash_attention": fa, "rmsnorm": rn}
+    return {"flash_attention": fa, "rmsnorm": rn,
+            "ssm_scan_tp": dict(err=scan_err)}
 
 
 DECODE_PAIRS = 81                # rmsnorm launches in one glm4-9b forward
@@ -5483,21 +5538,132 @@ def tail_phase(dev, card: str, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 23: tensor-parallel dense serving over a (1, 4) mesh
+# phases 23 and 24: tensor-parallel serving over a (1, 4) mesh
 # ---------------------------------------------------------------------------
 TP = 4
 TP_ARCH = "command-r-35b"
 TP_CHECK_LAYERS = 8        # the comparison with one card: 8 of 40 layers
 TP_REQUEST = (4, 1000)     # (batch, prompt tokens)
 TP_STEPS = 8               # teacher-forced decode steps held to one card
+# phase 24: jamba-1.5-large-398b at full width.  One card holds the check
+# model, 2 of 72 layers at the reduction's interleave (layer 0 Mamba + MLP,
+# layer 1 attention + MoE: 11.91 B parameters); four cards serve one whole
+# published period (8 layers: 7 Mamba + 1 attention, 4 MoE + 4 MLP, 45.24
+# B parameters, 90.5 GB in bfloat16)
+TP_HYBRID_ARCH = JAMBA
+TP_HYBRID_CHECK = dict(num_layers=2, attn_period=2)
+TP_HYBRID_SERVE_LAYERS = 8
 
 
-def tp_launches(layers: int, prefills: int, forwards: int) -> dict:
-    """What a rank of a dense model dictates: one flash launch per layer
-    and prefill (on the rank's heads), one rmsnorm per norm (two a layer
-    and the final one) and forward (on the rank's rows)."""
-    return {"flash_attention": layers * prefills,
-            "rmsnorm": (2 * layers + 1) * forwards}
+def tp_launches(cfg, prefills: int, forwards: int) -> dict:
+    """What a rank of ``cfg`` dictates: one flash launch per attention
+    layer and prefill (on the rank's heads), one ``ssm_scan`` per Mamba
+    layer and forward (on the rank's channels), one rmsnorm per norm (one a
+    sublayer and the final one) and forward (on the rank's rows)."""
+    layers = range(cfg.num_layers)
+    attn = sum(cfg.is_attn_layer(j) for j in layers)
+    norms = sum(1 + bool(cfg.is_moe_layer(j) or cfg.d_ff) for j in layers)
+    return {"flash_attention": attn * prefills,
+            "rmsnorm": (norms + 1) * forwards,
+            "ssm_scan": (cfg.num_layers - attn) * forwards}
+
+
+@contextlib.contextmanager
+def routes_of(models):
+    """Every MoE routing the blocks of ``models`` make while open, in call
+    order, on the host: each token's input (T, d), its experts (T, k),
+    whether each choice reached its expert, its router probabilities
+    (T, E) and the group size."""
+    from repro_torch.models.moe import MoE
+    got, patched = [], {}
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, MoE) and id(m) not in patched:
+                def route(xg, _m=m, _orig=m._route):
+                    r = _orig(xg)
+                    k, E = r.topi.shape[-1], _m.num_experts
+                    got.append(dict(
+                        S=xg.shape[1], x=xg.reshape(-1, xg.shape[-1]).cpu(),
+                        topi=r.topi.reshape(-1, k).cpu(),
+                        dispatched=r.dispatched.reshape(-1, k).cpu(),
+                        probs=_m._probs(xg).reshape(-1, E).cpu()))
+                    return r
+                m._route = route
+                patched[id(m)] = m
+    try:
+        yield got
+    finally:
+        for m in patched.values():
+            del m._route
+
+
+def route_digest(routes: list) -> list:
+    """The routings as bytes, to show that the ranks route alike."""
+    return [r["topi"].numpy().tobytes() + r["dispatched"].numpy().tobytes()
+            for r in routes]
+
+
+def tp_routes_part(one: list, ranks: list, forwards: int) -> list:
+    """Per forward (prefill, then each decode step), the tokens whose MoE
+    routing on the ranks parted from one card's: a (T,) host mask over the
+    forward's tokens (row-major), the flips, the largest share of
+    ``LM_TOL[bf16]`` by which the MoE inputs differ, which must be at most
+    1, and the router's noise: the largest change, over a call's tokens,
+    of the difference of two experts' probabilities, which the inputs'
+    differences within that tolerance cause.  A token whose experts differ
+    must be a near tie: one card's margin (the least gap between
+    neighbouring router probabilities among its first k + 1) within the
+    noise of its call; a token whose experts are the same but whose
+    choices reached their experts differently must share its group with
+    such a flip (a capacity slot moved).  The model's MoE blocks run in
+    the same order on both, ``len(one) // forwards`` a forward."""
+    if len(one) != len(ranks) or len(one) % forwards:
+        raise AssertionError(f"{len(one)} MoE routings on one card, "
+                             f"{len(ranks)} on the ranks, {forwards} "
+                             f"forwards")
+    tol = LM_TOL[torch.bfloat16]
+    per = len(one) // forwards
+    out = []
+    for f in range(forwards):
+        mask, flips, share, noise = None, [], 0.0, 0.0
+        for i in range(f * per, (f + 1) * per):
+            a, w = ranks[i], one[i]
+            xa, xw = a["x"].float(), w["x"].float()
+            share = max(share, float(((xa - xw).abs() / (
+                tol["atol"] + tol["rtol"] * xw.abs())).max()))
+            if share > 1.0:
+                raise AssertionError(
+                    f"MoE call {i} (forward {f}): the ranks' input parts "
+                    f"from one card's by {share:.3f} of LM_TOL[bf16]")
+            d = a["probs"] - w["probs"]
+            reach = float((d.amax(-1) - d.amin(-1)).max())
+            noise = max(noise, reach)
+            v = torch.sort(w["probs"], dim=-1, descending=True).values
+            k = w["topi"].shape[-1]
+            margin = (v[:, :k] - v[:, 1:k + 1]).min(-1).values
+            flip = (a["topi"] != w["topi"]).any(-1)
+            moved = (a["dispatched"] != w["dispatched"]).any(-1)
+            S = w["S"]
+            for t in torch.nonzero(flip)[:, 0].tolist():
+                flips.append(dict(forward=f, call=i, token=t,
+                                  one_card_margin=float(margin[t]),
+                                  noise=reach))
+                if margin[t] > reach:
+                    raise AssertionError(
+                        f"MoE token {t} of forward {f} routes differently on "
+                        f"the ranks, one card's margin {margin[t]:.3e} "
+                        f"beyond the router's noise {reach:.3e}")
+            groups = set((torch.nonzero(flip)[:, 0] // S).tolist())
+            for t in torch.nonzero(moved & ~flip)[:, 0].tolist():
+                if t // S not in groups:
+                    raise AssertionError(
+                        f"MoE token {t} of forward {f}: its slots differ on "
+                        f"the ranks with no flip in its group")
+            hit = flip | moved
+            mask = hit if mask is None else mask | hit
+        out.append(dict(mask=mask, flips=flips, input_share=share,
+                        noise=noise))
+    return out
 
 
 def tp_teacher_forced(engine, tokens: np.ndarray, ids: np.ndarray,
@@ -5518,26 +5684,31 @@ def tp_teacher_forced(engine, tokens: np.ndarray, ids: np.ndarray,
 
 def tp_one_card(dev, cfg, tokens: np.ndarray) -> dict:
     """The unsharded model on one card with the seeded init: its greedy
-    ids (``TP_STEPS``), then the prefill and those ids fed back."""
+    ids (``TP_STEPS``), then the prefill and those ids fed back, with its
+    MoE routings and their margins."""
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg, max_len=tokens.shape[1] + NEW_TOKENS + 4,
                       device=dev)
     eng.init_params(0)
     ids = eng.generate({"tokens": tokens}, TP_STEPS)
-    out = dict(tp_teacher_forced(eng, tokens, ids), ids=ids)
+    with routes_of([eng.model]) as routes:
+        out = dict(tp_teacher_forced(eng, tokens, ids), ids=ids)
+    out["routes"] = routes
     del eng
     torch.cuda.empty_cache()
     return out
 
 
 def tp_greedy_flips(ids: np.ndarray, want: np.ndarray, logits: list,
-                    want_logits: list) -> list:
+                    want_logits: list, rerouted: set = frozenset()) -> list:
     """The ranks' greedy ids against one card's, row by row up to the
     first that differs (the sequences part there): at that step the
     ranks' own logits must prefer the ranks' token, and one card's
     preference for its token must be no more than the two logit rows'
     difference at those two tokens (the rounding of another order decides
-    such a tie either way); every other id equal.  ``logits[k]`` are the
+    such a tie either way), unless the row's token was routed to other MoE
+    experts at a proven near tie there (``rerouted``: (row, step) pairs,
+    ``tp_routes_part``); every other id equal.  ``logits[k]`` are the
     ranks' logits that chose token k, ``want_logits[k]`` one card's, on
     one card's ids in both.  Returns the flips."""
     flips = []
@@ -5553,8 +5724,9 @@ def tp_greedy_flips(ids: np.ndarray, want: np.ndarray, logits: list,
         reach = abs(float(d[theirs] - d[mine]))
         flip = dict(row=row, step=k, one_card=theirs, ranks=mine, gap=gap,
                     logit_diff=reach,
-                    ranks_prefer=float(a[mine] - a[theirs]))
-        if gap > reach or a[mine] < a[theirs]:
+                    ranks_prefer=float(a[mine] - a[theirs]),
+                    rerouted=(row, k) in rerouted)
+        if not flip["rerouted"] and (gap > reach or a[mine] < a[theirs]):
             raise AssertionError(f"greedy ids part at a token that is not a"
                                  f" near tie: {json.dumps(flip)}")
         flips.append(flip)
@@ -5563,14 +5735,16 @@ def tp_greedy_flips(ids: np.ndarray, want: np.ndarray, logits: list,
 
 def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
             ids: np.ndarray, new_tokens: int) -> dict:
-    """One rank of phase 23 (a thread of a ``LocalGroup`` or a process of
-    an NCCL group): ``cfg_check`` with the seeded init (the rank's blocks
-    of the tensors one card draws), its prefill and ``ids`` fed back, then
-    ``generate``'s greedy ids; then one request of ``tokens``' shape and
-    ``new_tokens`` through ``generate`` on ``cfg_serve`` (``None``: the check model
-    again), timed step by step, with the launches of each part counted on
-    this rank alone, and the bytes each collective took in its prefill
-    and in one decode step."""
+    """One rank of phase 23 or 24 (a thread of a ``LocalGroup`` or a
+    process of an NCCL group): ``cfg_check`` with the seeded init (the
+    rank's blocks of the tensors one card draws), its prefill and ``ids``
+    fed back (its MoE routings kept: whole on rank 0, as a digest on the
+    others), then ``generate``'s greedy ids; then one request of
+    ``tokens``' shape and ``new_tokens`` through ``generate`` on
+    ``cfg_serve`` (``None``: the check model again), timed step by step,
+    with the launches of each part counted on this rank alone, and the
+    calls and bytes of each collective in its prefill and in one decode
+    step."""
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import tp_mesh
     from repro_torch.models.common import Topo
@@ -5592,10 +5766,14 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
 
     eng, init_s = engine(cfg_check)
     with build.rank_counts() as launches:
-        check = tp_teacher_forced(eng, tokens, ids, cache_len=max_len)
+        with routes_of([eng.model, eng.decode_model]) as routes:
+            check = tp_teacher_forced(eng, tokens, ids, cache_len=max_len)
         check["ids"] = eng.generate({"tokens": tokens}, ids.shape[1])
-    check.update(launches=dict(launches), init_s=init_s)
-    if group.rank != 0:          # rank 0 brings the logits; the rest agree
+    check.update(launches=dict(launches), init_s=init_s,
+                 route_digest=route_digest(routes))
+    if group.rank == 0:          # rank 0 brings the logits and routings
+        check["routes"] = routes
+    else:                        # the rest agree with them
         check["digest"] = [float(x.double().sum()) for x in
                            check.pop("logits")]
     out["check"] = check
@@ -5642,36 +5820,37 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
     return out
 
 
-def tp_phase(dev, card: str) -> dict:
-    """Phase 23: command-r-35b served over a (1, 4) mesh.  With 4 cards or
-    more, 4 NCCL processes (one a card) serve all 40 layers; with fewer,
-    the 4 ranks are ``LocalGroup`` threads on the cards there are, over 8
-    of the 40 layers.  Either way the 4 ranks on 8 of 40 layers are held to
-    the unsharded model on one card with the same seeded weights: prefill
-    logits and ``TP_STEPS`` teacher-forced steps within ``LM_TOL[bf16]``,
-    greedy ids equal but at near ties (``tp_greedy_flips``); and every
+def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
+               cfg_serve) -> dict:
+    """Phase 23 or 24: ``cfg`` served over a (1, 4) mesh.  With 4 cards or
+    more, 4 NCCL processes (one a card) serve ``cfg_serve``; with fewer,
+    the 4 ranks are ``LocalGroup`` threads on the cards there are and serve
+    ``cfg_check`` again.  Either way the 4 ranks on ``cfg_check`` are held
+    to the unsharded model on one card with the same seeded weights:
+    prefill logits and ``TP_STEPS`` teacher-forced steps within
+    ``LM_TOL[bf16]`` (a row whose token the ranks routed to other MoE
+    experts than one card at a proven near tie excepted,
+    ``tp_routes_part``), greedy ids equal but at near ties
+    (``tp_greedy_flips``), every rank's MoE routings the same; and every
     rank's launches are pinned."""
-    from repro_torch.configs import ARCHS
     from repro_torch.models.parallel import run_local, spawn
     t_phase = time.perf_counter()
     n = torch.cuda.device_count()
     nccl = n >= TP
-    cfg = ARCHS[TP_ARCH]
-    cfg_check = dataclasses.replace(cfg, num_layers=TP_CHECK_LAYERS)
     group = "nccl, one process a card" if nccl else \
         f"local, {TP} threads on {n} card(s)"
-    log(f"phase 23 (tensor-parallel serving, tp = {TP}): "
+    log(f"phase {phase} (tensor-parallel serving, tp = {TP}, {cfg.name}): "
         f"torch.cuda.device_count() = {n}; group: {group}")
     if not nccl:
-        log(f"fewer than {TP} cards: {TP_ARCH} at full width on "
-            f"{TP_CHECK_LAYERS} of its {cfg.num_layers} layers, the {TP} "
-            f"ranks as LocalGroup threads on the {n} card(s) there are")
+        log(f"fewer than {TP} cards: {cfg.name} at full width on "
+            f"{cfg_check.num_layers} of its {cfg.num_layers} layers, the "
+            f"{TP} ranks as LocalGroup threads on the {n} card(s) there are")
     tokens = np.random.default_rng(23).integers(
         0, cfg.vocab_size, TP_REQUEST).astype(np.int32)
     t0 = time.perf_counter()
     one = tp_one_card(dev, cfg_check, tokens)
     one_s = time.perf_counter() - t0
-    args = (cfg_check, cfg if nccl else None, tokens, one["ids"],
+    args = (cfg_check, cfg_serve if nccl else None, tokens, one["ids"],
             NEW_TOKENS)
     t0 = time.perf_counter()
     if nccl:
@@ -5681,14 +5860,34 @@ def tp_phase(dev, card: str) -> dict:
                           [torch.device("cuda", i) for i in range(n)]
                           if dev.type == "cuda" else [dev])
     ranks_s = time.perf_counter() - t0
-    tol = LM_TOL[torch.bfloat16]
     got = ranks[0]["check"]
+    for r in ranks:
+        if r["check"]["route_digest"] != got["route_digest"]:
+            raise AssertionError(f"rank {r['rank']}'s MoE routings differ "
+                                 f"from rank 0's")
+    parts = tp_routes_part(one["routes"], got["routes"], 1 + TP_STEPS)
+    b, s = TP_REQUEST
+    rerouted = set()             # (row, forward) whose token was rerouted
+    for f, part in enumerate(parts):
+        if part["mask"] is None:
+            continue
+        for row in range(b):
+            if part["mask"][row * s + s - 1 if f == 0 else row]:
+                rerouted.add((row, f))
+    tol = LM_TOL[torch.bfloat16]
     errs = []
     for i, (a, w) in enumerate(zip(got["logits"], one["logits"])):
-        err = float((a - w).abs().max())
-        share = float(((a - w).abs() / (tol["atol"] + tol["rtol"]
-                                        * w.abs())).max())
-        errs.append(dict(step=i, max_abs_err=err, share_of_tol=share))
+        share_rows = ((a - w).abs() / (tol["atol"] + tol["rtol"]
+                                       * w.abs())).amax(-1)
+        keep = [row for row in range(b) if (row, i) not in rerouted]
+        err = float((a - w)[keep].abs().max()) if keep else 0.0
+        share = float(share_rows[keep].max()) if keep else 0.0
+        errs.append(dict(step=i, max_abs_err=err, share_of_tol=share,
+                         rerouted_rows=[row for row in range(b)
+                                        if (row, i) in rerouted],
+                         rerouted_share=[float(share_rows[row])
+                                         for row in range(b)
+                                         if (row, i) in rerouted]))
         if share > 1.0:
             raise AssertionError(f"tp = {TP} vs one card, "
                                  f"{'prefill' if i == 0 else f'step {i}'}:"
@@ -5701,10 +5900,10 @@ def tp_phase(dev, card: str) -> dict:
             raise AssertionError(f"rank {r['rank']}'s logits or ids differ "
                                  f"from rank 0's")
     flips = tp_greedy_flips(got["ids"], one["ids"], got["logits"],
-                            one["logits"])
-    want_check = tp_launches(TP_CHECK_LAYERS, 2, 2 + 2 * TP_STEPS)
-    layers = ranks[0]["serve"]["num_layers"]
-    want_serve = tp_launches(layers, 1, 1 + NEW_TOKENS)
+                            one["logits"], rerouted)
+    want_check = tp_launches(cfg_check, 2, 2 + 2 * TP_STEPS)
+    served = cfg_serve if nccl else cfg_check
+    want_serve = tp_launches(served, 1, 1 + NEW_TOKENS)
     for r in ranks:
         for part, want in (("check", want_check), ("serve", want_serve)):
             got_l = {k: r[part]["launches"][k] for k in want}
@@ -5716,20 +5915,33 @@ def tp_phase(dev, card: str) -> dict:
             raise AssertionError(f"rank {r['rank']}: served ids out of "
                                  f"range or unlike rank 0's")
     worst = max(errs, key=lambda e: e["share_of_tol"])
-    log(f"tp = {TP} vs one card [{card}]: {TP_ARCH} on {TP_CHECK_LAYERS} "
-        f"of {cfg.num_layers} layers at {TP_REQUEST[0]} x {TP_REQUEST[1]}, "
-        f"prefill and {TP_STEPS} teacher-forced steps within LM_TOL[bf16] "
-        f"(largest {worst['max_abs_err']:.4g}, {worst['share_of_tol']:.3f}"
-        f" of it, {'prefill' if worst['step'] == 0 else 'step %d' % worst['step']}"
+    route_flips = [fl for part in parts for fl in part["flips"]]
+    log(f"tp = {TP} vs one card [{card}]: {cfg.name} on "
+        f"{cfg_check.num_layers} of {cfg.num_layers} layers at "
+        f"{TP_REQUEST[0]} x {TP_REQUEST[1]}, prefill and {TP_STEPS} "
+        f"teacher-forced steps within LM_TOL[bf16] (largest "
+        f"{worst['max_abs_err']:.4g}, {worst['share_of_tol']:.3f} of it, "
+        f"{'prefill' if worst['step'] == 0 else 'step %d' % worst['step']}"
         f"), greedy ids equal on every rank and to one card's "
         f"{'up to near ties ' + json.dumps(flips) if flips else 'at every step'}"
         f"; launches a rank {json.dumps(want_check)} (one card {one_s:.1f} s)")
+    if one["routes"]:
+        log(f"  MoE routings [{card}]: {len(one['routes'])} a model, equal "
+            f"on the 4 ranks; their inputs within "
+            f"{max(p['input_share'] for p in parts):.3f} of LM_TOL[bf16] of"
+            f" one card's, router probabilities' noise up to "
+            f"{max(p['noise'] for p in parts):.3e}; {len(route_flips)} "
+            f"token(s) routed otherwise than on one card, each a near tie "
+            f"(one card's margins "
+            f"{sorted(round(fl['one_card_margin'], 6) for fl in route_flips)}"
+            f" within their call's noise); rows excepted from the tolerance "
+            f"(row, forward): {sorted(rerouted)}")
     per_step = {}
     for r in ranks:
         sv = r["serve"]
-        per_step = {k: sv["step_collectives"][k]["bytes"]
+        per_step = {k: sv["step_collectives"][k]
                     for k in sv["step_collectives"]}
-        log(f"  rank {r['rank']} [{card}]: {TP_ARCH} {sv['num_layers']} "
+        log(f"  rank {r['rank']} [{card}]: {cfg.name} {sv['num_layers']} "
             f"layers, {TP_REQUEST[0]} x {TP_REQUEST[1]} -> {NEW_TOKENS} "
             f"tokens: first token {sv['first_token_ms']:.3f} ms, decode "
             f"{sv['decode_ms_median']:.3f} ms/step (median; "
@@ -5740,20 +5952,47 @@ def tp_phase(dev, card: str) -> dict:
             f"{sv['init_s']:.3f} s; launches "
             f"{json.dumps({k: v for k, v in sv['launches'].items() if v})}")
     sv = ranks[0]["serve"]
-    log(f"  collective bytes a rank hands in [{card}]: prefill "
-        f"{json.dumps({k: v['bytes'] for k, v in sv['prefill_collectives'].items()})}"
-        f", a decode step {json.dumps(per_step)}")
-    out = dict(device_count=n, group=group, tp=TP, arch=TP_ARCH,
-               check_layers=TP_CHECK_LAYERS, request=list(TP_REQUEST),
-               errors=errs, flips=flips, one_card_s=one_s, ranks_s=ranks_s,
-               launches_check=want_check, launches_serve=want_serve,
+    log(f"  collectives a rank hands in [{card}] (calls, bytes): prefill "
+        f"{json.dumps({k: [v['calls'], v['bytes']] for k, v in sv['prefill_collectives'].items()})}"
+        f", a decode step "
+        f"{json.dumps({k: [v['calls'], v['bytes']] for k, v in per_step.items()})}")
+    out = dict(device_count=n, group=group, tp=TP, arch=cfg.name,
+               check_layers=cfg_check.num_layers, request=list(TP_REQUEST),
+               errors=errs, flips=flips, route_flips=route_flips,
+               route_noise=[p["noise"] for p in parts],
+               route_input_share=[p["input_share"] for p in parts],
+               rerouted=sorted(rerouted), one_card_s=one_s,
+               ranks_s=ranks_s, launches_check=want_check,
+               launches_serve=want_serve,
                ranks=[{part: {k: v for k, v in r[part].items()
-                              if k not in ("logits", "ids", "digest")}
+                              if k not in ("logits", "ids", "digest",
+                                           "routes", "route_digest")}
                        for part in ("check", "serve")} for r in ranks])
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 23 (tensor-parallel serving): {out['seconds']:.3f} s "
-        f"[{card}]")
+    log(f"phase {phase} (tensor-parallel serving, {cfg.name}): "
+        f"{out['seconds']:.3f} s [{card}]")
     return out
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 23: command-r-35b (dense) over a (1, 4) mesh: all 40 layers
+    on 4 cards, the 4 ranks on 8 of 40 held to one card."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[TP_ARCH]
+    return tp_serving(dev, card, 23, cfg, dataclasses.replace(
+        cfg, num_layers=TP_CHECK_LAYERS), cfg)
+
+
+def tp_hybrid_phase(dev, card: str) -> dict:
+    """Phase 24: jamba-1.5-large-398b (Mamba, attention, MoE and MLP
+    layers) over a (1, 4) mesh: one whole 8-layer period on 4 cards, the 4
+    ranks on 2 of 72 layers (``TP_HYBRID_CHECK``) held to one card."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[TP_HYBRID_ARCH]
+    return tp_serving(dev, card, 24, cfg,
+                      dataclasses.replace(cfg, **TP_HYBRID_CHECK),
+                      dataclasses.replace(
+                          cfg, num_layers=TP_HYBRID_SERVE_LAYERS))
 
 
 def main() -> int:
@@ -5817,11 +6056,11 @@ def main() -> int:
                          "loops against the kernels); prints no result "
                          "line")
     ap.add_argument("--tp-only", action="store_true",
-                    help="build the kernels and run phase 23 alone "
-                         "(command-r-35b served over 4 ranks: NCCL "
-                         "processes with 4 cards or more, else LocalGroup "
-                         "threads; held to one card); prints no result "
-                         "line")
+                    help="build the kernels and run phases 23 and 24 alone "
+                         "(command-r-35b and jamba-1.5-large-398b served "
+                         "over 4 ranks: NCCL processes with 4 cards or "
+                         "more, else LocalGroup threads; held to one "
+                         "card); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -5898,10 +6137,13 @@ def main() -> int:
         return 0
     if args.tp_only:
         tp = tp_phase(dev, card)
+        torch.cuda.empty_cache()
+        tp_hybrid = tp_hybrid_phase(dev, card)
         if args.out is not None:
             with open(os.path.join(args.out, "tp.json"), "w") as f:
-                json.dump({"card": card, "tp": tp}, f, indent=1)
-        log("phase 23 alone (--tp-only): no result line")
+                json.dump({"card": card, "tp": tp, "tp_hybrid": tp_hybrid},
+                          f, indent=1)
+        log("phases 23 and 24 alone (--tp-only): no result line")
         return 0
     if args.dryrun_only:
         dry = dryrun_phase(dev, card)
@@ -6013,6 +6255,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     tail = tail_phase(dev, card, workdir)
     torch.cuda.empty_cache()
     tp = tp_phase(dev, card)
+    torch.cuda.empty_cache()
+    tp_hybrid = tp_hybrid_phase(dev, card)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -6079,7 +6323,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:51",
-        "launches": msp["launches"]["ssm_scan"], "max_abs_err": ssp["err"],
+        "launches": msp["launches"]["ssm_scan"],
+        "max_abs_err": max(ssp["err"], lp["ssm_scan_tp"]["err"]),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": None})
@@ -6175,11 +6420,14 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             tail["train_lm"]["launches"][rec["name"]],
             "train_lm_torch, Minos part":
             tail["train_lm"]["minos_launches"][rec["name"]]}
-    for rec in kernels[2:4]:          # phase 23's ranks, each counted apart
-        rec["launches_tp_serving"] = {
-            f"rank {r} ({tp['ranks'][r]['serve']['num_layers']} layers)":
-            tp["ranks"][r]["serve"]["launches"][rec["name"]]
-            for r in range(len(tp["ranks"]))}
+    for rec in kernels[2:5]:     # phases 23 and 24's ranks, counted apart
+        for key, ph in (("launches_tp_serving", tp),
+                        ("launches_tp_hybrid_serving", tp_hybrid)):
+            rec[key] = {
+                f"{ph['arch']} rank {r} "
+                f"({ph['ranks'][r]['serve']['num_layers']} layers)":
+                ph["ranks"][r]["serve"]["launches"][rec["name"]]
+                for r in range(len(ph["ranks"]))}
     for rec in kernels:               # phase 21's card steps
         rec["launches_dryrun"] = {
             f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
@@ -6206,8 +6454,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
                        "serve_cross": cross_sp, "train": train,
-                       "dryrun": dry, "tail": tail, "tp": tp}, f,
-                      indent=1)
+                       "dryrun": dry, "tail": tail, "tp": tp,
+                       "tp_hybrid": tp_hybrid}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,6 +13,8 @@
         --tp 4 --group nccl
     PYTHONPATH=src python -m repro_torch.launch.serve --arch command-r-35b \\
         --smoke --tp 2 --group local --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --smoke --tp 4 --group nccl
 
 The full configuration runs on the card by default, with the port's seeded
 init (no checkpoint); ``--smoke`` takes the reduced configuration.  Every
@@ -27,13 +29,19 @@ bfloat16 weights exceed the device's memory (deepseek-v2-236b and
 jamba-1.5-large-398b at full size) is refused before anything is
 allocated.
 
-``--tp N`` serves a dense model over a (1, N) mesh with the reference's
-tensor-parallel layouts; ``--group`` chooses how the ranks run, and is
-required with it: ``nccl`` spawns N processes, rank r on card r (the
-kernels built once, before the spawn); ``local`` runs N threads of
-this process, rank r on card r % (the cards there are), or on the CPU with
-``--device cpu``.  ``check_fits`` then counts the weights a card holds:
-its ranks' blocks of both layouts.
+``--tp N`` serves a dense, moe (without MLA: granite-moe-3b-a800m), ssm
+(falcon-mamba-7b) or hybrid (jamba-1.5-large-398b) model over a (1, N)
+mesh with the reference's tensor-parallel layouts; ``--group`` chooses
+how the ranks run, and is required with it: ``nccl`` spawns N processes,
+rank r on card r (the kernels built once, before the spawn); ``local``
+runs N threads of this process, rank r on card r % (the cards there are),
+or on the CPU with ``--device cpu``.  ``check_fits`` then counts the
+weights a card holds: its ranks' blocks of both layouts (a MoE block's
+experts twice, ``ep``'s whole experts and ``ep_decode``'s d_ff columns).
+The whole jamba-1.5-large-398b (797 GB in bfloat16, 374 GB a rank at
+``--tp 4``) fits no host of 4 or 8 cards and is refused; ``--smoke``
+serves its reduction (``chip_smoke.py`` phase 24 serves one of its
+8-layer periods at full width over 4 cards).
 """
 from __future__ import annotations
 

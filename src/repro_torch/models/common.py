@@ -234,8 +234,12 @@ def init_param_(t: torch.Tensor, d: ParamDef,
     return t
 
 
-def block_shape(index: tuple[slice, ...]) -> tuple[int, ...]:
-    return tuple(s.stop - s.start for s in index)
+def block_shape(index: tuple) -> tuple[int, ...]:
+    """The shape of a block: a dim's entry is a slice, or a list of the
+    indices it takes where the block is not one run (``MambaBlock``'s
+    ``w_in``)."""
+    return tuple(len(s) if isinstance(s, list) else s.stop - s.start
+                 for s in index)
 
 
 class ParamModule(nn.Module):
@@ -259,8 +263,9 @@ class ParamModule(nn.Module):
                 torch.empty(shape, dtype=dtype or DTYPES[d.dtype],
                             device=device), requires_grad=False))
 
-    def block(self, path: str) -> tuple[slice, ...]:
-        """This rank's index into the whole tensor of parameter ``path``."""
+    def block(self, path: str) -> tuple:
+        """This rank's index into the whole tensor of parameter ``path``
+        (``whole[index]`` is the rank's block)."""
         d = self.defs[path]
         return self.topo.shard_slices(self.topo.pspec(d.axes, d.shape),
                                       d.shape, self.tp_group.rank)

@@ -24,7 +24,9 @@ both ways.
 
 ``rank_state_dict(full, model)`` cuts whole parameters (the reference's
 tree, or a port state dict) into the blocks that ``model``, one rank of a
-(1, tp) mesh, holds by its ``Topo``'s pspecs, for its ``load_state_dict``.
+(1, tp) mesh, holds by its ``Topo``'s pspecs, for its ``load_state_dict``
+(``model.blocks()``: a slice a dim, or a list of indices where the block
+is two runs, as a Mamba block's ``w_in``).
 """
 from __future__ import annotations
 

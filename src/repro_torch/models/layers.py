@@ -61,6 +61,17 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(x, w)`` in float32, as ``matmul_f32``: one batched GEMM
+    with a float32 output on the card, the operands widened on the
+    host."""
+    if x.dtype == w.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.device.type == "cuda" and x.dtype == w.dtype:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.to(torch.float32), w.to(torch.float32))
+
+
 def reduce_partials(partial: torch.Tensor, group, seq_sharded: bool,
                     dtype: torch.dtype) -> torch.Tensor:
     """A row-parallel product's float32 partials (b, s, d) or (b, d)
@@ -75,6 +86,13 @@ def seq_run(x: torch.Tensor, group) -> torch.Tensor:
     """The rank's run of x's sequence (dim 1)."""
     n = x.shape[1] // group.size
     return x.narrow(1, group.rank * n, n)
+
+
+def whole_output(out: torch.Tensor, group,
+                 seq_sharded: bool) -> torch.Tensor:
+    """A product that no rank cut, computed whole on every rank: on a rank,
+    its run of the sequence when ``seq_sharded``."""
+    return seq_run(out, group) if group is not None and seq_sharded else out
 
 
 class Norm(ParamModule):
@@ -160,9 +178,7 @@ class Mlp(ParamModule):
             u = matmul(x, self.w_up)
             h = F.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
         if not self.split("w_down"):      # d_ff not cut: whole products
-            out = matmul(h, self.w_down)
-            return seq_run(out, grp) if grp is not None and seq_sharded \
-                else out
+            return whole_output(matmul(h, self.w_down), grp, seq_sharded)
         return reduce_partials(matmul_f32(h, self.w_down), grp, seq_sharded,
                                torch.promote_types(h.dtype,
                                                    self.w_down.dtype))
@@ -188,8 +204,8 @@ class Embedding(ParamModule):
         rank's run of the sequence when ``seq_sharded``, else whole."""
         g = self.tp_group
         if not self.split("table"):
-            out = F.embedding(tokens, self.table)
-            return seq_run(out, g) if g is not None and seq_sharded else out
+            return whole_output(F.embedding(tokens, self.table), g,
+                                seq_sharded)
         rows = self.block("table")[0]
         local = tokens - rows.start
         mine = (local >= 0) & (local < self.table.shape[0])

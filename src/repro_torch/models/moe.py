@@ -14,8 +14,35 @@ jnp in the reference (no Pallas kernel) and plain PyTorch here; the expert
 products are ``torch.bmm`` (cuBLAS on the card).
 
 The four placements (``ep``, ``gathered``, ``ep_decode``, ``tp_decode``)
-decide only how the reference shards; on one card they name the same
-tensors and are kept as metadata.
+decide how the reference shards; on one card they name the same tensors.
+They also size the token groups: the reference cuts the T tokens into
+groups of ``T // n_shards`` (at most ``group_size``), with ``n_shards`` the
+size of the placement's token axis under its ``Topo``: 1 for ``ep``,
+``ep_decode`` and ``tp_decode`` on a (1, tp) mesh, but tp for ``gathered``
+(token axis ``"all"``), so ``gathered``'s routing, and the tokens it drops,
+follow the mesh (``group``).
+
+On a rank of a (1, tp) mesh (a ``group``) the block holds its blocks by
+the reference's pspecs:
+
+* ``ep`` (prefill, tp divides E): E/tp whole experts;
+* ``ep_decode`` (decode; its experts axis ``fsdp`` has size 1 here),
+  ``tp_decode`` and ``gathered`` (prefill, tp does not divide E): every
+  expert's d_ff/tp columns of ``w_gate`` and ``w_up`` and rows of
+  ``w_down``;
+* the shared experts' ``ws_*`` column- then row-parallel, the router
+  whole.
+
+Every rank routes all of a group's tokens (a sequence-sharded input is
+gathered first), so the capacity slots, a cumsum in token order across a
+group, are the reference's; the routing is the same on every rank, bit for
+bit, as every rank computes it from the same bits.  A rank dispatches only
+to the experts it holds, runs its part of their products (the d_ff-cut
+ones leave float32 partials of ``w_down``), combines its terms as float32
+partials, and the ranks sum them in float32 and round once, onto the
+rank's run of the sequence or whole (``layers.reduce_partials``).  Where
+the unsharded block rounds each expert's output before the combine, a
+d_ff-cut rank's partials are not rounded until the sum.
 """
 from __future__ import annotations
 
@@ -25,7 +52,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamDef, ParamModule, ParamStore
+from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamModule,
+                                       ParamStore)
+from repro_torch.models.layers import (bmm_f32, matmul_f32, reduce_partials,
+                                       whole_output)
 
 PLACEMENTS = ("ep", "gathered", "ep_decode", "tp_decode")
 
@@ -60,7 +90,7 @@ class MoE(ParamModule):
     def __init__(self, name: str, d_model: int, num_experts: int, top_k: int,
                  d_ff: int, num_shared: int = 0, group_size: int = 256,
                  capacity_factor: float = 1.25, placement: str = "ep", *,
-                 device, dtype=None):
+                 device, dtype=None, topo=ONE_DEVICE, group=None):
         super().__init__()
         if placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {placement!r}")
@@ -68,12 +98,21 @@ class MoE(ParamModule):
         self.num_experts, self.top_k = num_experts, top_k
         self.num_shared, self.group_size = num_shared, group_size
         self.capacity_factor, self.placement = capacity_factor, placement
-        self._materialize(device, dtype)
+        self._materialize(device, dtype, topo, group)
+
+    @property
+    def token_axis(self) -> str | None:
+        """The logical axis the reference shards the token groups over."""
+        return {"ep": "batch", "gathered": "all", "ep_decode": None,
+                "tp_decode": "batch"}[self.placement]
 
     def group(self, tokens: int) -> int:
-        """Tokens a group: ``group_size`` snapped down to a divisor of
-        ``tokens`` (one card: one token shard)."""
-        S = min(self.group_size, tokens)
+        """Tokens a group: ``group_size``, or the tokens of one shard of the
+        token axis under ``topo`` if fewer, snapped down to a divisor of
+        ``tokens``."""
+        shards = self.topo.axis_size(self.token_axis) \
+            if self.token_axis else 1
+        S = min(self.group_size, max(tokens // max(shards, 1), 1))
         while S > 1 and tokens % S:
             S -= 1
         return S
@@ -142,48 +181,79 @@ class MoE(ParamModule):
         return Route(topi, pos, weight, aux)
 
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
-        """xe (E, n, d) -> (E, n, d): each expert's SwiGLU on its rows."""
+        """xe (E, n, d) -> (E, n, d): each expert's SwiGLU on its rows; on a
+        rank that holds d_ff columns, float32 partials of ``w_down``."""
         g = torch.bmm(xe, self.w_gate)
         u = torch.bmm(xe, self.w_up)
         h = F.silu(g.to(torch.float32)).to(xe.dtype) * u
+        if self.split("w_down") and not self._expert_cut:
+            return bmm_f32(h, self.w_down)
         return torch.bmm(h, self.w_down)
 
-    def _shared(self, x: torch.Tensor) -> torch.Tensor:
+    def _shared(self, x: torch.Tensor, seq_sharded: bool) -> torch.Tensor:
+        """The shared experts on x (b, s, d) whole; on a rank their d_ff
+        columns, then ``ws_down``'s partials summed (onto the rank's run of
+        the sequence when ``seq_sharded``)."""
         g = x @ self.ws_gate
         u = x @ self.ws_up
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-        return h @ self.ws_down
+        if self.split("ws_down"):
+            return reduce_partials(matmul_f32(h, self.ws_down),
+                                   self.tp_group, seq_sharded, h.dtype)
+        return whole_output(h @ self.ws_down, self.tp_group, seq_sharded)
 
-    def forward(self, x: torch.Tensor):
-        """x (b, s, d) or (b, d) -> (out of x's shape, aux loss)."""
+    @property
+    def _expert_cut(self) -> bool:
+        """On a rank, the experts axis is cut (``ep``): it holds E/tp."""
+        return self.split("w_gate") and \
+            self.w_gate.shape[0] != self.num_experts
+
+    def forward(self, x: torch.Tensor, seq_sharded: bool = False):
+        """x (b, s, d) or (b, d) -> (out of x's shape, aux loss); on a rank,
+        x and the output are the rank's run of the sequence when
+        ``seq_sharded``."""
+        grp = self.tp_group
+        if grp is not None and seq_sharded:
+            x = grp.all_gather(x, 1)
         two_d = x.dim() == 2
         xs = x[:, None, :] if two_d else x
         b, s, d = xs.shape
         T = b * s
         S = self.group(T)
-        G, E, C = T // S, self.num_experts, self.capacity(S)
+        G, C = T // S, self.capacity(S)
         xg = xs.reshape(G, S, d)
         r = self._route(xg)
-        sel = r.dispatched                                       # (G, S, k)
+        if self._expert_cut:     # the choices of the experts held here
+            held = self.block("w_gate")[0]
+            E = held.stop - held.start
+            sel = r.dispatched & (r.topi >= held.start) & \
+                (r.topi < held.stop)
+            expert = r.topi - held.start
+        else:
+            E, sel, expert = self.num_experts, r.dispatched, r.topi
         # slot (e, g, c) of the (E, G, C) expert input, row-major; the
-        # choices that reach no expert all write one spare row past the end
-        # (so no boolean indexing, which would wait for the card)
+        # choices that reach no expert here all write one spare row past
+        # the end (so no boolean indexing, which would wait for the card)
         n_slots = E * G * C
         group = torch.arange(G, device=x.device)[:, None, None]
-        slot = (r.topi * G + group) * C + r.pos
+        slot = (expert * G + group) * C + r.pos
         dst = torch.where(sel, slot, n_slots).reshape(-1)
         xe = xg.new_zeros((n_slots + 1, d))
         xe[dst] = xg.reshape(T, 1, d).expand(T, self.top_k, d).reshape(-1, d)
         ye = self._experts(xe[:n_slots].view(E, G * C, d)).reshape(n_slots, d)
         # combine: the weights in the experts' dtype, the (at most k) terms
         # of a token summed in float32
-        w = r.weight.to(ye.dtype).to(torch.float32)
+        w = r.weight.to(x.dtype).to(torch.float32)
         rows = ye[torch.where(sel, slot, 0)].to(torch.float32)  # (G,S,k,d)
         terms = torch.where(sel[..., None], w[..., None] * rows,
                             torch.zeros((), device=x.device))
-        out = terms.sum(dim=2).to(ye.dtype).reshape(b, s, d)
+        partial = terms.sum(dim=2).reshape(b, s, d)
+        if self.split("w_down"):       # the ranks' terms, summed
+            out = reduce_partials(partial, grp, seq_sharded, x.dtype)
+        else:
+            out = whole_output(partial.to(x.dtype), grp, seq_sharded)
         if self.num_shared:
-            out = out + self._shared(xs)
+            out = out + self._shared(xs, seq_sharded)
         if two_d:
             out = out[:, 0, :]
         return out, r.aux

@@ -24,6 +24,24 @@ the whole sequence in one launch, so it takes any length (the reference's
 needs s <= 128 or a multiple of 128).  Decode updates the caches in place:
 the kernel writes the new state over the cached one, and the conv window
 shifts by one token.
+
+On a rank of a (1, tp) mesh (a ``group``, ``models.parallel``) the block
+is cut over ``d_inner``, the reference's pspecs: the ``megatron`` prefill
+layout and the ``decode_rp`` decode layout give the same blocks on a
+(1, tp) mesh, so prefill and decode share them.  Rank r holds channels
+[r di/tp, (r + 1) di/tp): those of ``conv_w``, ``conv_b``, ``w_dt``,
+``dt_bias``, ``A_log`` and ``D``, and the matching rows of ``w_x`` and
+``w_out``.  ``w_in`` is (d, 2 di), x and z side by side; its pspec cuts
+the 2 di columns into tp runs, which would give a rank x columns only (or
+z columns only), so the rank's block is instead two runs, the x and the z
+columns of its own channels (``block``; the pspec stays the reference's).
+The conv and the scan run on the rank's channels (``ops.ssm_scan`` on
+(b, s, di/tp, ds) and the decode kernel on (b, 1, di/tp, ds)); ``w_x`` and
+``w_out`` contract over ``d_inner``, so their float32 partials are summed
+over the ranks in float32 and rounded once (``dt_raw``, B and C whole on
+every rank, the output onto the rank's run of the sequence when the
+residual is sequence-sharded, whose input the block gathers first: the
+scan needs the whole sequence).  The caches are the rank's channels.
 """
 from __future__ import annotations
 
@@ -31,7 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDef, ParamModule, ParamStore
+from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamModule,
+                                       ParamStore)
+from repro_torch.models.layers import (matmul_f32, reduce_partials,
+                                       whole_output)
 
 SCAN_IMPLS = ("sequential", "associative")
 
@@ -39,14 +60,15 @@ SCAN_IMPLS = ("sequential", "associative")
 class MambaBlock(ParamModule):
     def __init__(self, name: str, d_model: int, d_inner: int, d_state: int,
                  d_conv: int, dt_rank: int, layout: str = "megatron",
-                 scan_impl: str = "sequential", *, device, dtype=None):
+                 scan_impl: str = "sequential", *, device, dtype=None,
+                 topo=ONE_DEVICE, group=None):
         super().__init__()
         if scan_impl not in SCAN_IMPLS:
             raise ValueError(f"unknown scan_impl {scan_impl!r}")
         self.name, self.d_model, self.d_inner = name, d_model, d_inner
         self.d_state, self.d_conv, self.dt_rank = d_state, d_conv, dt_rank
         self.layout, self.scan_impl = layout, scan_impl
-        self._materialize(device, dtype)
+        self._materialize(device, dtype, topo, group)
 
     @property
     def _fsdp(self) -> str | None:
@@ -65,6 +87,19 @@ class MambaBlock(ParamModule):
         store.add("D", ParamDef((di,), ("tp",), init="ones"))
         store.add("w_out", ParamDef((di, d), ("tp", self._fsdp)))
 
+    def block(self, path: str) -> tuple:
+        """As ``ParamModule.block``, but ``w_in``'s columns are the x and
+        the z columns of the rank's channels (``conv_b``'s block): two
+        runs, given as a list of indices."""
+        index = super().block(path)
+        if path != "w_in":
+            return index
+        ch, di = super().block("conv_b")[0], self.d_inner
+        if ch.stop - ch.start == di:        # the channels are not cut
+            return index[:1] + (slice(0, 2 * di),)
+        return index[:1] + (list(range(ch.start, ch.stop))
+                            + list(range(di + ch.start, di + ch.stop)),)
+
     # ------------------------------------------------------------------
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         """Causal depthwise conv along seq via K shifted adds. x: (b,s,di)."""
@@ -78,7 +113,11 @@ class MambaBlock(ParamModule):
     def _ssm_raw(self, x: torch.Tensor):
         """x (b, s, di) post-conv post-silu -> (dt (b, s, di) float32, B, C
         (b, s, ds) float32)."""
-        xdb = x @ self.w_x
+        if self.split("w_x"):       # the rank's channels: partials
+            xdb = self.tp_group.all_reduce(
+                matmul_f32(x, self.w_x)).to(x.dtype)
+        else:
+            xdb = x @ self.w_x
         dt_raw, B, C = xdb.split([self.dt_rank, self.d_state, self.d_state],
                                  dim=-1)
         dt = dt_raw @ self.w_dt + self.dt_bias
@@ -90,10 +129,23 @@ class MambaBlock(ParamModule):
     def _a(self) -> torch.Tensor:
         return -torch.exp(self.A_log.to(torch.float32))          # (di, ds)
 
+    def _out(self, y: torch.Tensor, seq_sharded: bool) -> torch.Tensor:
+        """y @ w_out; on a rank its float32 partials summed over the ranks
+        (onto the rank's run of the sequence when ``seq_sharded``)."""
+        if self.split("w_out"):
+            return reduce_partials(matmul_f32(y, self.w_out),
+                                   self.tp_group, seq_sharded, y.dtype)
+        return whole_output(y @ self.w_out, self.tp_group, seq_sharded)
+
     # -- full-sequence forward (prefill) ---------------------------------
-    def forward(self, h: torch.Tensor, return_state: bool = False):
+    def forward(self, h: torch.Tensor, return_state: bool = False,
+                seq_sharded: bool = False):
         """h (b, s, d) -> (b, s, d) [and (h_last (b, di, ds) float32, conv
-        tail: the last K-1 pre-conv inputs (b, K-1, di))]."""
+        tail: the last K-1 pre-conv inputs (b, K-1, di))].  On a rank, h
+        and the output are the rank's run of the sequence when
+        ``seq_sharded``, and the state and the tail its channels."""
+        if self.tp_group is not None and seq_sharded:
+            h = self.tp_group.all_gather(h, 1)
         s = h.shape[1]
         x_pre, z = (h @ self.w_in).chunk(2, dim=-1)
         x = F.silu(self._conv(x_pre).to(torch.float32)).to(h.dtype)
@@ -102,7 +154,7 @@ class MambaBlock(ParamModule):
         y = y.to(torch.float32) + self.D.to(torch.float32) \
             * x.to(torch.float32)
         y = (y * F.silu(z.to(torch.float32))).to(h.dtype)
-        out = y @ self.w_out
+        out = self._out(y, seq_sharded)
         if return_state:
             # a copy, so the cache holds no view of the whole x_pre; a
             # prompt shorter than K-1 tokens leaves zeros where no token was
@@ -118,8 +170,8 @@ class MambaBlock(ParamModule):
         """h (b, d); state (b, di, ds) float32 and conv_state (b, K-1, di),
         both updated in place (the conv window is computed in the promoted
         dtype of the cache and x, as the reference's concatenation does,
-        and stored in the cache's).  Returns (out (b, d), (state,
-        conv_state))."""
+        and stored in the cache's); on a rank, both its channels.  Returns
+        (out (b, d), (state, conv_state))."""
         x, z = (h @ self.w_in).chunk(2, dim=-1)                  # (b, di)
         window = torch.cat([conv_state, x[:, None, :]], dim=1)   # (b, K, di)
         conv_state.copy_(window[:, 1:])
@@ -132,4 +184,4 @@ class MambaBlock(ParamModule):
         y, _ = ops.ssm_scan(xf[:, None, :], dt, self._a(), B, C, self.D,
                             h0=state, h_out=state)
         y = (y[:, 0] * F.silu(z.to(torch.float32))).to(h.dtype)
-        return y @ self.w_out, (state, conv_state)
+        return self._out(y, False), (state, conv_state)

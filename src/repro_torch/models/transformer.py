@@ -26,15 +26,18 @@ Entry points:
     normed input, as ``prefill`` and ``decode_step`` run it, for a
     comparison layer by layer.
 
-On a rank of a (1, tp) mesh (``group``; dense family only) the layers
-hold their blocks by the reference's pspecs (``models.common.Topo``).
+On a rank of a (1, tp) mesh (``group``; the dense, moe (without MLA),
+ssm and hybrid families) the layers hold their blocks by the reference's
+pspecs (``models.common.Topo``): attention and MLP Megatron-style, MoE by
+its placement (``models.moe``), Mamba over its channels (``models.ssm``).
 ``prefill`` keeps the residual stream sharded over the sequence (whole
 when tp does not divide the prompt, the reference's fallback to
 replication), gathers the last position's normed row from the rank that
-holds it and returns the logits and the caches whole on every rank.
-``decode_step`` keeps the residual whole and reads caches sharded over the
+holds it and returns the logits whole on every rank, the attention caches
+whole and a Mamba layer's caches the rank's channels.  ``decode_step``
+keeps the residual whole and reads attention caches sharded over the
 sequence when the engine passes their length (``cache_len``), each rank
-holding its run.
+holding its run, and a Mamba layer's caches over its channels.
 
 The vlm's cross-attention sublayer (the last layer of each period of
 ``cross_attn_period``) is gated: its output times ``tanh(gate)``, taken in
@@ -44,6 +47,8 @@ the reference's ``prefill`` and ``decode_step`` drop it, and summed over
 the layers in ``loss``.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 from torch import nn
@@ -58,6 +63,9 @@ from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
 
+
+# one whole-tensor draw at a time among the ranks of a process
+_WHOLE_DRAWS = threading.Lock()
 
 
 class SubLayer(nn.Module):
@@ -95,10 +103,11 @@ def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor,
         out, (ckv, krope) = sub.core(x, positions, return_kv=True)
         return out, {"ckv": ckv, "krope": krope}
     if sub.kind == "mamba":
-        out, (state, conv) = sub.core(x, return_state=True)
+        out, (state, conv) = sub.core(x, return_state=True,
+                                      seq_sharded=seq_sharded)
         return out, {"state": state, "conv": conv}
     if sub.kind == "moe":
-        return sub.core(x)[0], None
+        return sub.core(x, seq_sharded=seq_sharded)[0], None
     return sub.core(x, seq_sharded=seq_sharded), None
 
 
@@ -139,8 +148,8 @@ def _moe_placement(cfg: ModelConfig, topo: Topo, kind: str) -> str:
 
 def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                  dtype=None, group=None) -> tuple[list[SubLayer], int]:
-    """Sublayers of one period + number of periods; with a ``group``, a
-    dense period's blocks on that rank."""
+    """Sublayers of one period + number of periods; with a ``group``, the
+    period's blocks on that rank."""
     layout = _attn_layout(cfg, topo, kind)
     if cfg.family == "hybrid":
         period_len = cfg.attn_period
@@ -166,7 +175,8 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                 f"{n}/core", cfg.d_model, cfg.d_inner, cfg.ssm_state,
                 cfg.ssm_conv, cfg.dt_rank,
                 layout=layout if kind == "decode" else "megatron",
-                scan_impl=cfg.ssm_scan_impl, device=device, dtype=dtype)))
+                scan_impl=cfg.ssm_scan_impl, device=device, dtype=dtype,
+                topo=topo, group=group)))
         elif cfg.use_mla:
             n = f"l{j}_mla"
             subs.append(SubLayer(n, "mla", norm(n), MLAttention(
@@ -200,7 +210,7 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                 group_size=cfg.moe_group_size,
                 capacity_factor=cfg.capacity_factor,
                 placement=_moe_placement(cfg, topo, kind), device=device,
-                dtype=dtype)))
+                dtype=dtype, topo=topo, group=group)))
         elif cfg.d_ff:
             n = f"l{j}_mlp"
             subs.append(SubLayer(n, "mlp", norm(n), Mlp(
@@ -247,7 +257,9 @@ class ModelBase(nn.Module):
         every rank keeps blocks of the same tensors; ``decode`` (the same
         parameters in the decode layout, the engine's decode model) keeps
         its blocks from the same draw, where it does not share the
-        tensor."""
+        tensor.  The ranks of one process (threads) draw their whole
+        tensors one at a time, so a card that holds several ranks holds
+        one whole tensor beside their blocks, not one a rank."""
         params = dict(self.named_parameters())
         defs = self.param_defs().defs
         blocks = self.blocks()
@@ -259,12 +271,14 @@ class ModelBase(nn.Module):
             if tuple(p.shape) == d.shape and decode is None:
                 init_param_(p, d, generator)
                 continue
-            whole = init_param_(torch.empty(d.shape, dtype=p.dtype,
-                                            device=generator.device),
-                                d, generator)
-            p.copy_(whole[blocks[name]])
-            if decode is not None and dec_params[name] is not p:
-                dec_params[name].copy_(whole[dec_blocks[name]])
+            with _WHOLE_DRAWS:
+                whole = init_param_(torch.empty(d.shape, dtype=p.dtype,
+                                                device=generator.device),
+                                    d, generator)
+                p.copy_(whole[blocks[name]])
+                if decode is not None and dec_params[name] is not p:
+                    dec_params[name].copy_(whole[dec_blocks[name]])
+                del whole
 
 
 class LM(ModelBase):
@@ -395,7 +409,8 @@ class LM(ModelBase):
         (n_periods, b, s, KV, dh)} (a cross layer's over m),
         {"ckv": (n_periods, b, s, lora), "krope": (n_periods, b, s, rope)}
         or {"state": (n_periods, b, di, ds), "conv": (n_periods, b, K-1,
-        di)}}).  On a rank both are whole."""
+        di)}}).  On a rank the logits and the attention caches are whole,
+        a Mamba layer's caches the rank's channels (di/tp of di)."""
         self._runs()
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         seq = self.seq_sharded(tokens.shape[1])
@@ -503,8 +518,8 @@ CACHE_AXES = {
 def rank_group(cfg: ModelConfig, topo: Topo, group):
     """The group a model of ``cfg`` runs its rank in: None on one device
     (a group of one rank included), else ``group``, checked against the
-    mesh; a mesh with data > 1 or a family other than dense over several
-    ranks raises ``NotImplementedError``."""
+    mesh; a mesh with data > 1, or MLA, a vlm or an enc-dec model over
+    several ranks, raises ``NotImplementedError``."""
     if group is None:
         return None
     tp = topo.tp
@@ -513,7 +528,7 @@ def rank_group(cfg: ModelConfig, topo: Topo, group):
                          f"tp = {tp}")
     if tp == 1:
         return None
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}) over {tp} "
                                   f"ranks {NOT_RUN}")
     return group

@@ -7,19 +7,24 @@ are one model (``model`` and ``decode_model`` are the same object).  On a
 rank of a (1, tp) mesh (``topo`` and that rank's ``group``) each holds its
 rank's blocks: Megatron with a sequence-sharded residual for prefill,
 row-parallel for decode; where the two pspecs give the same block (every
-MLP and embedding weight, every norm), the decode model shares the
-prefill model's tensor.  Every rank runs ``generate`` with the same batch;
-the logits are whole on every rank, so greedy ids agree, and a sampled id
-is drawn on rank 0 and broadcast.
+MLP, Mamba and embedding weight, every norm, a MoE block's router and
+shared experts, and its experts where both placements cut d_ff), the
+decode model shares the prefill model's tensor; where they differ (``ep``
+experts against ``ep_decode``'s d_ff columns), it holds its own.  Every
+rank runs ``generate`` with the same batch; the logits are whole on every
+rank, so greedy ids agree, and a sampled id is drawn on rank 0 and
+broadcast.
 
 The decode caches take the reference's dtypes (k and v, an MLA layer's
 latent and rope key: bfloat16, padded along the sequence to ``max_len``; a
 Mamba layer's state float32 and conv window bfloat16) and are updated in
 place; on a rank, a cache that tp divides holds the rank's run of the
 ``max_len`` positions (``_pad_caches`` lays the prefill's whole caches out
-so).  A cross-attention cache (the vlm's over its ``num_image_tokens``,
-the enc-dec's over ``memory_len = frames.shape[1]``) is cast, never
-padded: a zero key past the memory would be attended to at decode.
+so), and a Mamba layer's state and conv window hold the rank's channels,
+whole along their own sequence.  A cross-attention cache (the vlm's over
+its ``num_image_tokens``, the enc-dec's over ``memory_len =
+frames.shape[1]``) is cast, never padded: a zero key past the memory
+would be attended to at decode.
 """
 from __future__ import annotations
 
@@ -103,9 +108,8 @@ class ServeEngine:
                         c = c[:, :, lo:lo + shape[2]]
                     buf = torch.zeros(shape, dtype=dtype, device=c.device)
                     buf[:, :, :c.shape[2]] = c  # a cross cache: all of it
-                else:                       # Mamba state and conv window
-                    buf = torch.zeros(shape, dtype=dtype, device=c.device)
-                    buf.copy_(c)
+                else:     # Mamba state and conv window (a rank's channels)
+                    buf = c.to(dtype, copy=True)
                 out[name][key] = buf
         return out
 

@@ -75,3 +75,41 @@ def test_tp_ranks_on_the_card_match_one_card(cuda, tp, dtype):
         np.testing.assert_array_equal(ids, want)
         assert launches["flash_attention"] == 2
         assert launches["rmsnorm"] == 5 * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_jamba_ranks_on_the_card_match_one_card(cuda, tp, dtype):
+    """A reduced jamba-1.5-large-398b (layer 0 Mamba + MLP, layer 1
+    attention + MoE: ``ep`` experts in prefill, ``ep_decode``'s d_ff in
+    decode, the Mamba channels cut) over tp threads: prefill logits and 4
+    greedy steps equal the unsharded engine's within the models'
+    tolerances, the ids equal, every rank launching 1 flash kernel a
+    prefill, 1 ``ssm_scan`` and 5 rmsnorms a forward."""
+    cfg = ARCHS["jamba-1.5-large-398b"].reduced(num_layers=2)
+    tokens = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    one = ServeEngine(cfg, max_len=72, device=cuda, dtype=dtype)
+    one.init_params(0)
+    want_logits = one.model.prefill({"tokens": tokens})[0]
+    want = one.generate({"tokens": tokens}, 4)
+    topo = Topo(MeshConfig((1, tp), ("data", "model")))
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+
+    def rank(g):
+        eng = ServeEngine(cfg, max_len=72, device=g.device, dtype=dtype,
+                          topo=topo, group=g)
+        eng.init_params(0)
+        logits = eng.model.prefill({"tokens": tokens})[0]
+        with build.rank_counts() as launches:
+            ids = eng.generate({"tokens": tokens}, 4)
+        return logits.cpu(), ids, dict(launches)
+
+    for logits, ids, launches in run_local(rank, tp, devices):
+        torch.testing.assert_close(logits, want_logits.cpu(), **TOL[dtype])
+        np.testing.assert_array_equal(ids, want)
+        assert launches["flash_attention"] == 1
+        assert launches["ssm_scan"] == 5
+        assert launches["rmsnorm"] == 5 * 5

@@ -1,6 +1,6 @@
 """``DistGroup`` (gloo processes started by ``parallel.spawn``) against
 ``LocalGroup`` (threads): the same collectives and the same tp = 2
-serving of a reduced command-r-35b.
+serving of a reduced command-r-35b and a reduced jamba-1.5-large-398b.
 
 This file imports neither JAX nor the reference, so the spawned ranks,
 which import it to find their function, start in about three seconds.
@@ -56,6 +56,49 @@ def ranks_run(group) -> dict:
         out["logits"].append(logits)
     out["ids"] = eng.generate({"tokens": TOKENS}, 3)
     return out
+
+
+JAMBA = ARCHS["jamba-1.5-large-398b"].reduced(num_layers=2)
+
+
+def jamba_run(group) -> dict:
+    """A float32 reduced jamba on this rank (the seeded init; Mamba, MoE,
+    attention and MLP layers): prefill logits, the rank's Mamba caches, 2
+    greedy steps' logits, the ids."""
+    eng = ServeEngine(JAMBA, max_len=40, device="cpu", dtype=torch.float32,
+                      topo=Topo(MeshConfig((1, group.size),
+                                           ("data", "model"))),
+                      group=group)
+    eng.init_params(0)
+    logits, caches = eng.model.prefill({"tokens": TOKENS})
+    out = {"logits": [logits], "state": caches["l0_mamba"]["state"].clone(),
+           "conv": caches["l0_mamba"]["conv"].clone()}
+    caches = eng._pad_caches(caches, 2)
+    for i in range(2):
+        nxt = logits[:, :JAMBA.vocab_size].argmax(-1)
+        logits, caches = eng.decode_model.decode_step(caches, nxt, 16 + i,
+                                                      cache_len=40)
+        out["logits"].append(logits)
+    out["ids"] = eng.generate({"tokens": TOKENS}, 3)
+    return out
+
+
+def test_dist_group_serves_jamba_as_the_threads_do():
+    """Reduced jamba at tp = 2: gloo processes and threads give the same
+    logits, Mamba caches (the rank's channels) and ids."""
+    procs = spawn(jamba_run, 2, "gloo", timeout=120.0)
+    threads = run_local(jamba_run, 2)
+    for p, t in zip(procs, threads):
+        for key in ("state", "conv"):
+            assert p[key].shape == t[key].shape
+            np.testing.assert_allclose(p[key].numpy(), t[key].numpy(),
+                                       rtol=0, atol=1e-6)
+        for a, b in zip(p["logits"], t["logits"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(p["ids"], t["ids"])
+    np.testing.assert_array_equal(procs[0]["ids"], procs[1]["ids"])
+    assert threads[0]["state"].shape[2] == JAMBA.d_inner // 2
 
 
 def test_dist_group_over_gloo_equals_the_threads():

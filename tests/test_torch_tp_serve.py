@@ -236,8 +236,9 @@ def test_widths_match_the_reference(widths):
 
 
 def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
-    """A group must match the mesh; MoE, SSM, hybrid, vlm and enc-dec over
-    several ranks, and data > 1, raise ``NotImplementedError``; a model
+    """A group must match the mesh; MoE (without MLA), SSM and hybrid
+    models build over several ranks, while MLA, vlm and enc-dec models,
+    data > 1 and sharded training raise ``NotImplementedError``; a model
     laid out over ranks but built without its group only describes the
     layout."""
     from repro_torch.models.model_zoo import build_model
@@ -251,8 +252,16 @@ def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
         build_model(cfg, Topo(MeshConfig((2, 2), ("data", "model"))),
                     "prefill", device="cpu", group=g)
     for arch in ("granite-moe-3b-a800m", "falcon-mamba-7b",
-                 "jamba-1.5-large-398b", "llama-3.2-vision-11b",
-                 "whisper-medium", "deepseek-v2-236b"):
+                 "jamba-1.5-large-398b"):
+        for kind in ("prefill", "decode"):
+            model = build_model(ARCHS[arch].reduced(), topo, kind,
+                                device="meta", group=g)
+            assert model.group is g
+        with pytest.raises(NotImplementedError, match="sharded training"):
+            model.loss({"tokens": np.zeros((1, 4), np.int32),
+                        "labels": np.zeros((1, 4), np.int32)})
+    for arch in ("llama-3.2-vision-11b", "whisper-medium",
+                 "deepseek-v2-236b"):
         with pytest.raises(NotImplementedError, match="queue 1, item 3"):
             build_model(ARCHS[arch].reduced(), topo, "prefill",
                         device="cpu", group=g)
