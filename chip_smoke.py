@@ -4,8 +4,8 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15, 17, 18, 19, 20, 21, 22, 23 and 24
-run last, after phase 11):
+16 right after phase 5 (phases 14, 15 and 17-26 run last, after phase
+11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -58,15 +58,20 @@ run last, after phase 11):
      1,600 image tokens, at 32 / 8 heads, dh 128; whisper's non-causal
      encoder over (4, 1500) and (1, 1500) frames at 16 / 16 heads, dh 64,
      its causal decoder at (4, 64) and (1, 384) and its cross-attention of
-     those over 1,500; ``train_lm_torch``'s (16, 128) causal at 10 / 2
+     those over 1,500; a phase-26 rank's shapes (the vlm's 8 / 2 heads,
+     dh 128: bf16 causal (4, 1000) and float32 (4, 1000) over 1,600;
+     whisper's 4 / 4, dh 64: float32 (4, 1500) and (4, 64) over 1,500,
+     bf16 causal (4, 64)); ``train_lm_torch``'s (16, 128) causal at 10 / 2
      heads, dh 64; command-r-35b's (4, 1000) causal at 64 / 8 heads and
      at a phase-23 rank's 16 / 2, dh 128) and ``rmsnorm`` (bfloat16 at
      (4096, 4096), the prefill rows
      (4000, 4096) and the decode rows (4, 4096); float32; and the MoE
      paths' norms, bfloat16 rows and scale at granite's width 1536,
      deepseek's 5120, MLA's latent 512 and ``train_lm_torch``'s 640 over
-     4000, 2048, 4 and 1 rows, and command-r-35b's 8192 over 4000, 1000, 4
-     and 1 rows (one card's and a phase-23 rank's prefill, decode),
+     4000, 2048, 4 and 1 rows (deepseek's two and the vlm's 4096 over a
+     phase-25 / 26 rank's 1000 rows too), and command-r-35b's 8192 over
+     4000, 1000, 4 and 1 rows (one card's and a phase-23 rank's prefill,
+     decode),
      with and without pdl), and ``ssm_scan`` at phase 24's shapes
      (jamba-1.5-large-398b's d_inner 16384 on one card and a rank's 4096,
      d_state 16: the (4, 1000) prefill with bf16 x, and a decode step with
@@ -369,7 +374,32 @@ run last, after phase 11):
      prefill, one ``ssm_scan`` per Mamba layer and forward and one
      ``rmsnorm`` per sublayer and forward plus the final one
      (``tp_launches``); the same times, memory and collectives as phase 23
-     are printed.
+     are printed;
+ 25. tensor-parallel MLA serving — deepseek-v2-236b at full width
+     (d_model 5120, 128 heads, a 512 + 64 latent, 160 experts top 6, 2
+     shared) over a (1, 4) mesh: MLA's heads cut in prefill (every rank
+     computing the whole latent caches), its decode row-parallel over
+     d_model with the latent caches sequence-sharded and ``w_kvb`` cut on
+     its last dim (ranks 0-1 k_nope columns, ranks 2-3 value columns), the
+     MoE as in phase 24.  With 4 cards or more, 4 NCCL processes serve 8 of
+     the 60 layers (66.9 GB in bfloat16, 32.8 GB a rank); with fewer, 4
+     threads serve the 2-layer check model (layer 0 MLA + dense MLP, layer
+     1 MLA + MoE, so that the MoE is the last sublayer as in phase 24).
+     The 4 ranks on those 2 layers are held to one card as in phase 24;
+     every rank launches no flash and 3L + 1 ``rmsnorm`` a forward.
+     Phase 25 draws the routed experts at their own fan-in
+     (``seed_experts``: the seeded init's 1/sqrt(E) makes deepseek's MoE
+     output dwarf the residual); phase 24 keeps the seeded init;
+ 26. tensor-parallel cross-attention serving — llama-3.2-vision-11b at
+     full width over 1,600 image embeddings (all 40 layers on 4 NCCL
+     cards, or one 5-layer period with its gated cross layer on the
+     threads), then whisper-medium whole (24 + 24 layers) at 4 x 64 over a
+     1,500-frame window (its encoder over the frames and its cross caches
+     cut over them), both with gates and biases drawn away from 0
+     (``seed_cross``) and held to one card as in phase 23; a vlm rank
+     launches L + L/5 flash a prefill (the cross layers in float32) and 2L
+     + L/5 + 1 ``rmsnorm`` a forward, a whisper rank 24 + 2 x 24 flash a
+     prefill and no ``rmsnorm``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -389,7 +419,7 @@ expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
 ``--dryrun-only`` builds them and runs phase 21 alone; ``--tail-only``
 builds them and runs phase 22 alone; ``--tp-only`` builds them and runs
-phases 23 and 24 alone; ``--out DIR`` writes
+phases 23-26 alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -442,6 +472,10 @@ LM_TRAIN_HEADS = dict(H=10, KV=2, dh=64)
 # mesh: a GQA group of 8 at head_dim 128
 TP_HEADS = dict(H=64, KV=8, dh=128)
 TP_RANK_HEADS = dict(H=16, KV=2, dh=128)
+# a rank's heads at tp = 4 in phase 26: the vlm's 32 / 8 and whisper's
+# 16 / 16
+VLM_RANK_HEADS = dict(H=8, KV=2, dh=128)
+WHISPER_RANK_HEADS = dict(H=4, KV=4, dh=64)
 # tests/test_kernels.py's tolerances (bf16 rounding of the output, f32
 # rounding of a softmax / mean of squares in another order)
 KERNEL_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -1522,6 +1556,17 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
     cases += [((b, sq, skv, dtype), dict(heads, causal=causal))
               for b, sq, skv, heads, causal in VLM_WHISPER_FLASH
               for dtype in (torch.bfloat16, torch.float32)]
+    # a rank's launches in phase 26 (tp = 4): the vlm's bf16 causal
+    # self-attention and float32 cross-attention over 1,600 image tokens;
+    # whisper's float32 encoder over 1,500 frames, its bf16 causal
+    # decoder and float32 cross-attention over the 1,500 frames
+    cases += [((b, sq, skv, dtype), dict(heads, causal=causal))
+              for b, sq, skv, heads, causal, dtype in (
+                  (4, 1000, 1000, VLM_RANK_HEADS, True, torch.bfloat16),
+                  (4, 1000, 1600, VLM_RANK_HEADS, False, torch.float32),
+                  (4, 1500, 1500, WHISPER_RANK_HEADS, False, torch.float32),
+                  (4, 64, 64, WHISPER_RANK_HEADS, True, torch.bfloat16),
+                  (4, 64, 1500, WHISPER_RANK_HEADS, False, torch.float32))]
     for (b, sq, skv, dtype), kw in cases:
         causal = kw.pop("causal", True)
         if kw.get("packed"):
@@ -1552,14 +1597,18 @@ def lm_kernel_phase(dev, flush, card: str) -> dict:
         log(f"rmsnorm check ({n}, {d}) {dtype}: max|err| {err:.3e} vs plain")
     # the MoE paths' norms (granite's and deepseek's widths, MLA's latent
     # norm) and train_lm_torch's ~100M model's (640), bfloat16 rows and
-    # scale, prefill and decode rows (2048 = its 16 x 128 batch), launched
+    # scale, prefill and decode rows (2048 = its 16 x 128 batch; 1,000 = a
+    # rank's run of a 4 x 1000 prompt in phases 23, 25 and 26), launched
     # as the models launch them (pdl) and without pdl
     gcfg, dcfg, tcfg = ARCHS[GRANITE], ARCHS[DEEPSEEK], ARCHS[TP_ARCH]
+    vcfg = ARCHS[VLM]
     lm = example_globals("train_lm_torch.py")["hundred_m_config"]()
     for dw, eps, rows in ((gcfg.d_model, gcfg.norm_eps, (4000, 2048, 4, 1)),
-                          (dcfg.d_model, dcfg.norm_eps, (4000, 2048, 4, 1)),
+                          (dcfg.d_model, dcfg.norm_eps,
+                           (4000, 2048, 1000, 4, 1)),
                           (dcfg.kv_lora_rank, dcfg.norm_eps,
-                           (4000, 2048, 4, 1)),
+                           (4000, 2048, 1000, 4, 1)),
+                          (vcfg.d_model, vcfg.norm_eps, (4000, 1000, 4, 1)),
                           (lm.d_model, lm.norm_eps, (4000, 2048, 4, 1)),
                           (tcfg.d_model, tcfg.norm_eps, (4000, 1000, 4, 1))):
         sc = (1 + 0.1 * torch.randn(dw, generator=g, device=dev)).to(
@@ -5538,7 +5587,7 @@ def tail_phase(dev, card: str, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 23 and 24: tensor-parallel serving over a (1, 4) mesh
+# phases 23-26: tensor-parallel serving over a (1, 4) mesh
 # ---------------------------------------------------------------------------
 TP = 4
 TP_ARCH = "command-r-35b"
@@ -5553,19 +5602,120 @@ TP_STEPS = 8               # teacher-forced decode steps held to one card
 TP_HYBRID_ARCH = JAMBA
 TP_HYBRID_CHECK = dict(num_layers=2, attn_period=2)
 TP_HYBRID_SERVE_LAYERS = 8
+# phase 25: deepseek-v2-236b at full width (MLA, 160 experts top 6, 2
+# shared).  One card holds the check model, 2 of 60 layers with the MoE
+# last, as DeepSeek-V2 starts (layer 0 MLA + dense MLP, layer 1 MLA + MoE:
+# 5.35 B parameters, 10.7 GB in bfloat16): a token rerouted at a near tie
+# in an earlier MoE layer would carry an O(1) change into every later
+# layer's input (phase 24 cuts jamba's interleave for the same reason);
+# four cards serve 8 layers, every one MoE (33.47 B parameters, 66.9 GB;
+# 32.8 GB a rank with both layouts' blocks, by
+# ``launch.serve.rank_weight_bytes``)
+TP_MLA_CHECK = dict(num_layers=2, moe_layer_period=2, layers_per_period=2)
+TP_MLA_SERVE_LAYERS = 8
+# phase 26: llama-3.2-vision-11b's check model is one period (5 layers, its
+# gated cross layer last) over 1,600 image embeddings, four cards serve all
+# 40 layers; whisper-medium (24 + 24 layers) whole either way, 4 x 64
+# prompts over a 1,500-frame window
+TP_WHISPER_REQUEST = (4, 64)
 
 
 def tp_launches(cfg, prefills: int, forwards: int) -> dict:
     """What a rank of ``cfg`` dictates: one flash launch per attention
-    layer and prefill (on the rank's heads), one ``ssm_scan`` per Mamba
+    layer and prefill (on the rank's heads; a vlm's cross layers too, the
+    enc-dec model's encoder and its decoder's self and cross layers; none
+    for MLA, whose prefill attention is plain), one ``ssm_scan`` per Mamba
     layer and forward (on the rank's channels), one rmsnorm per norm (one a
-    sublayer and the final one) and forward (on the rank's rows)."""
+    sublayer, MLA's latent norm, and the final one; none under LayerNorm)
+    and forward (on the rank's rows)."""
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": (cfg.num_encoder_layers
+                                    + 2 * cfg.num_layers) * prefills,
+                "rmsnorm": 0, "ssm_scan": 0}
     layers = range(cfg.num_layers)
     attn = sum(cfg.is_attn_layer(j) for j in layers)
+    cross = cfg.num_layers // cfg.cross_attn_period \
+        if cfg.family == "vlm" else 0
     norms = sum(1 + bool(cfg.is_moe_layer(j) or cfg.d_ff) for j in layers)
-    return {"flash_attention": attn * prefills,
+    norms += cross + (cfg.num_layers if cfg.use_mla else 0)
+    return {"flash_attention": 0 if cfg.use_mla else (attn + cross)
+            * prefills,
             "rmsnorm": (norms + 1) * forwards,
             "ssm_scan": (cfg.num_layers - attn) * forwards}
+
+
+def seed_cross(model, seed: int = 22) -> None:
+    """A vlm's gates (``seed_gates``) and every attention bias (zero at
+    init, where a bias added once a rank would not show) drawn away from
+    0, in parameter order: normal * 0.1 from ``seed``.  Gates and biases
+    are whole on every rank, so one card and each rank set the same
+    values; a model without them is left as it is."""
+    seed_gates(model)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv", "bo"):
+                p.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(p.shape)).astype(np.float32) * 0.1))
+
+
+def seed_experts(engine, seed: int = 25) -> None:
+    """Every MoE block's routed experts redrawn at their own fan-in,
+    normal / sqrt(d_model) for ``w_gate`` / ``w_up`` and / sqrt(d_ff) for
+    ``w_down``, as the CPU tests draw them
+    (``tests/test_torch_moe_models.moe_tree``): the seeded init draws a
+    stacked expert at 1/sqrt(E), its def's first dim, so the MoE output
+    dwarfs the residual (deepseek-v2's expert rows reach ~200) and a
+    comparison of the logits reads little but the bfloat16 rounding of
+    its rows.  Each tensor is drawn whole on the engine's device from
+    ``seed`` (one at a time among the ranks of a process), and each of the
+    engine's models keeps its block: one card and every rank hold blocks
+    of the same tensors."""
+    from repro_torch.models.common import ParamDef, init_param_
+    from repro_torch.models.transformer import _WHOLE_DRAWS
+    models = list({id(m): m for m in (engine.model,
+                                      engine.decode_model)}.values())
+    held = [(dict(m.named_parameters()), m.blocks()) for m in models]
+    defs = engine.model.param_defs().defs
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    with torch.no_grad():
+        for name in sorted(defs):
+            d = defs[name]
+            if name.rsplit(".", 1)[-1] not in ("w_gate", "w_up", "w_down") \
+                    or len(d.shape) != 3:
+                continue
+            with _WHOLE_DRAWS:
+                whole = init_param_(torch.empty(
+                    d.shape, dtype=held[0][0][name].dtype,
+                    device=engine.device), ParamDef(
+                    d.shape, d.axes, scale=d.shape[1] ** -0.5), gen)
+                for params, blocks in held:
+                    params[name].copy_(whole[blocks[name]])
+                del whole
+
+
+def tp_step_kw(engine, batch: dict) -> dict:
+    """A rank's decode arguments: the caches' length, and an enc-dec
+    request's memory length; one card's: none."""
+    if engine.group is None:
+        return {}
+    kw = {"cache_len": engine.max_len}
+    if memory_len(batch) is not None:
+        kw["memory_len"] = memory_len(batch)
+    return kw
+
+
+def memory_len(batch: dict) -> int | None:
+    """An enc-dec request's frames, which size its cross caches."""
+    return batch["frames"].shape[1] if "frames" in batch else None
+
+
+def memory_note(batch: dict) -> str:
+    """The request's memory, for the log: image tokens or frames."""
+    for key, what in (("image_embeds", "image tokens"), ("frames", "frames")):
+        if key in batch:
+            return f", {batch[key].shape[1]} {what}"
+    return ""
 
 
 @contextlib.contextmanager
@@ -5666,33 +5816,39 @@ def tp_routes_part(one: list, ranks: list, forwards: int) -> list:
     return out
 
 
-def tp_teacher_forced(engine, tokens: np.ndarray, ids: np.ndarray,
-                      **step_kw) -> dict:
+def tp_teacher_forced(engine, batch: dict, ids: np.ndarray) -> dict:
     """Prefill logits and ``len(ids[0])`` decode steps fed ``ids``, as
     float32 host tensors over the vocabulary."""
     dev, vocab = engine.device, engine.cfg.vocab_size
-    logits, caches = engine.model.prefill({"tokens": tokens})
+    b, s = batch["tokens"].shape
+    logits, caches = engine.model.prefill(batch)
     out = [logits[:, :vocab].float().cpu()]
-    caches = engine._pad_caches(caches, tokens.shape[0])
+    caches = engine._pad_caches(caches, b, memory_len=memory_len(batch))
     for i in range(ids.shape[1]):
         logits, caches = engine.decode_model.decode_step(
-            caches, torch.from_numpy(ids[:, i]).to(dev),
-            tokens.shape[1] + i, **step_kw)
+            caches, torch.from_numpy(ids[:, i]).to(dev), s + i,
+            **tp_step_kw(engine, batch))
         out.append(logits[:, :vocab].float().cpu())
     return {"logits": out}
 
 
-def tp_one_card(dev, cfg, tokens: np.ndarray) -> dict:
-    """The unsharded model on one card with the seeded init: its greedy
-    ids (``TP_STEPS``), then the prefill and those ids fed back, with its
-    MoE routings and their margins."""
+def tp_one_card(dev, cfg, batch: dict, fan_in_experts: bool) -> dict:
+    """The unsharded model on one card with the seeded init (gates and
+    biases away from 0, ``seed_cross``; with ``fan_in_experts`` the routed
+    experts at their fan-in, ``seed_experts``): its greedy ids
+    (``TP_STEPS``),
+    then the prefill and those ids fed back, with its MoE routings and
+    their margins."""
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, max_len=tokens.shape[1] + NEW_TOKENS + 4,
+    eng = ServeEngine(cfg, max_len=batch["tokens"].shape[1] + NEW_TOKENS + 4,
                       device=dev)
     eng.init_params(0)
-    ids = eng.generate({"tokens": tokens}, TP_STEPS)
+    seed_cross(eng.model)
+    if fan_in_experts:
+        seed_experts(eng)
+    ids = eng.generate(batch, TP_STEPS)
     with routes_of([eng.model]) as routes:
-        out = dict(tp_teacher_forced(eng, tokens, ids), ids=ids)
+        out = dict(tp_teacher_forced(eng, batch, ids), ids=ids)
     out["routes"] = routes
     del eng
     torch.cuda.empty_cache()
@@ -5733,18 +5889,20 @@ def tp_greedy_flips(ids: np.ndarray, want: np.ndarray, logits: list,
     return flips
 
 
-def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
-            ids: np.ndarray, new_tokens: int) -> dict:
-    """One rank of phase 23 or 24 (a thread of a ``LocalGroup`` or a
-    process of an NCCL group): ``cfg_check`` with the seeded init (the
-    rank's blocks of the tensors one card draws), its prefill and ``ids``
-    fed back (its MoE routings kept: whole on rank 0, as a digest on the
-    others), then ``generate``'s greedy ids; then one request of
-    ``tokens``' shape and ``new_tokens`` through ``generate`` on
-    ``cfg_serve`` (``None``: the check model again), timed step by step,
-    with the launches of each part counted on this rank alone, and the
-    calls and bytes of each collective in its prefill and in one decode
-    step."""
+def tp_rank(group, cfg_check, cfg_serve, batch: dict, ids: np.ndarray,
+            new_tokens: int, fan_in_experts: bool) -> dict:
+    """One rank of phases 23-26 (a thread of a ``LocalGroup`` or a process
+    of an NCCL group): ``cfg_check`` with the seeded init (the rank's
+    blocks of the tensors one card draws; gates and biases by
+    ``seed_cross``, experts by ``seed_experts`` with ``fan_in_experts``),
+    its prefill of
+    ``batch`` and ``ids`` fed back (its MoE routings kept: whole on rank
+    0, as a digest on the others), then ``generate``'s greedy ids; then
+    one request of ``batch``'s shapes (new tokens, the same stub input)
+    and ``new_tokens`` through ``generate`` on ``cfg_serve`` (``None``:
+    the check model again), timed step by step, with the launches of each
+    part counted on this rank alone, and the calls and bytes of each
+    collective in its prefill and in one decode step."""
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import tp_mesh
     from repro_torch.models.common import Topo
@@ -5752,7 +5910,7 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
     from repro_torch.serve.engine import ServeStats
     dev = group.device
     topo = Topo(tp_mesh(group.size))
-    b, s = tokens.shape
+    b, s = batch["tokens"].shape
     max_len = s + new_tokens + 4
     out = {"rank": group.rank}
 
@@ -5761,14 +5919,17 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
         eng = ServeEngine(cfg, max_len=max_len, device=dev, topo=topo,
                           group=group)
         eng.init_params(0)
+        seed_cross(eng.model)
+        if fan_in_experts:
+            seed_experts(eng)
         sync(dev)
         return eng, time.perf_counter() - t0
 
     eng, init_s = engine(cfg_check)
     with build.rank_counts() as launches:
         with routes_of([eng.model, eng.decode_model]) as routes:
-            check = tp_teacher_forced(eng, tokens, ids, cache_len=max_len)
-        check["ids"] = eng.generate({"tokens": tokens}, ids.shape[1])
+            check = tp_teacher_forced(eng, batch, ids)
+        check["ids"] = eng.generate(batch, ids.shape[1])
     check.update(launches=dict(launches), init_s=init_s,
                  route_digest=route_digest(routes))
     if group.rank == 0:          # rank 0 brings the logits and routings
@@ -5782,15 +5943,15 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
         torch.cuda.empty_cache()
         eng, init_s = engine(cfg_serve)
     cfg = eng.cfg
-    serve_tokens = np.random.default_rng(24).integers(
-        0, cfg.vocab_size, tokens.shape).astype(np.int32)
+    serve_batch = dict(batch, tokens=np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32))
     eng.stats = ServeStats()
     card = dev.type == "cuda"       # a rehearsal on the host measures none
     if card:
         torch.cuda.reset_peak_memory_stats(dev)
     with build.rank_counts() as launches:
         t0 = time.perf_counter()
-        got = eng.generate({"tokens": serve_tokens}, new_tokens)
+        got = eng.generate(serve_batch, new_tokens)
         sync(dev)
         wall = time.perf_counter() - t0
     steps_ms = sorted(x * 1e3 for x in eng.stats.step_s)
@@ -5807,24 +5968,27 @@ def tp_rank(group, cfg_check, cfg_serve, tokens: np.ndarray,
             id(p): p for m in (eng.model, eng.decode_model)
             for p in m.parameters()}.values()) / 2**30)
     group.reset_counts()          # the collectives of one prefill ...
-    logits, caches = eng.model.prefill({"tokens": serve_tokens})
+    logits, caches = eng.model.prefill(serve_batch)
     serve["prefill_collectives"] = {k: dict(v) for k, v in
                                     group.counts.items()}
-    caches = eng._pad_caches(caches, b)
+    caches = eng._pad_caches(caches, b, memory_len=memory_len(batch))
     group.reset_counts()          # ... and of one decode step
     eng.decode_model.decode_step(caches, logits.argmax(-1), s,
-                                 cache_len=max_len)
+                                 **tp_step_kw(eng, batch))
     serve["step_collectives"] = {k: dict(v) for k, v in
                                  group.counts.items()}
     out["serve"] = serve
     return out
 
 
-def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
-               cfg_serve) -> dict:
-    """Phase 23 or 24: ``cfg`` served over a (1, 4) mesh.  With 4 cards or
-    more, 4 NCCL processes (one a card) serve ``cfg_serve``; with fewer,
-    the 4 ranks are ``LocalGroup`` threads on the cards there are and serve
+def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
+               request: tuple = TP_REQUEST, memory: int | None = None,
+               fan_in_experts: bool = False) -> dict:
+    """Phases 23-26: ``cfg`` served over a (1, 4) mesh, ``request`` (batch,
+    prompt tokens) with the family's stub input (a vlm's image embeddings,
+    an enc-dec model's ``memory`` frames).  With 4 cards or more, 4 NCCL
+    processes (one a card) serve ``cfg_serve``; with fewer, the 4 ranks
+    are ``LocalGroup`` threads on the cards there are and serve
     ``cfg_check`` again.  Either way the 4 ranks on ``cfg_check`` are held
     to the unsharded model on one card with the same seeded weights:
     prefill logits and ``TP_STEPS`` teacher-forced steps within
@@ -5845,13 +6009,15 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
         log(f"fewer than {TP} cards: {cfg.name} at full width on "
             f"{cfg_check.num_layers} of its {cfg.num_layers} layers, the "
             f"{TP} ranks as LocalGroup threads on the {n} card(s) there are")
-    tokens = np.random.default_rng(23).integers(
-        0, cfg.vocab_size, TP_REQUEST).astype(np.int32)
+    batch = {"tokens": np.random.default_rng(23).integers(
+        0, cfg.vocab_size, request).astype(np.int32)}
+    if cfg.family in ("vlm", "audio"):
+        batch.update(stub_inputs(cfg, request[0], memory=memory))
     t0 = time.perf_counter()
-    one = tp_one_card(dev, cfg_check, tokens)
+    one = tp_one_card(dev, cfg_check, batch, fan_in_experts)
     one_s = time.perf_counter() - t0
-    args = (cfg_check, cfg_serve if nccl else None, tokens, one["ids"],
-            NEW_TOKENS)
+    args = (cfg_check, cfg_serve if nccl else None, batch, one["ids"],
+            NEW_TOKENS, fan_in_experts)
     t0 = time.perf_counter()
     if nccl:
         ranks = spawn(tp_rank, TP, "nccl", timeout=900.0, args=args)
@@ -5866,7 +6032,7 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
             raise AssertionError(f"rank {r['rank']}'s MoE routings differ "
                                  f"from rank 0's")
     parts = tp_routes_part(one["routes"], got["routes"], 1 + TP_STEPS)
-    b, s = TP_REQUEST
+    b, s = request
     rerouted = set()             # (row, forward) whose token was rerouted
     for f, part in enumerate(parts):
         if part["mask"] is None:
@@ -5918,7 +6084,7 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
     route_flips = [fl for part in parts for fl in part["flips"]]
     log(f"tp = {TP} vs one card [{card}]: {cfg.name} on "
         f"{cfg_check.num_layers} of {cfg.num_layers} layers at "
-        f"{TP_REQUEST[0]} x {TP_REQUEST[1]}, prefill and {TP_STEPS} "
+        f"{b} x {s}{memory_note(batch)}, prefill and {TP_STEPS} "
         f"teacher-forced steps within LM_TOL[bf16] (largest "
         f"{worst['max_abs_err']:.4g}, {worst['share_of_tol']:.3f} of it, "
         f"{'prefill' if worst['step'] == 0 else 'step %d' % worst['step']}"
@@ -5942,7 +6108,7 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
         per_step = {k: sv["step_collectives"][k]
                     for k in sv["step_collectives"]}
         log(f"  rank {r['rank']} [{card}]: {cfg.name} {sv['num_layers']} "
-            f"layers, {TP_REQUEST[0]} x {TP_REQUEST[1]} -> {NEW_TOKENS} "
+            f"layers, {b} x {s} -> {NEW_TOKENS} "
             f"tokens: first token {sv['first_token_ms']:.3f} ms, decode "
             f"{sv['decode_ms_median']:.3f} ms/step (median; "
             f"{sv['decode_ms_min']:.3f}-{sv['decode_ms_max']:.3f}), "
@@ -5957,7 +6123,8 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check,
         f", a decode step "
         f"{json.dumps({k: [v['calls'], v['bytes']] for k, v in per_step.items()})}")
     out = dict(device_count=n, group=group, tp=TP, arch=cfg.name,
-               check_layers=cfg_check.num_layers, request=list(TP_REQUEST),
+               check_layers=cfg_check.num_layers, request=list(request),
+               memory=memory_note(batch)[2:] or None,
                errors=errs, flips=flips, route_flips=route_flips,
                route_noise=[p["noise"] for p in parts],
                route_input_share=[p["input_share"] for p in parts],
@@ -5993,6 +6160,49 @@ def tp_hybrid_phase(dev, card: str) -> dict:
                       dataclasses.replace(cfg, **TP_HYBRID_CHECK),
                       dataclasses.replace(
                           cfg, num_layers=TP_HYBRID_SERVE_LAYERS))
+
+
+def tp_mla_phase(dev, card: str) -> dict:
+    """Phase 25: deepseek-v2-236b (MLA and MoE) over a (1, 4) mesh: 8 of
+    60 layers on 4 cards, the 4 ranks on 2 layers (``TP_MLA_CHECK``) held
+    to one card."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[DEEPSEEK]
+    return tp_serving(dev, card, 25, cfg,
+                      dataclasses.replace(cfg, **TP_MLA_CHECK),
+                      dataclasses.replace(cfg,
+                                          num_layers=TP_MLA_SERVE_LAYERS),
+                      fan_in_experts=True)
+
+
+def tp_cross_phase(dev, card: str) -> dict:
+    """Phase 26: cross-attention over a (1, 4) mesh.  llama-3.2-vision-11b
+    over 1,600 image embeddings (all 40 layers on 4 cards, the 4 ranks on
+    one 5-layer period with its gated cross layer held to one card), then
+    whisper-medium whole over a 1,500-frame window; gates and biases
+    drawn away from 0 (``seed_cross``)."""
+    from repro_torch.configs import ARCHS
+    vlm = ARCHS[VLM]
+    out = {VLM: tp_serving(dev, card, 26, vlm, dataclasses.replace(
+        vlm, num_layers=vlm.cross_attn_period), vlm)}
+    torch.cuda.empty_cache()
+    whisper = ARCHS[WHISPER]
+    out[WHISPER] = tp_serving(dev, card, 26, whisper, whisper, whisper,
+                              request=TP_WHISPER_REQUEST,
+                              memory=WHISPER_FRAMES)
+    return out
+
+
+def tp_phases(dev, card: str) -> dict:
+    """Phases 23-26, each after the card's cache of the last is
+    released."""
+    out = {}
+    for key, phase in (("tp", tp_phase), ("tp_hybrid", tp_hybrid_phase),
+                       ("tp_mla", tp_mla_phase),
+                       ("tp_cross", tp_cross_phase)):
+        out[key] = phase(dev, card)
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -6056,11 +6266,13 @@ def main() -> int:
                          "loops against the kernels); prints no result "
                          "line")
     ap.add_argument("--tp-only", action="store_true",
-                    help="build the kernels and run phases 23 and 24 alone "
-                         "(command-r-35b and jamba-1.5-large-398b served "
-                         "over 4 ranks: NCCL processes with 4 cards or "
-                         "more, else LocalGroup threads; held to one "
-                         "card); prints no result line")
+                    help="build the kernels and run phases 23-26 alone "
+                         "(command-r-35b, jamba-1.5-large-398b, "
+                         "deepseek-v2-236b, llama-3.2-vision-11b and "
+                         "whisper-medium served over 4 ranks: NCCL "
+                         "processes with 4 cards or more, else LocalGroup "
+                         "threads; held to one card); prints no result "
+                         "line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -6136,14 +6348,11 @@ def main() -> int:
         log("phases 17 and 18 alone (--cross-only): no result line")
         return 0
     if args.tp_only:
-        tp = tp_phase(dev, card)
-        torch.cuda.empty_cache()
-        tp_hybrid = tp_hybrid_phase(dev, card)
+        tp = tp_phases(dev, card)
         if args.out is not None:
             with open(os.path.join(args.out, "tp.json"), "w") as f:
-                json.dump({"card": card, "tp": tp, "tp_hybrid": tp_hybrid},
-                          f, indent=1)
-        log("phases 23 and 24 alone (--tp-only): no result line")
+                json.dump(dict(card=card, **tp), f, indent=1)
+        log("phases 23-26 alone (--tp-only): no result line")
         return 0
     if args.dryrun_only:
         dry = dryrun_phase(dev, card)
@@ -6254,9 +6463,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     dry = dryrun_phase(dev, card)
     tail = tail_phase(dev, card, workdir)
     torch.cuda.empty_cache()
-    tp = tp_phase(dev, card)
-    torch.cuda.empty_cache()
-    tp_hybrid = tp_hybrid_phase(dev, card)
+    tps = tp_phases(dev, card)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -6420,14 +6627,17 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
             tail["train_lm"]["launches"][rec["name"]],
             "train_lm_torch, Minos part":
             tail["train_lm"]["minos_launches"][rec["name"]]}
-    for rec in kernels[2:5]:     # phases 23 and 24's ranks, counted apart
-        for key, ph in (("launches_tp_serving", tp),
-                        ("launches_tp_hybrid_serving", tp_hybrid)):
+    for rec in kernels[2:5]:     # phases 23-26's ranks, counted apart
+        for key, phs in (("launches_tp_serving", [tps["tp"]]),
+                         ("launches_tp_hybrid_serving", [tps["tp_hybrid"]]),
+                         ("launches_tp_mla_serving", [tps["tp_mla"]]),
+                         ("launches_tp_cross_serving",
+                          list(tps["tp_cross"].values()))):
             rec[key] = {
                 f"{ph['arch']} rank {r} "
                 f"({ph['ranks'][r]['serve']['num_layers']} layers)":
                 ph["ranks"][r]["serve"]["launches"][rec["name"]]
-                for r in range(len(ph["ranks"]))}
+                for ph in phs for r in range(len(ph["ranks"]))}
     for rec in kernels:               # phase 21's card steps
         rec["launches_dryrun"] = {
             f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
@@ -6454,8 +6664,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
                        "serve_cross": cross_sp, "train": train,
-                       "dryrun": dry, "tail": tail, "tp": tp,
-                       "tp_hybrid": tp_hybrid}, f, indent=1)
+                       "dryrun": dry, "tail": tail, **tps}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

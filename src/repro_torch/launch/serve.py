@@ -15,6 +15,12 @@
         --smoke --tp 2 --group local --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b --smoke --tp 4 --group nccl
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-11b --tp 4 --group nccl
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+        --tp 4 --group nccl --prompt-len 1500
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+        --smoke --tp 2 --group local --device cpu
 
 The full configuration runs on the card by default, with the port's seeded
 init (no checkpoint); ``--smoke`` takes the reduced configuration.  Every
@@ -29,19 +35,27 @@ bfloat16 weights exceed the device's memory (deepseek-v2-236b and
 jamba-1.5-large-398b at full size) is refused before anything is
 allocated.
 
-``--tp N`` serves a dense, moe (without MLA: granite-moe-3b-a800m), ssm
-(falcon-mamba-7b) or hybrid (jamba-1.5-large-398b) model over a (1, N)
-mesh with the reference's tensor-parallel layouts; ``--group`` chooses
-how the ranks run, and is required with it: ``nccl`` spawns N processes,
-rank r on card r (the kernels built once, before the spawn); ``local``
-runs N threads of this process, rank r on card r % (the cards there are),
-or on the CPU with ``--device cpu``.  ``check_fits`` then counts the
-weights a card holds: its ranks' blocks of both layouts (a MoE block's
-experts twice, ``ep``'s whole experts and ``ep_decode``'s d_ff columns).
-The whole jamba-1.5-large-398b (797 GB in bfloat16, 374 GB a rank at
-``--tp 4``) fits no host of 4 or 8 cards and is refused; ``--smoke``
-serves its reduction (``chip_smoke.py`` phase 24 serves one of its
-8-layer periods at full width over 4 cards).
+``--tp N`` serves any family over a (1, N) mesh with the reference's
+tensor-parallel layouts: dense, moe (granite-moe-3b-a800m, and
+deepseek-v2-236b's MLA: heads cut in prefill, the latent caches and the
+row-parallel decode cut over the sequence and d_model), ssm
+(falcon-mamba-7b), hybrid (jamba-1.5-large-398b), vlm
+(llama-3.2-vision-11b: its cross layers over the whole image embeddings,
+their caches cut over the image tokens) and audio (whisper-medium: the
+encoder over the frames, the cross caches cut over them).  ``--group``
+chooses how the ranks run, and is required with it: ``nccl`` spawns N
+processes, rank r on card r (the kernels built once, before the spawn);
+``local`` runs N threads of this process, rank r on card r % (the cards
+there are), or on the CPU with ``--device cpu``.  ``check_fits`` then
+counts the weights a card holds: its ranks' blocks of both layouts (a MoE
+block's experts twice, ``ep``'s whole experts and ``ep_decode``'s d_ff
+columns), and names a rank's bytes when it refuses.  The whole
+jamba-1.5-large-398b (797 GB in bfloat16, 374 GB a rank at ``--tp 4``)
+and the whole deepseek-v2-236b (488 GB, 243 GB a rank at ``--tp 4``:
+``ep``'s 40 whole experts and ``ep_decode``'s quarter of all 160) fit no
+host of 4 or 8 80 GB cards and are refused; ``--smoke`` serves
+their reductions (``chip_smoke.py`` phases 24 and 25 serve 8 of their
+layers at full width over 4 cards).
 """
 from __future__ import annotations
 
@@ -85,13 +99,15 @@ def check_fits(cfg: ModelConfig, device: torch.device, tp: int = 1,
                ranks_per_device: int = 1) -> None:
     """Raise ``ValueError`` when the bfloat16 weights alone exceed the
     device: ``ranks_per_device`` ranks of a (1, tp) mesh on it."""
-    need = ranks_per_device * rank_weight_bytes(cfg, tp)
+    rank = rank_weight_bytes(cfg, tp)
+    need = ranks_per_device * rank
     have = device_memory_bytes(device)
     if need > have:
+        per = f" ({rank / 1e9:.1f} GB a rank of {tp})" if tp > 1 else ""
         raise ValueError(
-            f"{cfg.name}: {need / 1e9:.1f} GB of bfloat16 weights do not fit "
-            f"in the {have / 1e9:.1f} GB of {device}; pass --smoke for the "
-            f"reduced configuration")
+            f"{cfg.name}: {need / 1e9:.1f} GB of bfloat16 weights{per} do "
+            f"not fit in the {have / 1e9:.1f} GB of {device}; pass --smoke "
+            f"for the reduced configuration")
 
 
 def make_batch(cfg: ModelConfig, batch: int, prompt_len: int,

@@ -38,15 +38,31 @@ reference's pspecs and runs two of them:
   rank's flash kernel launch on its heads against the KV heads they read;
   ``wo`` row-parallel over the heads, its float32 partials
   reduce-scattered onto the rank's run of the sequence.  The caches it
-  returns are whole.
+  returns are whole.  A cross block projects k and v from the whole
+  memory the same way, without RoPE or the causal mask.
 * ``decode_rp``: ``wq``/``wk``/``wv`` cut over d_model, so the rank's run
   of x gives partial q, k, v, summed over the ranks in float32; the new
   token's k and v written by the rank whose run of the cache holds
   position t; ``decode_attention`` over the sequence-sharded cache; ``wo``
-  cut over its output d, gathered after.
+  cut over its output d, gathered after.  A cross block sums q alone and
+  attends to every position of its memory cache (the rank's run of it,
+  or all of it where tp does not divide the memory).
 
-``fsdp_sp`` (heads that tp does not divide), cross-attention and MLA under
-tp > 1 are not ported (ROADMAP queue 1, item 3).
+The replicated biases are added once: ``bq`` sliced to the rank's heads
+and ``bk`` / ``bv`` after the gather in ``megatron``, ``bq`` / ``bk`` /
+``bv`` after the sum and ``bo`` after the gather in ``decode_rp``, ``bo``
+to the rank's reduce-scattered rows in ``megatron``.
+
+MLA on a rank (``MLAttention``): ``megatron`` cuts ``wq``, ``w_kvb`` and
+``wo`` over the heads, and every rank computes the whole latent (the
+caches) with its whole ``w_kva``; ``decode_rp`` cuts ``wq`` and ``w_kva``
+over d_model (their partials summed in float32 before the latent norm),
+``w_kvb`` over its last dim (a rank may hold only k_nope columns or only
+value columns) and ``wo`` over its output d, and reduces the scores'
+softmax and the latent output over the sequence-sharded caches.
+
+``fsdp_sp`` (heads that tp does not divide) over ranks is not ported
+(ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -55,10 +71,32 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
                                        ParamModule, ParamStore)
-from repro_torch.models.layers import (apply_rope, matmul, matmul_f32,
-                                       reduce_partials)
+from repro_torch.models.layers import (apply_rope, bmm_f32, matmul,
+                                       matmul_f32, reduce_partials,
+                                       whole_output)
 
 _NEG = -1e30
+
+
+def softmax_values(s: torch.Tensor, v: torch.Tensor, spec: str,
+                   group=None) -> torch.Tensor:
+    """float32 scores ``s`` (scaled and masked, keys on the last dim)
+    softmaxed and applied to the values ``v`` by ``torch.einsum(spec, p,
+    v)``, float32 out; the weights ``p / l`` rounded to ``v``'s dtype
+    where the reference rounds them.  With a ``group`` the keys are the
+    rank's run of a sequence-sharded cache: the max and the sum are
+    reduced over the ranks, and the local products with v summed in
+    float32."""
+    m = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = group.all_reduce(m, "max")
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if group is not None:
+        l = group.all_reduce(l)
+    o = torch.einsum(spec, (p / l).to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    return o if group is None else group.all_reduce(o)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -67,10 +105,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      lo: int = 0) -> torch.Tensor:
     """q (b, H, dh) against caches (b, S, KV, dh) at positions <= t; the
     caches hold positions [lo, lo + S).  With a ``group`` they are the
-    rank's run of a sequence-sharded cache: the scores stay local, their
-    max and the softmax's sum are reduced over the ranks, the weights
-    ``p / l`` rounded to the cache's dtype where the reference rounds them,
-    and the local products with v summed over the ranks in float32."""
+    rank's run of a sequence-sharded cache: the scores stay local and
+    ``softmax_values`` reduces the softmax and the output over the
+    ranks."""
     b, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
@@ -79,18 +116,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_cache.to(torch.float32))
     pos = torch.arange(lo, lo + S, device=q.device)
     s = s.masked_fill(pos > t, _NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    if group is not None:
-        m = group.all_reduce(m, "max")
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if group is not None:
-        l = group.all_reduce(l)
-    o = torch.einsum("bkps,bskd->bkpd",
-                     (p / l).to(v_cache.dtype).to(torch.float32),
-                     v_cache.to(torch.float32))
-    if group is not None:
-        o = group.all_reduce(o)
+    o = softmax_values(s, v_cache, "bkps,bskd->bkpd", group)
     return o.reshape(b, H, dh).to(q.dtype)
 
 
@@ -121,10 +147,9 @@ class Attention(ParamModule):
         self.rope_theta, self.use_rope = rope_theta, use_rope
         self.qkv_bias, self.out_bias = qkv_bias, out_bias
         self.causal, self.is_cross = causal, is_cross
-        if group is not None and (is_cross or layout == "fsdp_sp"):
-            raise NotImplementedError(
-                f"{name}: {'cross-attention' if is_cross else layout} "
-                f"over ranks {NOT_RUN}")
+        if group is not None and layout == "fsdp_sp":
+            raise NotImplementedError(f"{name}: {layout} over ranks "
+                                      f"{NOT_RUN}")
         self._materialize(device, dtype, topo, group)
 
     def register(self, store: ParamStore) -> None:
@@ -185,11 +210,12 @@ class Attention(ParamModule):
         block] -> (b, s, d) [and (k, v)].  On a rank: x and the output are
         the rank's run of the sequence when ``seq_sharded``, and k, v whole
         (b, s, KV, dh)."""
-        if self.tp_group is not None:
-            return self._megatron(x, positions, return_kv, seq_sharded)
         if self.is_cross and memory is None:
             raise ValueError(f"{self.name}: a cross-attention block needs "
                              f"memory")
+        if self.tp_group is not None:
+            return self._megatron(x, positions, return_kv, seq_sharded,
+                                  memory)
         q, k, v = self._qkv(x, memory)
         if self.use_rope and not self.is_cross:
             q = apply_rope(q, positions, self.rope_theta)
@@ -203,7 +229,8 @@ class Attention(ParamModule):
         return out
 
     def _megatron(self, x: torch.Tensor, positions: torch.Tensor,
-                  return_kv: bool, seq_sharded: bool):
+                  return_kv: bool, seq_sharded: bool,
+                  memory: torch.Tensor | None):
         g = self.tp_group
         if seq_sharded:
             x = g.all_gather(x, 1)
@@ -211,21 +238,25 @@ class Attention(ParamModule):
         q = self._proj(x, self.wq)
         if self.qkv_bias:
             q = q + self.bq[heads]
-        k = self._proj(x, self.wk)
-        v = self._proj(x, self.wv)
+        src = memory if self.is_cross else x
+        k = self._proj(src, self.wk)
+        v = self._proj(src, self.wv)
         if self.split("wk"):                     # the rank's run of head_dim
             k = g.all_gather(k, -1)
             v = g.all_gather(v, -1)
         if self.qkv_bias:
             k = k + self.bk
             v = v + self.bv
-        if self.use_rope:
+        if self.use_rope and not self.is_cross:
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
         kv = rank_kv_heads(self.num_heads, self.num_kv_heads, g.size,
                            g.rank)
-        o = ops.flash_attention(q, k[:, :, kv], v[:, :, kv],
-                                causal=self.causal)
+        dt = torch.promote_types(q.dtype, k.dtype)
+        o = ops.flash_attention(q.to(dt), k[:, :, kv].to(dt),
+                                v[:, :, kv].to(dt),
+                                causal=self.causal and not self.is_cross)
+        o = o.to(q.dtype)
         H, dh, d = self.wo.shape
         partial = matmul_f32(o.flatten(-2), self.wo.reshape(H * dh, d))
         out = reduce_partials(partial, g, seq_sharded,
@@ -267,7 +298,8 @@ class Attention(ParamModule):
                    v_cache: torch.Tensor, lo: int | None):
         g = self.tp_group
         H, KV, dh = self.num_heads, self.num_kv_heads, self.head_dim
-        ws = [w.reshape(w.shape[0], -1) for w in (self.wq, self.wk, self.wv)]
+        own = (self.wq,) if self.is_cross else (self.wq, self.wk, self.wv)
+        ws = [w.reshape(w.shape[0], -1) for w in own]
         dt = torch.promote_types(x.dtype, self.wq.dtype)
         if self.split("wq"):                     # the rank's run of d_model
             rows = self.block("wq")[0]
@@ -275,19 +307,25 @@ class Attention(ParamModule):
                                           for w in ws], -1)).to(dt)
         else:
             qkv = torch.cat([matmul(x, w) for w in ws], -1)
-        q, k, v = qkv.split([H * dh, KV * dh, KV * dh], -1)
-        q, k, v = (q.unflatten(-1, (H, dh)), k.unflatten(-1, (KV, dh)),
-                   v.unflatten(-1, (KV, dh)))
-        if self.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        if self.use_rope:
-            pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
-            q = apply_rope(q[:, None], pos, self.rope_theta)[:, 0]
-            k = apply_rope(k[:, None], pos, self.rope_theta)[:, 0]
         start = 0 if lo is None else lo
-        if start <= t < start + k_cache.shape[1]:
-            k_cache[:, t - start] = k.to(k_cache.dtype)
-            v_cache[:, t - start] = v.to(v_cache.dtype)
+        if self.is_cross:     # every memory position, nothing written
+            q = qkv.unflatten(-1, (H, dh))
+            if self.qkv_bias:
+                q = q + self.bq
+            t = start + k_cache.shape[1] - 1
+        else:
+            q, k, v = qkv.split([H * dh, KV * dh, KV * dh], -1)
+            q, k, v = (q.unflatten(-1, (H, dh)), k.unflatten(-1, (KV, dh)),
+                       v.unflatten(-1, (KV, dh)))
+            if self.qkv_bias:
+                q, k, v = q + self.bq, k + self.bk, v + self.bv
+            if self.use_rope:
+                pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
+                q = apply_rope(q[:, None], pos, self.rope_theta)[:, 0]
+                k = apply_rope(k[:, None], pos, self.rope_theta)[:, 0]
+            if start <= t < start + k_cache.shape[1]:
+                k_cache[:, t - start] = k.to(k_cache.dtype)
+                v_cache[:, t - start] = v.to(v_cache.dtype)
         o = decode_attention(q, k_cache, v_cache, t,
                              group=None if lo is None else g, lo=start)
         out = matmul(o.flatten(-2), self.wo.reshape(H * dh, -1))
@@ -306,14 +344,15 @@ class MLAttention(ParamModule):
     def __init__(self, name: str, d_model: int, num_heads: int,
                  kv_lora_rank: int, qk_nope_dim: int, qk_rope_dim: int,
                  v_head_dim: int, layout: str, rope_theta: float = 10_000.0,
-                 norm_eps: float = 1e-5, *, device, dtype=None):
+                 norm_eps: float = 1e-5, *, device, dtype=None,
+                 topo=ONE_DEVICE, group=None):
         super().__init__()
         self.name, self.d_model, self.num_heads = name, d_model, num_heads
         self.kv_lora_rank, self.qk_nope_dim = kv_lora_rank, qk_nope_dim
         self.qk_rope_dim, self.v_head_dim = qk_rope_dim, v_head_dim
         self.layout, self.rope_theta, self.norm_eps = (layout, rope_theta,
                                                        norm_eps)
-        self._materialize(device, dtype)
+        self._materialize(device, dtype, topo, group)
 
     @property
     def qk_dim(self) -> int:
@@ -335,24 +374,32 @@ class MLAttention(ParamModule):
                                      + self.v_head_dim), ax_kvb))
         store.add("wo", ParamDef((H, self.v_head_dim, d), ax_o))
 
+    def _norm(self, c: torch.Tensor) -> torch.Tensor:
+        # the kernel takes contiguous rows; kv_norm is a weight
+        return ops.rmsnorm(c.contiguous(), self.kv_norm, self.norm_eps,
+                           pdl=True)
+
     def _latent(self, x: torch.Tensor):
         """x (b, s, d) -> normalised latent c (b, s, lora) in x's dtype, and
         the rope key before rope (b, s, rope)."""
         kva = x @ self.w_kva
         c, k_rope = kva.split([self.kv_lora_rank, self.qk_rope_dim], dim=-1)
-        # the kernel takes contiguous rows; kv_norm is a weight
-        c = ops.rmsnorm(c.contiguous(), self.kv_norm, self.norm_eps,
-                        pdl=True)
-        return c, k_rope
+        return self._norm(c), k_rope
 
     # -- full-sequence forward (prefill) ---------------------------------
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                return_kv: bool = False):
+                return_kv: bool = False, seq_sharded: bool = False):
         """x (b, s, d), positions (s,) -> (b, s, d) [and the caches' rows
-        (c (b, s, lora), roped k_rope (b, s, rope))]."""
+        (c (b, s, lora), roped k_rope (b, s, rope))].  On a rank: x and
+        the output are the rank's run of the sequence when
+        ``seq_sharded``, q, k and v the rank's heads, the caches' rows
+        whole."""
+        g = self.tp_group
+        if g is not None and seq_sharded:
+            x = g.all_gather(x, 1)
         b, s, _ = x.shape
-        H = self.num_heads
         q = Attention._proj(x, self.wq)
+        H = q.shape[2]                            # the rank's heads
         q_nope, q_rope = q.split([self.qk_nope_dim, self.qk_rope_dim], dim=-1)
         q_rope = apply_rope(q_rope, positions, self.rope_theta)
         c, k_rope = self._latent(x)
@@ -364,45 +411,85 @@ class MLAttention(ParamModule):
         qf = torch.cat([q_nope, q_rope], dim=-1)
         o = latent_prefill_attention(qf, k, v, self.qk_dim ** -0.5)
         H_, dv, d = self.wo.shape
-        out = o.flatten(-2) @ self.wo.reshape(H_ * dv, d)
+        if g is None or not self.split("wo"):
+            out = whole_output(o.flatten(-2) @ self.wo.reshape(H_ * dv, d),
+                               g, seq_sharded)
+        else:                         # row-parallel over the rank's heads
+            out = reduce_partials(
+                matmul_f32(o.flatten(-2), self.wo.reshape(H_ * dv, d)), g,
+                seq_sharded, torch.promote_types(o.dtype, self.wo.dtype))
         if return_kv:
             return out, (c, k_rope[:, :, 0, :])
         return out
 
     # -- single-token decode, absorbed ------------------------------------
     def decode(self, x: torch.Tensor, t: int, c_cache: torch.Tensor,
-               rope_cache: torch.Tensor):
+               rope_cache: torch.Tensor, lo: int | None = None):
         """x (b, d) at position t.  Writes this token's latent and rope key
         into the caches (b, S, lora) and (b, S, rope) in place at t, then
         scores and reads values in the latent space: W_UK absorbed into q,
-        W_UV applied after.  Returns (out (b, d), (c_cache, rope_cache))."""
+        W_UV applied after.  Returns (out (b, d), (c_cache, rope_cache)).
+        On a rank (``decode_rp``) the caches hold positions [lo, lo + S) of
+        sequence-sharded caches, or (``lo`` None) all of them; the
+        softmax's max and sum and the latent output are then reduced over
+        the ranks."""
+        g = self.tp_group
         b, d = x.shape
-        H, nope = self.num_heads, self.qk_nope_dim
-        q = Attention._proj(x[:, None], self.wq)[:, 0]          # (b, H, qk)
-        q_nope, q_rope = q.split([nope, self.qk_rope_dim], dim=-1)
+        H, nope, dv = self.num_heads, self.qk_nope_dim, self.v_head_dim
+        lora, rope = self.kv_lora_rank, self.qk_rope_dim
+        ws = (self.wq.reshape(self.wq.shape[0], -1), self.w_kva)
+        if self.split("wq"):                     # the rank's run of d_model
+            rows = self.block("wq")[0]
+            qkva = g.all_reduce(torch.cat([matmul_f32(x[:, rows], w)
+                                           for w in ws], -1)).to(
+                torch.promote_types(x.dtype, self.wq.dtype))
+        else:
+            qkva = torch.cat([matmul(x, w) for w in ws], -1)
+        q, kva = qkva.split([H * self.qk_dim, lora + rope], -1)
+        q_nope, q_rope = q.unflatten(-1, (H, self.qk_dim)).split(
+            [nope, rope], dim=-1)
         pos = torch.full((1,), t, dtype=torch.int64, device=x.device)
         q_rope = apply_rope(q_rope[:, None], pos, self.rope_theta)[:, 0]
-        c_new, k_rope_new = self._latent(x[:, None])
-        k_rope_new = apply_rope(k_rope_new[:, :, None, :], pos,
-                                self.rope_theta)[:, :, 0, :]
-        c_cache[:, t] = c_new[:, 0].to(c_cache.dtype)
-        rope_cache[:, t] = k_rope_new[:, 0].to(rope_cache.dtype)
-        wk, wv = self.w_kvb.split([nope, self.v_head_dim], dim=-1)
-        q_eff = torch.einsum("bhn,rhn->bhr", q_nope, wk)        # absorb W_UK
+        c_new, k_rope_new = kva.split([lora, rope], dim=-1)
+        c_new = self._norm(c_new)                # on the whole latent
+        k_rope_new = apply_rope(k_rope_new[:, None, None, :], pos,
+                                self.rope_theta)[:, 0, 0, :]
+        start = 0 if lo is None else lo
+        if start <= t < start + c_cache.shape[1]:
+            c_cache[:, t - start] = c_new.to(c_cache.dtype)
+            rope_cache[:, t - start] = k_rope_new.to(rope_cache.dtype)
+        if self.split("w_kvb"):
+            # the rank's run of w_kvb's last dim (k_nope columns, value
+            # columns, or both): q_eff's float32 partial over its k_nope
+            # columns (q is zero on the value columns), summed once
+            cols = self.block("w_kvb")[2]
+            qn = torch.nn.functional.pad(q_nope, (0, dv))[..., cols]
+            w = self.w_kvb.permute(1, 2, 0)                  # (H, n, lora)
+            q_eff = g.all_reduce(bmm_f32(qn.transpose(0, 1), w)
+                                 ).transpose(0, 1).to(q_nope.dtype)
+        else:                                    # absorb W_UK
+            q_eff = torch.einsum("bhn,rhn->bhr", q_nope,
+                                 self.w_kvb[..., :nope])
+        seq = None if lo is None else g          # the caches are cut
         f32 = torch.float32
         s = (torch.einsum("bhr,bsr->bhs", q_eff.to(f32), c_cache.to(f32))
              + torch.einsum("bhr,bsr->bhs", q_rope.to(f32),
                             rope_cache.to(f32)))
         s = s * (self.qk_dim ** -0.5)
-        posv = torch.arange(c_cache.shape[1], device=x.device)
+        posv = torch.arange(start, start + c_cache.shape[1], device=x.device)
         s = s.masked_fill(posv > t, _NEG)
-        pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        pr = pr / pr.sum(dim=-1, keepdim=True)
-        o_lat = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).to(f32),
-                             c_cache.to(f32)).to(x.dtype)
-        o = torch.einsum("bhr,rhv->bhv", o_lat, wv)              # absorb W_UV
-        out = o.reshape(b, H * self.v_head_dim) @ self.wo.reshape(
-            H * self.v_head_dim, d)
+        o_lat = softmax_values(s, c_cache, "bhs,bsr->bhr", seq).to(x.dtype)
+        if self.split("w_kvb"):
+            # each rank's columns of o_lat · w_kvb, gathered: the values are
+            # the last dv of them (a (b, H, nope + dv) activation, never a
+            # weight)
+            o = g.all_gather(torch.einsum("bhr,rhn->bhn", o_lat,
+                                          self.w_kvb), -1)[..., nope:]
+        else:                                    # absorb W_UV
+            o = torch.einsum("bhr,rhv->bhv", o_lat, self.w_kvb[..., nope:])
+        out = matmul(o.reshape(b, H * dv), self.wo.reshape(H * dv, -1))
+        if self.split("wo"):                     # the rank's output columns
+            out = g.all_gather(out, -1)
         return out, (c_cache, rope_cache)
 
 

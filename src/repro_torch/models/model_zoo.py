@@ -7,18 +7,18 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.common import ONE_DEVICE, Topo
 from repro_torch.models.encdec import EncDecLM
-from repro_torch.models.transformer import LM, rank_group
+from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ModelConfig, topo: Topo = ONE_DEVICE,
                  kind: str = "train", *, device="cuda", dtype=None,
                  group=None) -> LM | EncDecLM:
     """The model of ``cfg`` in ``kind``'s layouts under ``topo``; with a
-    ``group`` (``models.parallel``), that rank's blocks of it (the dense
-    family only: ``transformer.rank_group``)."""
+    ``group`` (``models.parallel``), that rank's blocks of it
+    (``transformer.rank_group``)."""
     if cfg.is_encoder_decoder:
-        rank_group(cfg, topo, group)          # raises over several ranks
-        return EncDecLM(cfg, topo, kind, device=device, dtype=dtype)
+        return EncDecLM(cfg, topo, kind, device=device, dtype=dtype,
+                        group=group)
     return LM(cfg, topo, kind, device=device, dtype=dtype, group=group)
 
 

@@ -37,12 +37,14 @@ Every rank routes all of a group's tokens (a sequence-sharded input is
 gathered first), so the capacity slots, a cumsum in token order across a
 group, are the reference's; the routing is the same on every rank, bit for
 bit, as every rank computes it from the same bits.  A rank dispatches only
-to the experts it holds, runs its part of their products (the d_ff-cut
-ones leave float32 partials of ``w_down``), combines its terms as float32
-partials, and the ranks sum them in float32 and round once, onto the
-rank's run of the sequence or whole (``layers.reduce_partials``).  Where
-the unsharded block rounds each expert's output before the combine, a
-d_ff-cut rank's partials are not rounded until the sum.
+to the experts it holds and runs its part of their products.  ``ep``
+holds whole experts: it combines its terms as float32 partials, which
+the ranks sum in float32 and round once, onto the rank's run of the
+sequence or whole (``layers.reduce_partials``).  The d_ff-cut placements
+leave float32 partials of ``w_down``: the ranks sum each token's (at most
+k) expert rows in float32 (onto the rank's run, or whole) and round each
+row to the activations' dtype, as the unsharded block's products round
+each expert's output, before the combine.
 """
 from __future__ import annotations
 
@@ -245,11 +247,26 @@ class MoE(ParamModule):
         # of a token summed in float32
         w = r.weight.to(x.dtype).to(torch.float32)
         rows = ye[torch.where(sel, slot, 0)].to(torch.float32)  # (G,S,k,d)
+        if self.split("w_down") and not self._expert_cut:
+            # each expert row's float32 partials summed over the ranks,
+            # then rounded as the unsharded product rounds it
+            k = self.top_k
+            rows, sel, w = (t.reshape(b, s, k, *t.shape[3:])
+                            for t in (rows, sel, w))
+            rows = grp.reduce_scatter(rows, 1) if seq_sharded \
+                else grp.all_reduce(rows)
+            rows = rows.to(x.dtype).to(torch.float32)
+            if seq_sharded:
+                n = s // grp.size
+                sel, w = (t.narrow(1, grp.rank * n, n) for t in (sel, w))
+                s = n
         terms = torch.where(sel[..., None], w[..., None] * rows,
                             torch.zeros((), device=x.device))
-        partial = terms.sum(dim=2).reshape(b, s, d)
-        if self.split("w_down"):       # the ranks' terms, summed
+        partial = terms.sum(dim=-2).reshape(b, s, d)
+        if self._expert_cut:           # the ranks' terms, summed
             out = reduce_partials(partial, grp, seq_sharded, x.dtype)
+        elif self.split("w_down"):     # the rank's rows, whole or its run
+            out = partial.to(x.dtype)
         else:
             out = whole_output(partial.to(x.dtype), grp, seq_sharded)
         if self.num_shared:

@@ -26,18 +26,20 @@ Entry points:
     normed input, as ``prefill`` and ``decode_step`` run it, for a
     comparison layer by layer.
 
-On a rank of a (1, tp) mesh (``group``; the dense, moe (without MLA),
-ssm and hybrid families) the layers hold their blocks by the reference's
-pspecs (``models.common.Topo``): attention and MLP Megatron-style, MoE by
-its placement (``models.moe``), Mamba over its channels (``models.ssm``).
-``prefill`` keeps the residual stream sharded over the sequence (whole
-when tp does not divide the prompt, the reference's fallback to
-replication), gathers the last position's normed row from the rank that
-holds it and returns the logits whole on every rank, the attention caches
-whole and a Mamba layer's caches the rank's channels.  ``decode_step``
-keeps the residual whole and reads attention caches sharded over the
-sequence when the engine passes their length (``cache_len``), each rank
-holding its run, and a Mamba layer's caches over its channels.
+On a rank of a (1, tp) mesh (``group``; every family of this model) the
+layers hold their blocks by the reference's pspecs
+(``models.common.Topo``): attention (MLA and the vlm's cross-attention
+too) and MLP Megatron-style, MoE by its placement (``models.moe``), Mamba
+over its channels (``models.ssm``).  ``prefill`` keeps the residual stream
+sharded over the sequence (whole when tp does not divide the prompt, the
+reference's fallback to replication), gathers the last position's normed
+row from the rank that holds it and returns the logits whole on every
+rank, the attention caches whole and a Mamba layer's caches the rank's
+channels.  ``decode_step`` keeps the residual whole and reads attention
+caches sharded over the sequence when the engine passes their length
+(``cache_len``), each rank holding its run (a cross layer's cache its run
+of the ``num_image_tokens`` memory positions, or all of them where tp
+does not divide them), and a Mamba layer's caches over its channels.
 
 The vlm's cross-attention sublayer (the last layer of each period of
 ``cross_attn_period``) is gated: its output times ``tanh(gate)``, taken in
@@ -57,8 +59,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
-                                       ParamStore, Topo,
-                                       init_param_, maybe_remat)
+                                       ParamStore, Topo, init_param_,
+                                       maybe_remat)
 from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
@@ -100,7 +102,8 @@ def apply_sublayer(sub: SubLayer, x: torch.Tensor, positions: torch.Tensor,
                                seq_sharded=seq_sharded)
         return sub.gate_out(out), {"k": k, "v": v}
     if sub.kind == "mla":
-        out, (ckv, krope) = sub.core(x, positions, return_kv=True)
+        out, (ckv, krope) = sub.core(x, positions, return_kv=True,
+                                     seq_sharded=seq_sharded)
         return out, {"ckv": ckv, "krope": krope}
     if sub.kind == "mamba":
         out, (state, conv) = sub.core(x, return_state=True,
@@ -116,12 +119,13 @@ def decode_sublayer(sub: SubLayer, x: torch.Tensor, t: int,
     """One sublayer's block on its normed input at decode position ``t``;
     ``entry`` holds this period's cache slices, written in place (a cross
     block's only read); on a rank, positions [lo, ...) of a
-    sequence-sharded cache (``lo`` None: the whole cache)."""
+    sequence-sharded cache (``lo`` None: the whole cache; a cross block's
+    ``lo`` is its run of the memory)."""
     if sub.kind in ("attn", "cross"):
         return sub.gate_out(sub.core.decode(x, t, entry["k"], entry["v"],
                                             lo)[0])
     if sub.kind == "mla":
-        return sub.core.decode(x, t, entry["ckv"], entry["krope"])[0]
+        return sub.core.decode(x, t, entry["ckv"], entry["krope"], lo)[0]
     if sub.kind == "mamba":
         return sub.core.decode(x, t, entry["state"], entry["conv"])[0]
     if sub.kind == "moe":
@@ -184,7 +188,7 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
                 cfg.mla_qk_nope, cfg.qk_rope_dim, cfg.mla_v_dim,
                 layout="decode_rp" if kind == "decode" else "megatron",
                 rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
-                device=device, dtype=dtype)))
+                device=device, dtype=dtype, topo=topo, group=group)))
         else:
             n = f"l{j}_attn"
             subs.append(SubLayer(n, "attn", norm(n), Attention(
@@ -199,8 +203,8 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
             subs.append(SubLayer(n, "cross", norm(n), Attention(
                 f"{n}/core", cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim, layout=layout, use_rope=False, is_cross=True,
-                causal=False, device=device, dtype=dtype), gated=True,
-                device=device, dtype=dtype))
+                causal=False, device=device, dtype=dtype, topo=topo,
+                group=group), gated=True, device=device, dtype=dtype))
         # ---- ffn ----
         if cfg.is_moe_layer(j):
             n = f"l{j}_moe"
@@ -222,11 +226,36 @@ def build_period(cfg: ModelConfig, topo: Topo, kind: str, *, device,
 
 class ModelBase(nn.Module):
     """What ``LM`` and the enc-dec model share: the device of their
-    embedding table, their defs by state-dict name, the seeded init."""
+    embedding table, their defs by state-dict name, the seeded init, and
+    on a rank which sequences are cut over the ranks."""
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    def _runs(self) -> None:
+        """Raise unless this model can run: a layout over several devices
+        runs on one of its ranks (a model built without the group holds
+        whole tensors and only describes the layout)."""
+        n = self.topo.axis_size("all")
+        if n > 1 and self.group is None:
+            raise ValueError(f"{self.cfg.name}: laid out over {n} devices; "
+                             f"build it with the group of one rank to run "
+                             f"it")
+
+    def seq_sharded(self, n: int) -> bool:
+        """A length-n sequence (a prompt, a cache) is cut over the ranks:
+        on a rank, when tp divides n."""
+        return self.group is not None and \
+            self.topo.resolve("seq_tp", n) is not None
+
+    def cache_start(self, cache_len: int | None) -> int | None:
+        """The first position of this rank's run of a sequence-sharded
+        cache of ``cache_len`` positions, or None where it holds the cache
+        whole."""
+        if cache_len is None or not self.seq_sharded(cache_len):
+            return None
+        return self.group.rank * (cache_len // self.group.size)
 
     def param_defs(self) -> ParamStore:
         """Every parameter's def under its state-dict name."""
@@ -310,30 +339,6 @@ class LM(ModelBase):
                                dtype=dtype, topo=topo, group=group)
         self.final_norm = Norm("final_norm", cfg.d_model, cfg.norm_type,
                                cfg.norm_eps, device=dev, dtype=dtype)
-
-    def _runs(self) -> None:
-        """Raise unless this model can run: a layout over several devices
-        runs on one of its ranks (a model built without the group holds
-        whole tensors and only describes the layout)."""
-        n = self.topo.axis_size("all")
-        if n > 1 and self.group is None:
-            raise ValueError(f"{self.cfg.name}: laid out over {n} devices; "
-                             f"build it with the group of one rank to run "
-                             f"it")
-
-    def seq_sharded(self, n: int) -> bool:
-        """A length-n sequence (a prompt, a cache) is cut over the ranks:
-        on a rank, when tp divides n."""
-        return self.group is not None and \
-            self.topo.resolve("seq_tp", n) is not None
-
-    def cache_start(self, cache_len: int | None) -> int | None:
-        """The first position of this rank's run of a sequence-sharded
-        cache of ``cache_len`` positions, or None where it holds the cache
-        whole."""
-        if cache_len is None or not self.seq_sharded(cache_len):
-            return None
-        return self.group.rank * (cache_len // self.group.size)
 
     # ------------------------------------------------------------------
     def _memory(self, batch: dict) -> torch.Tensor | None:
@@ -448,17 +453,21 @@ class LM(ModelBase):
         """tokens (b,) at position t -> (logits (b, padded_vocab) float32,
         caches updated in place).  On a rank, ``cache_len`` is the whole
         caches' length, of which a cache that tp divides holds the rank's
-        run (``cache_start``); without it the caches are whole."""
+        run (``cache_start``), a cross layer's cache its run of the
+        ``num_image_tokens``; without it the caches are whole."""
         self._runs()
         lo = self.cache_start(cache_len)
+        lo_x = None if cache_len is None \
+            else self.cache_start(self.cfg.num_image_tokens)
         h = self.embed.embed(torch.as_tensor(tokens,
                                              device=self.device).long())
         self.promote_conv(caches, h.dtype)
         for i, layer in enumerate(self.layers):
-            for name, _ in self.period_kinds:
+            for name, kind in self.period_kinds:
                 sub = layer[name]
                 entry = {key: c[i] for key, c in caches.get(name, {}).items()}
-                h = h + decode_sublayer(sub, sub.norm(h), t, entry, lo)
+                h = h + decode_sublayer(sub, sub.norm(h), t, entry,
+                                        lo_x if kind == "cross" else lo)
         h = self.final_norm(h)
         return self.embed.logits(h), caches
 
@@ -518,17 +527,13 @@ CACHE_AXES = {
 def rank_group(cfg: ModelConfig, topo: Topo, group):
     """The group a model of ``cfg`` runs its rank in: None on one device
     (a group of one rank included), else ``group``, checked against the
-    mesh; a mesh with data > 1, or MLA, a vlm or an enc-dec model over
-    several ranks, raises ``NotImplementedError``."""
+    mesh.  Every family and MLA runs over ranks; a mesh with data > 1
+    raises ``NotImplementedError`` (``Topo.tp``), as do ``fsdp_sp``
+    attention (``Attention``) and sharded training (``loss``)."""
     if group is None:
         return None
     tp = topo.tp
     if group.size != tp:
         raise ValueError(f"a group of {group.size} ranks for a mesh of "
                          f"tp = {tp}")
-    if tp == 1:
-        return None
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) over {tp} "
-                                  f"ranks {NOT_RUN}")
-    return group
+    return None if tp == 1 else group

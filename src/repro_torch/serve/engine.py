@@ -24,7 +24,9 @@ so), and a Mamba layer's state and conv window hold the rank's channels,
 whole along their own sequence.  A cross-attention cache (the vlm's over
 its ``num_image_tokens``, the enc-dec's over ``memory_len =
 frames.shape[1]``) is cast, never padded: a zero key past the memory
-would be attended to at decode.
+would be attended to at decode.  On a rank it holds its run of the memory
+positions where tp divides the memory's length, else all of them (the
+reference's fallback to replication), whatever ``max_len`` does.
 """
 from __future__ import annotations
 
@@ -94,16 +96,18 @@ class ServeEngine:
         else:
             structs = self.decode_model.cache_shape_structs(batch,
                                                             self.max_len)
-        lo = None if self.group is None \
-            else self.decode_model.cache_start(self.max_len)
         out = {}
         for name, entry in structs.items():
             out[name] = {}
             for key, (shape, dtype) in entry.items():
                 c = caches[name][key]
                 if key in ("k", "v", "ckv", "krope"):   # (n, b, seq, ...)
-                    if lo is not None:     # the rank's run of the positions
-                        shape = (*shape[:2], self.max_len // self.group.size,
+                    # the rank's run of the positions, of the memory's for
+                    # a cross cache
+                    lo = self.decode_model.cache_start(shape[2]) \
+                        if self.group is not None else None
+                    if lo is not None:
+                        shape = (*shape[:2], shape[2] // self.group.size,
                                  *shape[3:])
                         c = c[:, :, lo:lo + shape[2]]
                     buf = torch.zeros(shape, dtype=dtype, device=c.device)
@@ -126,10 +130,12 @@ class ServeEngine:
             raise ValueError("sampling (greedy=False) requires a generator; "
                              "pass generator=torch.Generator(...) or use "
                              "greedy=True")
+        mem_len = batch["frames"].shape[1] if "frames" in batch else None
         step_kw = {} if self.group is None else {"cache_len": self.max_len}
+        if self.group is not None and mem_len is not None:
+            step_kw["memory_len"] = mem_len
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(batch)
-        mem_len = batch["frames"].shape[1] if "frames" in batch else None
         caches = self._pad_caches(caches, b, memory_len=mem_len)
         self.stats.prefill_tokens += b * s
         self.stats.requests += 1

@@ -113,3 +113,73 @@ def test_tp_jamba_ranks_on_the_card_match_one_card(cuda, tp, dtype):
         assert launches["flash_attention"] == 1
         assert launches["ssm_scan"] == 5
         assert launches["rmsnorm"] == 5 * 5
+
+
+def away_from_zero(model, seed: int = 5) -> None:
+    """Every vlm gate and attention bias (zero at init, where they would
+    leave the cross layers out or hide a bias added once a rank) drawn in
+    [0.5, 1.5] on the host from ``seed``, whole, and the model's block of
+    it kept: the same values on one card and on every rank."""
+    gen = torch.Generator().manual_seed(seed)
+    defs, blocks = model.param_defs().defs, model.blocks()
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            if name.rsplit(".", 1)[-1] in ("gate", "bq", "bk", "bv", "bo"):
+                whole = torch.rand(defs[name].shape, generator=gen) + 0.5
+                p.copy_(whole[blocks[name]].to(p.device))
+
+
+# per arch: its stub input, flash launches a prefill and rmsnorm launches a
+# forward of the reduced model (4 layers; the vlm's 2 cross layers,
+# whisper's 2 encoder layers and LayerNorms)
+CROSS_ARCHS = {"deepseek-v2-236b": (None, 0, 3 * 4 + 1),
+               "llama-3.2-vision-11b": ("image_embeds", 4 + 2, 2 * 4 + 2 + 1),
+               "whisper-medium": ("frames", 2 + 2 * 4, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", sorted(CROSS_ARCHS))
+def test_tp_mla_and_cross_ranks_on_the_card_match_one_card(cuda, arch, tp,
+                                                           dtype):
+    """A reduced deepseek-v2 (MLA + MoE), vlm or whisper over tp threads,
+    its gates and biases away from zero: prefill logits and 4 greedy steps
+    equal the unsharded engine's within the models' tolerances, the ids
+    equal, every rank launching the model's flash kernels a prefill (on
+    its heads; the vlm's cross layers and whisper's encoder and cross
+    layers in float32 over the float32 memory) and rmsnorms a forward (3
+    a deepseek layer: the two norms and the latent norm)."""
+    cfg = ARCHS[arch].reduced()
+    key, flash, norms = CROSS_ARCHS[arch]
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(
+        np.int32)}
+    if key is not None:
+        memory = cfg.num_image_tokens if key == "image_embeds" else 96
+        batch[key] = rng.standard_normal((2, memory, cfg.d_model)).astype(
+            np.float32) * 0.02
+    one = ServeEngine(cfg, max_len=72, device=cuda, dtype=dtype)
+    one.init_params(0)
+    away_from_zero(one.model)
+    want_logits = one.model.prefill(batch)[0]
+    want = one.generate(batch, 4)
+    topo = Topo(MeshConfig((1, tp), ("data", "model")))
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+
+    def rank(g):
+        eng = ServeEngine(cfg, max_len=72, device=g.device, dtype=dtype,
+                          topo=topo, group=g)
+        eng.init_params(0)
+        away_from_zero(eng.model)
+        logits = eng.model.prefill(batch)[0]
+        with build.rank_counts() as launches:
+            ids = eng.generate(batch, 4)
+        return logits.cpu(), ids, dict(launches)
+
+    for logits, ids, launches in run_local(rank, tp, devices):
+        torch.testing.assert_close(logits, want_logits.cpu(), **TOL[dtype])
+        np.testing.assert_array_equal(ids, want)
+        assert launches["flash_attention"] == flash
+        assert launches["rmsnorm"] == norms * 5

@@ -1,6 +1,7 @@
 """``DistGroup`` (gloo processes started by ``parallel.spawn``) against
 ``LocalGroup`` (threads): the same collectives and the same tp = 2
-serving of a reduced command-r-35b and a reduced jamba-1.5-large-398b.
+serving of a reduced command-r-35b, jamba-1.5-large-398b, deepseek-v2-236b
+(MLA) and whisper-medium (an encoder and cross-attention).
 
 This file imports neither JAX nor the reference, so the spawned ranks,
 which import it to find their function, start in about three seconds.
@@ -17,6 +18,7 @@ from repro_torch.configs.base import MeshConfig
 from repro_torch.models.common import Topo
 from repro_torch.models.parallel import run_local, spawn
 from repro_torch.serve import ServeEngine
+from test_torch_tp_cuda import away_from_zero
 
 CFG = ARCHS["command-r-35b"].reduced(num_layers=2)
 TOKENS = np.random.default_rng(4).integers(
@@ -99,6 +101,58 @@ def test_dist_group_serves_jamba_as_the_threads_do():
         np.testing.assert_array_equal(p["ids"], t["ids"])
     np.testing.assert_array_equal(procs[0]["ids"], procs[1]["ids"])
     assert threads[0]["state"].shape[2] == JAMBA.d_inner // 2
+
+
+def cross_run(group, arch: str) -> dict:
+    """A float32 reduced ``arch`` on this rank (the seeded init, then every
+    gate and bias drawn away from 0, ``away_from_zero``): prefill logits, the
+    rank's run of each cache after 2 greedy steps and their logits, the
+    ids.  whisper's 12 frames are cut over the ranks, its encoder too."""
+    cfg = ARCHS[arch].reduced()
+    eng = ServeEngine(cfg, max_len=40, device="cpu", dtype=torch.float32,
+                      topo=Topo(MeshConfig((1, group.size),
+                                           ("data", "model"))),
+                      group=group)
+    eng.init_params(0)
+    away_from_zero(eng.model)
+    batch = {"tokens": TOKENS}
+    mem = {}
+    if cfg.family == "audio":
+        batch["frames"] = np.random.default_rng(6).standard_normal(
+            (2, 12, cfg.d_model)).astype(np.float32) * 0.02
+        mem = {"memory_len": 12}
+    logits, caches = eng.model.prefill(batch)
+    out = {"logits": [logits]}
+    caches = eng._pad_caches(caches, 2, **mem)
+    for i in range(2):
+        nxt = logits[:, :cfg.vocab_size].argmax(-1)
+        logits, caches = eng.decode_model.decode_step(
+            caches, nxt, 16 + i, cache_len=40, **mem)
+        out["logits"].append(logits)
+    out["caches"] = {f"{n}.{k}": c.float() for n, e in caches.items()
+                     for k, c in e.items()}
+    out["ids"] = eng.generate(batch, 3)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-medium"])
+def test_dist_group_serves_mla_and_enc_dec_as_the_threads_do(arch):
+    """Reduced deepseek-v2 (MLA's sharded latent caches, ``w_kvb``'s k and
+    value ranks) and whisper (non-zero biases, the encoder over the
+    frames, sequence-sharded cross caches) at tp = 2: gloo processes and
+    threads give the same logits, cache runs and ids."""
+    procs = spawn(cross_run, 2, "gloo", timeout=120.0, args=(arch,))
+    threads = run_local(lambda g: cross_run(g, arch), 2)
+    for p, t in zip(procs, threads):
+        assert sorted(p["caches"]) == sorted(t["caches"])
+        for key, c in t["caches"].items():
+            np.testing.assert_allclose(p["caches"][key].numpy(), c.numpy(),
+                                       rtol=0, atol=1e-6, err_msg=key)
+        for a, b in zip(p["logits"], t["logits"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(p["ids"], t["ids"])
+    np.testing.assert_array_equal(procs[0]["ids"], procs[1]["ids"])
 
 
 def test_dist_group_over_gloo_equals_the_threads():

@@ -324,3 +324,45 @@ def test_the_launcher_serves_jamba_over_threads_as_on_one_device(
     with pytest.raises(ValueError, match="do not fit"):
         serve.check_fits(ARCHS[JAMBA], torch.device("cpu"), 4,
                          ranks_per_device=10**3)
+
+
+@pytest.mark.parametrize("placement,tokens,tp", [
+    ("ep_decode", 4, 2), ("ep_decode", 4, 4), ("gathered", 32, 4)])
+def test_d_ff_cut_experts_round_each_row_as_one_device_does(placement,
+                                                           tokens, tp):
+    """bfloat16 experts large enough that an expert's output row (up to
+    ~77) has a bfloat16 ulp of 0.25-0.5: the unsharded block rounds each
+    expert's row before the combine, so the d_ff-cut ranks sum each row's
+    float32 partials over the ranks and round it before theirs.  The
+    ranks' output equals one device's bit for bit (one device on the same
+    mesh, whose token groups ``gathered`` follows; ``gathered``'s input
+    and output are the rank's run of the sequence).  Rounding only the
+    combined sum left 45 of 256 decode elements 0.25 apart."""
+    d, E, k, f = 64, 8, 2, 128
+    topo = Topo(MeshConfig((1, tp), ("data", "model")))
+    kw = dict(num_shared=1, group_size=16, placement=placement,
+              device="cpu")
+    one = MoE("m", d, E, k, f, topo=topo, **kw)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in one.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g)
+                    * (0.3 if name.startswith("w") else 0.2))
+    x = torch.randn(2, tokens // 2, d, generator=g).bfloat16()
+    want = one(x)[0]
+    full = dict(one.named_parameters())
+    seq = placement == "gathered"
+    n = tokens // 2 // tp
+
+    def rank(group):
+        m = MoE("m", d, E, k, f, topo=topo, group=group, **kw)
+        m.load_state_dict({name: full[name][m.block(name)]
+                           for name in full})
+        xr = x.narrow(1, group.rank * n, n) if seq else x
+        return m(xr, seq_sharded=seq)[0]
+
+    outs = run_local(rank, tp)
+    got = torch.cat(outs, 1) if seq else outs[0]
+    assert torch.equal(got, want)
+    for o in outs[1:]:
+        assert seq or torch.equal(o, outs[0])

@@ -236,11 +236,11 @@ def test_widths_match_the_reference(widths):
 
 
 def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
-    """A group must match the mesh; MoE (without MLA), SSM and hybrid
-    models build over several ranks, while MLA, vlm and enc-dec models,
-    data > 1 and sharded training raise ``NotImplementedError``; a model
-    laid out over ranks but built without its group only describes the
-    layout."""
+    """A group must match the mesh; every family builds over several ranks
+    (MoE, MLA, SSM, hybrid, vlm and enc-dec models), while data > 1,
+    ``fsdp_sp`` attention (heads that tp does not divide) and sharded
+    training raise ``NotImplementedError``; a model laid out over ranks
+    but built without its group only describes the layout."""
     from repro_torch.models.model_zoo import build_model
     topo = Topo(MeshConfig((1, 2), ("data", "model")))
     g = LocalGroup.make(2)[0]
@@ -251,20 +251,21 @@ def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         build_model(cfg, Topo(MeshConfig((2, 2), ("data", "model"))),
                     "prefill", device="cpu", group=g)
+    with pytest.raises(NotImplementedError, match="fsdp_sp over ranks"):
+        build_model(ARCHS["command-r-35b"].reduced(num_heads=3), topo,
+                    "prefill", device="meta", group=g)
+    batch = {"tokens": np.zeros((1, 4), np.int32),
+             "labels": np.zeros((1, 4), np.int32),
+             "frames": np.zeros((1, 4, 128), np.float32)}
     for arch in ("granite-moe-3b-a800m", "falcon-mamba-7b",
-                 "jamba-1.5-large-398b"):
+                 "jamba-1.5-large-398b", "deepseek-v2-236b",
+                 "llama-3.2-vision-11b", "whisper-medium"):
         for kind in ("prefill", "decode"):
             model = build_model(ARCHS[arch].reduced(), topo, kind,
                                 device="meta", group=g)
             assert model.group is g
         with pytest.raises(NotImplementedError, match="sharded training"):
-            model.loss({"tokens": np.zeros((1, 4), np.int32),
-                        "labels": np.zeros((1, 4), np.int32)})
-    for arch in ("llama-3.2-vision-11b", "whisper-medium",
-                 "deepseek-v2-236b"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            build_model(ARCHS[arch].reduced(), topo, "prefill",
-                        device="cpu", group=g)
+            model.loss(batch)
     whole = build_model(cfg, topo, "prefill", device="cpu")
     with pytest.raises(ValueError, match="group of one rank"):
         whole.prefill({"tokens": np.zeros((1, 4), np.int32)})
