@@ -4,7 +4,7 @@
 
 What it does (every phase fails the run if it fails), in this order save
 that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
-16 right after phase 5 (phases 14, 15 and 17-26 run last, after phase
+16 right after phase 5 (phases 14, 15 and 17-27 run last, after phase
 11):
 
   1. prints the card's name and power limit (``nvidia-smi``);
@@ -395,11 +395,36 @@ that phases 9 and 10 run right after phases 6 and 7, and phases 12, 13 and
      cards, or one 5-layer period with its gated cross layer on the
      threads), then whisper-medium whole (24 + 24 layers) at 4 x 64 over a
      1,500-frame window (its encoder over the frames and its cross caches
-     cut over them), both with gates and biases drawn away from 0
+     cut over them; the threads serve it 8 new tokens, not 32), both with
+     gates and biases drawn away from 0
      (``seed_cross``) and held to one card as in phase 23; a vlm rank
      launches L + L/5 flash a prefill (the cross layers in float32) and 2L
      + L/5 + 1 ``rmsnorm`` a forward, a whisper rank 24 + 2 x 24 flash a
-     prefill and no ``rmsnorm``.
+     prefill and no ``rmsnorm``;
+ 27. tensor-parallel training — glm4-9b and falcon-mamba-7b at full width
+     over a (1, 4) mesh at 4 x 1024 (the residual cut over the sequence,
+     the reference's train layouts: attention ``megatron`` over the heads,
+     Mamba over its channels).  With 4 cards or more the ranks are 4 NCCL
+     processes; with fewer, 4 gloo processes sharing the cards (threads
+     cannot run backward passes on one card together; said on a line of
+     its own).  (a) The check models, 2 of 40 and 2 of 64 layers, seeded
+     as one card seeds them, against the unsharded model on one card for
+     3 steps: each step's loss within rtol 2e-3 and grad norm within rtol
+     2e-2, every rank's parameter and moment blocks after the last step
+     within ``LM_TOL[bf16]`` of one card's (read on the card where one
+     card keeps them), the leaves every rank holds whole bitwise equal
+     across the ranks after every step, every rank launching a step what
+     one card launches (``train_launches_of``: its heads and channels
+     through the forward and backward kernels), its collectives a step
+     (calls and bytes) equal to the meta count (``tp_train_counts``).  (b)
+     With 4 cards, both whole (40 and 64 layers, ~28 GB and ~22 GB of
+     train state a rank), 3 steps through ``launch.train.train_rank``:
+     finite losses, the launches, step ms (median and range), tokens/s and
+     each rank's peak GiB; skipped, and said so, with fewer cards.  (c)
+     falcon-mamba-7b's check model: 4 uninterrupted steps, 2 with a
+     checkpoint at step 2 (rank 0 writes the blocks gathered whole, 4.75
+     GB), and a fresh spawn resumed from it: steps 3-4 within rtol 1e-5 of
+     the uninterrupted run; the directory removed after.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a usable CUDA card the script
@@ -419,7 +444,8 @@ expert products); ``--cross-only`` builds them and runs phases 17 and 18
 alone; ``--train-only`` builds them and runs phases 19 and 20 alone;
 ``--dryrun-only`` builds them and runs phase 21 alone; ``--tail-only``
 builds them and runs phase 22 alone; ``--tp-only`` builds them and runs
-phases 23-26 alone; ``--out DIR`` writes
+phases 23-26 alone; ``--tp-train-only`` builds them and runs phase 27
+alone; ``--out DIR`` writes
 the measurements (``chip_smoke.json``) and the trace tables
 (``trace_summary.txt``, ``trace_serve_<arch>.txt``) into DIR.
 """
@@ -5618,6 +5644,10 @@ TP_MLA_SERVE_LAYERS = 8
 # 40 layers; whisper-medium (24 + 24 layers) whole either way, 4 x 64
 # prompts over a 1,500-frame window
 TP_WHISPER_REQUEST = (4, 64)
+# whisper's threads serve 8 new tokens, not NEW_TOKENS: each decode step of
+# its 24 decoder layers takes ~1.65 s over four threads on one card, and
+# phase 27 needs the time (the NCCL processes serve NEW_TOKENS)
+TP_WHISPER_THREAD_TOKENS = 8
 
 
 def tp_launches(cfg, prefills: int, forwards: int) -> dict:
@@ -5983,7 +6013,8 @@ def tp_rank(group, cfg_check, cfg_serve, batch: dict, ids: np.ndarray,
 
 def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
                request: tuple = TP_REQUEST, memory: int | None = None,
-               fan_in_experts: bool = False) -> dict:
+               fan_in_experts: bool = False,
+               thread_tokens: int = NEW_TOKENS) -> dict:
     """Phases 23-26: ``cfg`` served over a (1, 4) mesh, ``request`` (batch,
     prompt tokens) with the family's stub input (a vlm's image embeddings,
     an enc-dec model's ``memory`` frames).  With 4 cards or more, 4 NCCL
@@ -5996,7 +6027,8 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
     experts than one card at a proven near tie excepted,
     ``tp_routes_part``), greedy ids equal but at near ties
     (``tp_greedy_flips``), every rank's MoE routings the same; and every
-    rank's launches are pinned."""
+    rank's launches are pinned.  The threads serve ``thread_tokens`` new
+    tokens (``NEW_TOKENS`` on the NCCL processes)."""
     from repro_torch.models.parallel import run_local, spawn
     t_phase = time.perf_counter()
     n = torch.cuda.device_count()
@@ -6016,8 +6048,9 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
     t0 = time.perf_counter()
     one = tp_one_card(dev, cfg_check, batch, fan_in_experts)
     one_s = time.perf_counter() - t0
+    new_tokens = NEW_TOKENS if nccl else thread_tokens
     args = (cfg_check, cfg_serve if nccl else None, batch, one["ids"],
-            NEW_TOKENS, fan_in_experts)
+            new_tokens, fan_in_experts)
     t0 = time.perf_counter()
     if nccl:
         ranks = spawn(tp_rank, TP, "nccl", timeout=900.0, args=args)
@@ -6069,7 +6102,7 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
                             one["logits"], rerouted)
     want_check = tp_launches(cfg_check, 2, 2 + 2 * TP_STEPS)
     served = cfg_serve if nccl else cfg_check
-    want_serve = tp_launches(served, 1, 1 + NEW_TOKENS)
+    want_serve = tp_launches(served, 1, 1 + new_tokens)
     for r in ranks:
         for part, want in (("check", want_check), ("serve", want_serve)):
             got_l = {k: r[part]["launches"][k] for k in want}
@@ -6108,7 +6141,7 @@ def tp_serving(dev, card: str, phase: int, cfg, cfg_check, cfg_serve,
         per_step = {k: sv["step_collectives"][k]
                     for k in sv["step_collectives"]}
         log(f"  rank {r['rank']} [{card}]: {cfg.name} {sv['num_layers']} "
-            f"layers, {b} x {s} -> {NEW_TOKENS} "
+            f"layers, {b} x {s} -> {new_tokens} "
             f"tokens: first token {sv['first_token_ms']:.3f} ms, decode "
             f"{sv['decode_ms_median']:.3f} ms/step (median; "
             f"{sv['decode_ms_min']:.3f}-{sv['decode_ms_max']:.3f}), "
@@ -6189,7 +6222,8 @@ def tp_cross_phase(dev, card: str) -> dict:
     whisper = ARCHS[WHISPER]
     out[WHISPER] = tp_serving(dev, card, 26, whisper, whisper, whisper,
                               request=TP_WHISPER_REQUEST,
-                              memory=WHISPER_FRAMES)
+                              memory=WHISPER_FRAMES,
+                              thread_tokens=TP_WHISPER_THREAD_TOKENS)
     return out
 
 
@@ -6202,6 +6236,433 @@ def tp_phases(dev, card: str) -> dict:
                        ("tp_cross", tp_cross_phase)):
         out[key] = phase(dev, card)
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 27: tensor-parallel training
+# ---------------------------------------------------------------------------
+# glm4-9b (dense) and falcon-mamba-7b (ssm) at full width over a (1, 4) mesh
+# at 4 x 1024 (the residual cut over the sequence): the check models, 2 of
+# 40 and 2 of 64 layers, held to one card for 3 steps; the resume on
+# falcon-mamba-7b's check model (4 steps, 2 with a checkpoint at step 2, a
+# fresh spawn resumed, 4.75 GB a checkpoint, two written); with 4 cards
+# both whole (9.40 B and 7.27 B parameters: 112.8 GB and 87.3 GB of train
+# state, ~28 GB and ~22 GB a rank), 3 steps
+TP_TRAIN_ARCHS = (GLM, MAMBA)
+TP_TRAIN_CHECK_LAYERS = 2
+TP_TRAIN_SHAPE = (4, 1024)
+TP_TRAIN_STEPS = 3
+TP_RESUME_STEPS = 4
+TP_RESUME_AT = 2
+
+
+def tp_train_run_cfg(steps: int, directory: str | None = None):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(total_steps=steps, warmup_steps=1,
+                     checkpoint_every=TP_RESUME_AT, checkpoint_dir=directory)
+
+
+def tp_train_shape(b: int, s: int):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"train_{b}x{s}", s, b, "train")
+
+
+def tp_train_batches(cfg, steps: int) -> list[dict]:
+    """The batches a ``Trainer`` of ``cfg`` feeds its first ``steps``
+    steps (``SyntheticTokens`` at the run's seed), as numpy arrays."""
+    from repro_torch.data import SyntheticTokens
+    data = SyntheticTokens(cfg, tp_train_shape(*TP_TRAIN_SHAPE),
+                           seed=tp_train_run_cfg(steps).seed)
+    return [data.batch_at(i) for i in range(steps)]
+
+
+def tp_train_counts(cfg, tp: int = TP) -> dict:
+    """Rank 0's collectives (calls, bytes) in one train step of ``cfg``
+    over a (1, tp) mesh at ``TP_TRAIN_SHAPE``, counted on meta with tp
+    ``LocalGroup`` threads (the forward, its recomputation and the
+    backward, the gradient shares' sum and the norm's)."""
+    from repro_torch.launch.mesh import tp_mesh
+    from repro_torch.models.common import Topo
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.parallel import run_local
+    from repro_torch.train.step import make_state, make_train_step
+    meta = torch.device("meta")
+    batch = {k: torch.zeros(TP_TRAIN_SHAPE, dtype=torch.int64, device=meta)
+             for k in ("tokens", "labels")}
+    run_cfg = tp_train_run_cfg(1)
+
+    def rank(g) -> dict:
+        model = build_model(cfg, Topo(tp_mesh(tp)), "train", device=meta,
+                            group=g)
+        state = make_state(dict(model.named_parameters()), run_cfg)
+        step = make_train_step(model, run_cfg)
+        g.reset_counts()
+        step(state, batch)
+        return collective_counts(g)
+
+    return run_local(rank, tp, [meta])[0]
+
+
+def collective_counts(group) -> dict:
+    return {k: [v["calls"], v["bytes"]] for k, v in group.counts.items()
+            if v["calls"]}
+
+
+def tp_train_one_card(dev, cfg, batches: list) -> dict:
+    """The unsharded ``cfg`` on one card, seeded as a ``Trainer`` seeds
+    it, stepped over ``batches``: its losses and grad norms, and the final
+    parameters and moments, kept on the card for the ranks to read."""
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import init_state, make_train_step
+    run_cfg = tp_train_run_cfg(len(batches))
+    model = build_model(cfg, kind="train", device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(run_cfg.seed)
+    state = init_state(model, run_cfg, gen)
+    step = make_train_step(model, run_cfg)
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    final = {n: (p.detach(), state["opt"]["m"][n], state["opt"]["v"][n])
+             for n, p in state["params"].items()}
+    return dict(losses=losses, norms=norms, final=final)
+
+
+def tp_whole_leaves_equal(group, tensors: list) -> bool:
+    """The tensors every rank holds whole carry the same bits on every
+    rank: their bytes gathered in one collective and compared."""
+    flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    parts = group.all_gather(flat[None], 0)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def tp_train_check(group, cfg, batches: list, ref: dict) -> dict:
+    """A rank of phase 27's check: the seeded blocks of ``cfg`` stepped
+    over ``batches``; each step's metrics, milliseconds, launches and
+    collectives (counted from 0 just before the step), the leaves held
+    whole compared across the ranks after it, and, after the last, the
+    largest share of ``LM_TOL[bf16]`` between this rank's parameter and
+    moment blocks and one card's (``ref``, read where one card keeps
+    them)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import tp_mesh
+    from repro_torch.models.common import Topo
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.step import init_state, make_train_step
+    dev = group.device
+    run_cfg = tp_train_run_cfg(len(batches))
+    model = build_model(cfg, Topo(tp_mesh(group.size)), "train", device=dev,
+                        group=group)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(run_cfg.seed)
+    state = init_state(model, run_cfg, gen)
+    step = make_train_step(model, run_cfg)
+    cut = set(model.cut_params())
+    whole = [n for n in state["params"] if n not in cut]
+    out = dict(rank=group.rank, losses=[], norms=[], ms=[], launches=[],
+               collectives=[], whole_equal=[])
+    for b in batches:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        sync(dev)
+        group.reset_counts()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(dict(build.LAUNCHES))
+        out["collectives"].append(collective_counts(group))
+        out["losses"].append(loss)
+        out["norms"].append(float(m["grad_norm"]))
+        out["whole_equal"].append(tp_whole_leaves_equal(
+            group, [t for n in whole for t in (
+                state["params"][n], state["opt"]["m"][n],
+                state["opt"]["v"][n])]))
+    blocks, tol = model.blocks(), LM_TOL[torch.bfloat16]
+    share = {"params": 0.0, "moments": 0.0}
+    for n, p in state["params"].items():
+        for key, got, want in zip(("params", "moments", "moments"),
+                                  (p, state["opt"]["m"][n],
+                                   state["opt"]["v"][n]), ref[n]):
+            w = want[blocks[n]].to(dev, torch.float32)
+            s = float(((got.detach().float() - w).abs()
+                       / (tol["atol"] + tol["rtol"] * w.abs())).max())
+            share[key] = max(share[key], s)
+    out["share_of_tol"] = share
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 \
+        if dev.type == "cuda" else None
+    return out
+
+
+def tp_train_resume(group, cfg, shape: tuple, steps: int,
+                    directory: str | None) -> dict:
+    """A rank of phase 27's resume: a ``Trainer`` over the (1, tp) mesh
+    from ``directory``'s latest checkpoint (or the seeded init) to
+    ``steps``, checkpointing every ``TP_RESUME_AT`` steps."""
+    from repro_torch.launch.mesh import tp_mesh
+    from repro_torch.models.common import Topo
+    from repro_torch.train import Trainer
+    trainer = Trainer(cfg, tp_train_shape(*shape),
+                      tp_train_run_cfg(steps, directory),
+                      Topo(tp_mesh(group.size)), device=group.device,
+                      group=group)
+    t0 = time.perf_counter()
+    res = trainer.run(num_steps=steps)
+    return dict(losses=res.losses, restored_from=res.restored_from,
+                final_step=res.final_step, seconds=time.perf_counter() - t0)
+
+
+def tp_train_whole(group, cfg, shape: tuple, steps: int) -> dict:
+    """A rank of phase 27's whole models: ``launch.train``'s rank
+    (``train_rank``: a ``Trainer`` over the (1, tp) mesh, no checkpoints),
+    its launches counted from 0 just before and its peak memory."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train_rank
+    dev = group.device
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    res = train_rank(group, cfg, tp_train_shape(*shape),
+                     tp_train_run_cfg(steps), steps)
+    res.update(launches=dict(build.LAUNCHES),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return res
+
+
+def tp_train_rank(group, jobs: list) -> list:
+    """Phase 27's jobs on one rank, in order (every rank runs the same),
+    the card's cache released after each."""
+    import gc
+    out = []
+    for kind, *args in jobs:
+        fn = {"check": tp_train_check, "resume": tp_train_resume,
+              "whole": tp_train_whole}[kind]
+        out.append(fn(group, *args))
+        gc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_phase(dev, card: str, workdir: str) -> dict:
+    """Phase 27: glm4-9b and falcon-mamba-7b trained over a (1, 4) mesh.
+    With 4 cards or more, 4 NCCL processes (one a card); with fewer, 4
+    gloo processes sharing the cards there are (threads cannot run
+    backward passes on one card together), the whole models skipped.
+    (a) The check models (2 layers each, seeded as one card seeds them)
+    held to the unsharded model on one card for 3 steps at 4 x 1024: each
+    step's loss within rtol 2e-3 and grad norm within rtol 2e-2, every
+    rank's parameter and moment blocks after the last step within
+    ``LM_TOL[bf16]``, the leaves held whole bitwise equal on all ranks
+    after every step, each rank's launches a step those of one card
+    (``train_launches_of``) and its collectives a step the meta count
+    (``tp_train_counts``).  (b) With 4 cards, both whole, 3 steps through
+    ``launch.train.train_rank``: finite losses, launches, step ms, tokens/s
+    and each rank's peak.  (c) falcon-mamba-7b's check model: 4 steps, 2
+    with a checkpoint at step 2, and a fresh spawn resumed from it (steps
+    3-4 within rtol 1e-5 of the uninterrupted run); the directory removed
+    after."""
+    import gc
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parallel import spawn
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    nccl = n >= TP
+    backend = "nccl" if nccl else "gloo"
+    devices = None if nccl else [str(dev)]
+    group = "nccl, one process a card" if nccl else \
+        f"gloo, {TP} processes on {max(n, 1)} {dev.type} device(s)"
+    log(f"phase 27 (tensor-parallel training, tp = {TP}): "
+        f"torch.cuda.device_count() = {n}; group: {group}")
+    b, s = TP_TRAIN_SHAPE
+    jobs, checks = [], {}
+    for arch in TP_TRAIN_ARCHS:
+        cfg = dataclasses.replace(ARCHS[arch],
+                                  num_layers=TP_TRAIN_CHECK_LAYERS)
+        batches = tp_train_batches(cfg, TP_TRAIN_STEPS)
+        t0 = time.perf_counter()
+        counts = tp_train_counts(cfg)
+        count_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = tp_train_one_card(dev, cfg, batches)
+        gc.collect()                    # keep one card's final state only
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        checks[arch] = dict(cfg=cfg, counts=counts, one=one,
+                            count_s=count_s,
+                            one_card_s=time.perf_counter() - t0)
+        jobs.append(("check", cfg, batches, one["final"]))
+    mamba = dataclasses.replace(ARCHS[MAMBA],
+                                num_layers=TP_TRAIN_CHECK_LAYERS)
+    directory = os.path.join(workdir, "tp_resume")
+    jobs += [("resume", mamba, TP_TRAIN_SHAPE, TP_RESUME_STEPS, None),
+             ("resume", mamba, TP_TRAIN_SHAPE, TP_RESUME_AT, directory)]
+    # the second spawn: the resume, then (4 cards) the whole models, after
+    # one card's final states are released
+    second = [("resume", mamba, TP_TRAIN_SHAPE, TP_RESUME_STEPS, directory)]
+    if nccl:
+        second += [("whole", ARCHS[arch], TP_TRAIN_SHAPE, TP_TRAIN_STEPS)
+                  for arch in TP_TRAIN_ARCHS]
+    else:
+        log(f"fewer than {TP} cards: the whole glm4-9b and falcon-mamba-7b "
+            f"(~28 GB and ~22 GB of train state a rank) are not trained; "
+            f"the check models and the resume run on {TP} gloo processes "
+            f"sharing the card(s)")
+    t0 = time.perf_counter()
+    ranks = spawn(tp_train_rank, TP, backend, timeout=900.0, args=(jobs,),
+                  devices=devices)
+    ranks_s = time.perf_counter() - t0
+    for arch in TP_TRAIN_ARCHS:          # release one card's final states
+        checks[arch]["one"].pop("final")
+    jobs.clear()
+    gc.collect()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = spawn(tp_train_rank, TP, backend, timeout=900.0,
+                    args=(second,), devices=devices)
+    resume_s = time.perf_counter() - t0
+    shutil.rmtree(directory, ignore_errors=True)
+    out = dict(device_count=n, group=group, tp=TP, shape=list(TP_TRAIN_SHAPE),
+               ranks_s=ranks_s, second_spawn_s=resume_s, check={},
+               whole={})
+    for i, arch in enumerate(TP_TRAIN_ARCHS):
+        c = checks[arch]
+        cfg, one = c["cfg"], c["one"]
+        got = [r[i] for r in ranks]
+        want_launches = train_launches_of(cfg)
+        for r in got:
+            for step, (loss, norm) in enumerate(zip(r["losses"],
+                                                    r["norms"])):
+                if not np.isclose(loss, one["losses"][step], rtol=2e-3,
+                                  atol=0):
+                    raise AssertionError(
+                        f"{arch} rank {r['rank']} step {step + 1}: loss "
+                        f"{loss} vs one card {one['losses'][step]}")
+                if not np.isclose(norm, one["norms"][step], rtol=2e-2,
+                                  atol=0):
+                    raise AssertionError(
+                        f"{arch} rank {r['rank']} step {step + 1}: grad "
+                        f"norm {norm} vs one card {one['norms'][step]}")
+            for step, launches in enumerate(r["launches"]):
+                if dev.type == "cuda" and launches != want_launches:
+                    raise AssertionError(
+                        f"{arch} rank {r['rank']} step {step + 1}: launches"
+                        f" {launches}, the model dictates {want_launches}")
+            for step, counts in enumerate(r["collectives"]):
+                if counts != c["counts"]:
+                    raise AssertionError(
+                        f"{arch} rank {r['rank']} step {step + 1}: "
+                        f"collectives {counts}, meta counts {c['counts']}")
+            if not all(r["whole_equal"]):
+                raise AssertionError(f"{arch} rank {r['rank']}: the leaves "
+                                     f"held whole differ across the ranks "
+                                     f"after steps {r['whole_equal']}")
+            worst = max(r["share_of_tol"].values())
+            if worst > 1.0:
+                raise AssertionError(
+                    f"{arch} rank {r['rank']}: blocks after step "
+                    f"{TP_TRAIN_STEPS} at {r['share_of_tol']} of "
+                    f"LM_TOL[bf16]")
+        if any(r["losses"] != got[0]["losses"] for r in got):
+            raise AssertionError(f"{arch}: the ranks' losses differ")
+        ms = [x for r in got for x in r["ms"][1:]]
+        out["check"][arch] = dict(
+            layers=cfg.num_layers, params=cfg.param_count(),
+            one_card=one, losses=got[0]["losses"], norms=got[0]["norms"],
+            share_of_tol=[r["share_of_tol"] for r in got],
+            launches_per_step=got[0]["launches"][0],
+            collectives_per_step=got[0]["collectives"][0],
+            step_ms=[r["ms"] for r in got],
+            peak_gib=[r["peak_gib"] for r in got],
+            meta_count_s=c["count_s"], one_card_s=c["one_card_s"])
+        log(f"tp = {TP} vs one card [{card}]: {arch} on {cfg.num_layers} of "
+            f"{ARCHS[arch].num_layers} layers ({cfg.param_count() / 1e9:.3f}"
+            f" B), {b} x {s}, {TP_TRAIN_STEPS} steps: losses "
+            f"{[round(x, 5) for x in got[0]['losses']]} (one card "
+            f"{[round(x, 5) for x in one['losses']]}), grad norms "
+            f"{[round(x, 4) for x in got[0]['norms']]} (one card "
+            f"{[round(x, 4) for x in one['norms']]}); blocks after the last "
+            f"step within {max(max(r['share_of_tol'].values()) for r in got):.3f}"
+            f" of LM_TOL[bf16]; leaves held whole bitwise equal on the "
+            f"{TP} ranks after every step; launches a step and rank "
+            f"{json.dumps({k: v for k, v in want_launches.items() if v})}")
+        log(f"  collectives a step and rank [{card}] (calls, bytes), equal "
+            f"to the meta count: {json.dumps(c['counts'])}; step "
+            f"{float(np.median(ms)) if ms else float('nan'):.1f} ms "
+            f"(median of steps 2-, {min(ms, default=0):.1f}-"
+            f"{max(ms, default=0):.1f}; {group}), peak "
+            f"{[None if r['peak_gib'] is None else round(r['peak_gib'], 3) for r in got]}"
+            f" GiB a rank")
+    k = len(TP_TRAIN_ARCHS)
+    whole_run = ranks[0][k]
+    first = ranks[0][k + 1]
+    again = resumed[0][0]
+    if again["restored_from"] != TP_RESUME_AT:
+        raise AssertionError(f"resumed from {again['restored_from']}")
+    for what, a, w in (
+            ("steps 1-2", first["losses"], whole_run["losses"][:TP_RESUME_AT]),
+            ("resumed steps 3-4", again["losses"],
+             whole_run["losses"][TP_RESUME_AT:])):
+        if not np.allclose(a, w, rtol=1e-5, atol=0):
+            raise AssertionError(f"tp = {TP} {what} {a} vs uninterrupted {w}")
+    out["resume"] = dict(
+        arch=MAMBA, layers=TP_TRAIN_CHECK_LAYERS, losses=whole_run["losses"],
+        first=first["losses"], resumed=again["losses"],
+        bitwise=first["losses"] + again["losses"] == whole_run["losses"],
+        seconds=[whole_run["seconds"], first["seconds"], again["seconds"]])
+    log(f"resume over {TP} ranks from step {TP_RESUME_AT} in a fresh spawn "
+        f"[{card}]: {MAMBA} on {TP_TRAIN_CHECK_LAYERS} layers, steps 3-4 "
+        f"within rtol 1e-5 of the uninterrupted run, "
+        f"{'bit for bit' if out['resume']['bitwise'] else 'not bit for bit'}")
+    if nccl:
+        for i, arch in enumerate(TP_TRAIN_ARCHS):
+            got = [r[1 + i] for r in resumed]
+            cfg = ARCHS[arch]
+            for r in got:
+                if not all(np.isfinite(r["losses"])):
+                    raise AssertionError(f"{arch} whole: losses "
+                                         f"{r['losses']}")
+                want = {key: v * r["steps_run"] for key, v in
+                        train_launches_of(cfg).items()}
+                if r["launches"] != want:
+                    raise AssertionError(f"{arch} whole on {r['device']}: "
+                                         f"launches {r['launches']}, the "
+                                         f"model dictates {want}")
+            durations = [d * 1e3 for d in got[0]["step_durations"][1:]]
+            step_ms = float(np.median(durations))
+            out["whole"][arch] = dict(
+                layers=cfg.num_layers, params=cfg.param_count(),
+                losses=got[0]["losses"],
+                step_ms_all=[[d * 1e3 for d in r["step_durations"]]
+                             for r in got],
+                step_ms=step_ms, tokens_per_s=b * s / step_ms * 1e3,
+                peak_gib=[r["peak_gib"] for r in got],
+                launches_per_step={key: v // got[0]["steps_run"] for key, v
+                                   in got[0]["launches"].items()})
+            log(f"{arch} whole ({cfg.num_layers} layers, "
+                f"{cfg.param_count() / 1e9:.3f} B) over {TP} NCCL cards "
+                f"[{card}], {b} x {s}, {TP_TRAIN_STEPS} steps: losses "
+                f"{[round(x, 4) for x in got[0]['losses']]}, step "
+                f"{step_ms:.1f} ms (median of steps 2-; "
+                f"{min(durations):.1f}-{max(durations):.1f}), "
+                f"{b * s / step_ms * 1e3:.0f} tokens/s, peak "
+                f"{[round(r['peak_gib'], 3) for r in got]} GiB a rank; "
+                f"launches a step and rank "
+                f"{json.dumps({key: v for key, v in out['whole'][arch]['launches_per_step'].items() if v})}")
+    else:
+        log(f"phase 27 (b) skipped: {n} card(s), the whole models need "
+            f"{TP}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 27 (tensor-parallel training): {out['seconds']:.3f} s "
+        f"[{card}]")
     return out
 
 
@@ -6273,6 +6734,13 @@ def main() -> int:
                          "processes with 4 cards or more, else LocalGroup "
                          "threads; held to one card); prints no result "
                          "line")
+    ap.add_argument("--tp-train-only", action="store_true",
+                    help="build the kernels and run phase 27 alone "
+                         "(glm4-9b and falcon-mamba-7b trained over 4 "
+                         "ranks: NCCL processes with 4 cards or more, else "
+                         "gloo processes sharing the cards; held to one "
+                         "card, resumed from a checkpoint over ranks, the "
+                         "whole models on 4 cards); prints no result line")
     ap.add_argument("--recovery-child", metavar="STORE",
                     help=argparse.SUPPRESS)   # phase 12's crash target
     ap.add_argument("--child-device", default="cuda",
@@ -6377,6 +6845,13 @@ def main() -> int:
                     json.dump({"card": card, "train": train}, f, indent=1)
             log("phases 19 and 20 alone (--train-only): no result line")
             return 0
+        if args.tp_train_only:
+            tpt = tp_train_phase(dev, card, workdir)
+            if args.out is not None:
+                with open(os.path.join(args.out, "tp_train.json"), "w") as f:
+                    json.dump({"card": card, "tp_train": tpt}, f, indent=1)
+            log("phase 27 alone (--tp-train-only): no result line")
+            return 0
         if args.tail_only:
             tail = tail_phase(dev, card, workdir)
             if args.out is not None:
@@ -6391,7 +6866,7 @@ def main() -> int:
 
 def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                workdir: str) -> int:
-    """Phases 3-22 (the whole run, or phase 12 alone or phases 13 and 16
+    """Phases 3-27 (the whole run, or phase 12 alone or phases 13 and 16
     with ``--session-only`` / ``--discovery-only``); prints the result
     lines."""
     from repro_torch.configs import ARCHS
@@ -6464,6 +6939,7 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
     tail = tail_phase(dev, card, workdir)
     torch.cuda.empty_cache()
     tps = tp_phases(dev, card)
+    tpt = tp_train_phase(dev, card, workdir)
 
     # kernel records: bounds from this run's inputs
     sh = kp["spike_hist"]
@@ -6638,6 +7114,15 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                 f"({ph['ranks'][r]['serve']['num_layers']} layers)":
                 ph["ranks"][r]["serve"]["launches"][rec["name"]]
                 for ph in phs for r in range(len(ph["ranks"]))}
+    for rec in kernels[2:]:      # phase 27's check models, a rank's step
+        rec["launches_tp_training"] = {
+            f"{arch} rank ({c['layers']} layers), a step":
+            c["launches_per_step"][rec["name"]]
+            for arch, c in tpt["check"].items()}
+        rec["launches_tp_training"].update({
+            f"{arch} rank ({c['layers']} layers, 4 NCCL cards), a step":
+            c["launches_per_step"][rec["name"]]
+            for arch, c in tpt["whole"].items()})
     for rec in kernels:               # phase 21's card steps
         rec["launches_dryrun"] = {
             f"{c['arch']} {c['kind']}": c["launches"].get(rec["name"], 0)
@@ -6664,7 +7149,8 @@ def run_phases(args, dev, card: str, kind: str, flush: torch.Tensor,
                        "serve_mamba": msp, "moe_card_vs_host": moe_host,
                        "serve_moe": moe_sp, "cross_card_vs_host": cross_host,
                        "serve_cross": cross_sp, "train": train,
-                       "dryrun": dry, "tail": tail, **tps}, f, indent=1)
+                       "dryrun": dry, "tail": tail, **tps,
+                       "tp_train": tpt}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

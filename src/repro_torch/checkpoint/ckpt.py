@@ -7,18 +7,23 @@ Layout (one directory per step), as ``repro.checkpoint.ckpt`` writes it:
         shard_0.npz                    -> every leaf, keyed a0, a1, ...
 
 A state is a nested dict whose leaves are tensors, numpy arrays, or lists
-of tensors (stacked along a new axis 0 as they are written); leaf paths
-join the keys with "/" in sorted order, and bfloat16 is stored as its
-uint16 bits with the dtype named in the manifest (npz has no bfloat16).
-The npz is written a leaf at a time, as ``np.savez`` lays it out, so the
-host holds one leaf, not the state.  ``restore`` returns the nested dict
-with CPU tensors, bit for bit.  So a checkpoint written by either package
-restores in the other; the trainer writes its state in the reference's
-tree (``train.step.state_tree``).
+of tensors (stacked along a new axis 0 as they are written); a tensor of
+either may also be given as a function that returns it, called when its
+leaf is written (``leaves`` gives the order: a rank's blocks gathered
+whole one leaf at a time, ``train.step.save_state``).  Leaf paths join
+the keys with "/" in sorted order, and bfloat16 is stored as its uint16
+bits with the dtype named in the manifest (npz has no bfloat16).  The
+npz is written a leaf at a time, as ``np.savez`` lays it out, so the host
+holds one leaf, not the state.  ``restore`` returns the nested dict with
+CPU tensors, bit for bit (``lazy``: functions that read one leaf each).
+So a checkpoint written by either package restores in the other; the
+trainer writes its state in the reference's tree
+(``train.step.state_tree``).
 """
 from __future__ import annotations
 
 import json
+import functools
 import os
 import shutil
 import tempfile
@@ -37,6 +42,11 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
+
+
+def leaves(tree: Any) -> dict[str, Any]:
+    """The leaves of a state by path, in the order ``save`` writes them."""
+    return _flatten(tree)
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -61,11 +71,10 @@ def _unflatten(leaves: dict[str, Any]) -> Any:
 
 
 def _as_numpy(v) -> tuple[np.ndarray, str]:
-    """A leaf as (numpy array as stored, dtype name of the manifest); a
-    list of tensors is stacked along a new axis 0."""
-    if isinstance(v, (list, tuple)):
-        return np.stack([to_numpy(t) for t in v]), \
-            str(v[0].dtype).removeprefix("torch.")
+    """A leaf that is not a list as (numpy array as stored, dtype name of
+    the manifest)."""
+    if callable(v):
+        v = v()
     if isinstance(v, torch.Tensor):
         return to_numpy(v), str(v.dtype).removeprefix("torch.")
     arr = np.asarray(v)
@@ -73,6 +82,31 @@ def _as_numpy(v) -> tuple[np.ndarray, str]:
     if name == "bfloat16":
         arr = arr.view(np.uint16)
     return arr, name
+
+
+def _write_leaf(f, v) -> tuple[list, str]:
+    """Write leaf ``v`` to ``f`` as ``np.save`` lays it out; (its shape,
+    the manifest's dtype name).  A list is stacked along a new axis 0 one
+    part at a time (the parts' bytes in order, after the stacked array's
+    header), so the host holds one part, not the stack."""
+    if not isinstance(v, (list, tuple)):
+        arr, name = _as_numpy(v)
+        np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
+        return list(arr.shape), name
+    for i, part in enumerate(v):
+        arr, name = _as_numpy(part)
+        arr = np.ascontiguousarray(arr)
+        if i == 0:
+            first = (arr.shape, arr.dtype, name)
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": np.lib.format.dtype_to_descr(arr.dtype),
+                "fortran_order": False, "shape": (len(v), *arr.shape)})
+        elif (arr.shape, arr.dtype, name) != first:
+            raise ValueError(f"part {i} of a stacked leaf is {name} "
+                             f"{arr.shape}, part 0 {first[2]} {first[0]}")
+        f.write(memoryview(arr.reshape(-1).view(np.uint8)))
+        del arr
+    return [len(v), *first[0]], first[2]
 
 
 def save(state: Any, directory: str, step: int) -> str:
@@ -85,14 +119,11 @@ def save(state: Any, directory: str, step: int) -> str:
                          compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for i, (path, v) in enumerate(_flatten(state).items()):
-            arr, dtype = _as_numpy(v)
             key = f"a{i}"
             with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, np.asanyarray(arr),
-                                          allow_pickle=False)
+                shape, dtype = _write_leaf(f, v)
             manifest["leaves"][path] = {
-                "key": key, "shape": list(arr.shape), "dtype": dtype}
-            del arr
+                "key": key, "shape": shape, "dtype": dtype}
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -115,8 +146,23 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int | None = None) -> tuple[Any, int]:
-    """(state as a nested dict of CPU tensors, step)."""
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored array (read fresh, so no copy is taken) as a CPU tensor;
+    a 0-d leaf stays 0-d."""
+    if dtype == "bfloat16":                     # its uint16 bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _read_leaf(npz: str, meta: dict) -> torch.Tensor:
+    with np.load(npz) as data:
+        return _tensor(data[meta["key"]], meta["dtype"])
+
+
+def restore(directory: str, step: int | None = None,
+            lazy: bool = False) -> tuple[Any, int]:
+    """(state as a nested dict of CPU tensors, step); ``lazy``: each leaf
+    a function that reads it, so a caller holds one leaf at a time."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -124,15 +170,14 @@ def restore(directory: str, step: int | None = None) -> tuple[Any, int]:
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
-    leaves = {}
-    with np.load(os.path.join(path, "shard_0.npz")) as data:
-        for lpath, meta in manifest["leaves"].items():
-            arr = data[meta["key"]]             # a copy keeps 0-d leaves 0-d
-            if meta["dtype"] == "bfloat16":     # its uint16 bits
-                leaves[lpath] = torch.from_numpy(
-                    arr.view(np.int16).copy()).view(torch.bfloat16)
-            else:
-                leaves[lpath] = torch.from_numpy(arr.copy())
+    npz = os.path.join(path, "shard_0.npz")
+    if lazy:
+        leaves = {lpath: functools.partial(_read_leaf, npz, meta)
+                  for lpath, meta in manifest["leaves"].items()}
+        return _unflatten(leaves), manifest["step"]
+    with np.load(npz) as data:
+        leaves = {lpath: _tensor(data[meta["key"]], meta["dtype"])
+                  for lpath, meta in manifest["leaves"].items()}
     return _unflatten(leaves), manifest["step"]
 
 

@@ -1,13 +1,14 @@
 """Mesh layouts (the reference's ``repro.launch.mesh``).
 
 The port runs one card (``CARD``, every axis of size 1) or a (1, tp) mesh
-of tp ranks (``tp_mesh``: data 1, model tp), over which the dense family
-serves with the reference's tensor-parallel layouts
-(``models.common.Topo``, ``models.parallel``).  Meshes with data > 1, and
-so the reference's ``make_production_mesh``, are not ported (ROADMAP queue
-1, item 3); the dry run takes one layout, ``card``.  ``mesh_config``
-returns the reference's pod layouts, as there, for records that name them.
-Importing this module touches no device.
+of tp ranks (``tp_mesh``: data 1, model tp), over which every family
+serves and the dense and ssm families train with the reference's
+tensor-parallel layouts (``models.common.Topo``, ``models.parallel``;
+``launch.serve`` and ``launch.train`` take ``--tp``).  Meshes with
+data > 1, and so the reference's ``make_production_mesh``, are not
+ported (ROADMAP.md queue 1); the dry run takes one layout, ``card``.
+``mesh_config`` returns the reference's pod layouts, as there, for
+records that name them.  Importing this module touches no device.
 """
 from __future__ import annotations
 

@@ -61,8 +61,20 @@ over d_model (their partials summed in float32 before the latent norm),
 value columns) and ``wo`` over its output d, and reduces the scores'
 softmax and the latent output over the sequence-sharded caches.
 
+Training runs ``megatron`` over the ranks (``LM.loss``): the
+collectives above are ``models.parallel``'s autograd ones, so the
+gathers' gradients are reduce-scattered and the partials' gathered back;
+with a replicated residual (a length tp does not divide) x enters the
+rank's heads through ``replicate``, its gradient summed over the ranks.
+The flash forward and its backward kernel run on the rank's heads, as
+many launches a layer as on one card.  The biases of q, k and v, and a
+``wk`` / ``wv`` held whole where tp does not divide head_dim, meet the
+rank's heads only: their gradients are shares (``grad_shares``) that the
+train step sums over the ranks (ranks that read one KV head add into the
+same columns).
+
 ``fsdp_sp`` (heads that tp does not divide) over ranks is not ported
-(ROADMAP queue 1, item 3).
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -74,6 +86,7 @@ from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
 from repro_torch.models.layers import (apply_rope, bmm_f32, matmul,
                                        matmul_f32, reduce_partials,
                                        whole_output)
+from repro_torch.models.parallel import gather, replicate
 
 _NEG = -1e30
 
@@ -175,6 +188,13 @@ class Attention(ParamModule):
         if self.out_bias:
             store.add("bo", ParamDef((d,), (None,), init="zeros"))
 
+    def grad_shares(self, seq_sharded: bool) -> list[str]:
+        """``ParamModule.grad_shares``; with a replicated residual too,
+        the biases of q, k and v and a replicated ``wk`` / ``wv``: each
+        rank's heads read only their part of them."""
+        whole = super().grad_shares(True)
+        return whole if seq_sharded else [p for p in whole if p != "bo"]
+
     # -- projections -----------------------------------------------------
     @staticmethod
     def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -232,8 +252,7 @@ class Attention(ParamModule):
                   return_kv: bool, seq_sharded: bool,
                   memory: torch.Tensor | None):
         g = self.tp_group
-        if seq_sharded:
-            x = g.all_gather(x, 1)
+        x = gather(x, g, 1) if seq_sharded else replicate(x, g)
         heads = self.block("wq")[1]
         q = self._proj(x, self.wq)
         if self.qkv_bias:
@@ -242,8 +261,8 @@ class Attention(ParamModule):
         k = self._proj(src, self.wk)
         v = self._proj(src, self.wv)
         if self.split("wk"):                     # the rank's run of head_dim
-            k = g.all_gather(k, -1)
-            v = g.all_gather(v, -1)
+            k = gather(k, g, -1)
+            v = gather(v, g, -1)
         if self.qkv_bias:
             k = k + self.bk
             v = v + self.bv

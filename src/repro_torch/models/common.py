@@ -43,8 +43,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 Pspec = tuple          # entries: a mesh axis, a tuple of them, or None
 
-# the sharding the port does not run yet: ROADMAP queue 1, item 3
-NOT_RUN = "(ROADMAP queue 1, item 3: sharding not yet ported)"
+# the sharding the port does not run yet: ROADMAP.md, queue 1
+NOT_RUN = "(ROADMAP.md queue 1: sharding not yet ported)"
 
 
 @dataclass(frozen=True)
@@ -263,18 +263,29 @@ class ParamModule(nn.Module):
                 torch.empty(shape, dtype=dtype or DTYPES[d.dtype],
                             device=device), requires_grad=False))
 
-    def block(self, path: str) -> tuple:
-        """This rank's index into the whole tensor of parameter ``path``
-        (``whole[index]`` is the rank's block)."""
+    def block(self, path: str, rank: int | None = None) -> tuple:
+        """Rank ``rank``'s index (this rank's by default) into the whole
+        tensor of parameter ``path`` (``whole[index]`` is the block)."""
         d = self.defs[path]
-        return self.topo.shard_slices(self.topo.pspec(d.axes, d.shape),
-                                      d.shape, self.tp_group.rank)
+        return self.topo.shard_slices(
+            self.topo.pspec(d.axes, d.shape), d.shape,
+            self.tp_group.rank if rank is None else rank)
 
     def split(self, path: str) -> bool:
         """On a rank, parameter ``path`` is cut (a dim that the mesh
         divides); else every rank holds it whole."""
         return self.tp_group is not None and \
             tuple(getattr(self, path).shape) != self.defs[path].shape
+
+    def grad_shares(self, seq_sharded: bool) -> list[str]:
+        """The parameters this rank holds whole whose gradient on it is
+        only its share of the whole gradient, for the train step to sum
+        over the ranks: with the residual cut over the sequence
+        (``seq_sharded``), every one (the rank's products cover its run of
+        the sequence); with a replicated residual, none (each rank computes
+        the whole product)."""
+        return [p for p in self.defs if not self.split(p)] \
+            if seq_sharded else []
 
     def register(self, store: ParamStore) -> None:
         raise NotImplementedError

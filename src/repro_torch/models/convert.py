@@ -94,21 +94,24 @@ def params_to_jax(state_dict: dict[str, torch.Tensor],
     nested tree: ``<stack>.<i>.<rest>`` stacked along axis 0 at
     ``<stack>/<rest>`` in ``i`` order, every leaf a CPU tensor in its own
     dtype.  ``stack=False`` leaves a stacked leaf as the list of its
-    per-layer tensors where they lie (no copy)."""
+    per-layer tensors where they lie (no copy); a leaf that is not a
+    tensor (a function that returns one, ``train.step.state_tree``) is
+    kept as it is."""
     stacks: dict[str, dict[int, torch.Tensor]] = {}
     flat: dict[str, torch.Tensor] = {}
     for path, t in state_dict.items():
-        stack, _, rest = path.partition(".")
-        if stack in STACKED:
+        head, _, rest = path.partition(".")
+        if head in STACKED:
             i, _, leaf = rest.partition(".")
-            stacks.setdefault(f"{stack}.{leaf}", {})[int(i)] = t
+            stacks.setdefault(f"{head}.{leaf}", {})[int(i)] = t
         else:
             flat[path] = t
     for path, per in stacks.items():
         if sorted(per) != list(range(len(per))):
             raise ValueError(f"params_to_jax: {path} has layers "
                              f"{sorted(per)}, not 0..{len(per) - 1}")
-        layers = [per[i].detach() for i in range(len(per))]
+        layers = [per[i].detach() if isinstance(per[i], torch.Tensor)
+                  else per[i] for i in range(len(per))]
         flat[path] = torch.stack([t.cpu() for t in layers]) if stack \
             else layers
     tree: dict = {}

@@ -38,7 +38,7 @@ its decode runs ``decode_rp``.  ``prefill`` returns the logits and every
 cache whole on every rank; ``decode_step`` reads the self caches sharded
 over ``cache_len`` and the cross caches over ``memory_len`` (each the
 rank's run where tp divides the length, else whole).  Sharded training
-is not ported (ROADMAP queue 1, item 3).
+is not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 

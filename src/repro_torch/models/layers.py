@@ -16,10 +16,24 @@ reference's layouts imply, Megatron with a sequence-sharded residual:
   (``all_reduce``); a token's row is non-zero on one rank only, so the sum
   is exact;
 * ``Embedding.logits``: the float32 product on the rank's vocabulary
-  columns, then ``all_gather`` over the vocabulary;
+  columns, then ``all_gather`` over the vocabulary; the training loss
+  (``chunked_ce_loss``) keeps the rank's columns and reduces the
+  softmax's max, its sum and the gold logit over the ranks instead, as
+  the reference's ``cross_entropy_loss`` is written for vocab-sharded
+  logits;
 * ``Mlp``: ``w_gate``/``w_up`` column-parallel and ``w_down``
   row-parallel over d_ff, the input gathered over the sequence first;
 * ``Norm``: its kernel on the rank's rows (the scale is replicated).
+
+Under autograd the collectives are ``models.parallel``'s ``gather``,
+``scatter``, ``reduce`` and ``replicate``, so each rank's backward runs
+their conjugates: a replicated activation that enters cut weights is
+gathered over the sequence (its gradient reduce-scattered) or, for a
+replicated residual, ``replicate``d (its gradient all-reduced).  A
+replicated parameter whose gradient on a rank is its share of the whole
+(a norm scale on the rank's run of the sequence, a bias that meets the
+rank's heads only) is named by ``ParamModule.grad_shares`` and summed by
+the train step.
 
 A row-parallel product's partials are taken in float32 (``matmul_f32``:
 bfloat16 operands, float32 accumulation, not rounded) and summed over the
@@ -33,9 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamModule,
-                                       ParamStore, cross_entropy_loss,
-                                       maybe_remat)
+from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
+                                       ParamModule, ParamStore,
+                                       cross_entropy_loss, maybe_remat)
+from repro_torch.models.parallel import gather, reduce, replicate, scatter
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,6 +63,26 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm`` with a float32 output (which autograd cannot
+    differentiate); its backward takes the gradient in the operands'
+    dtype, as the rounded product's backward receives it (the partials'
+    gradient is a gradient of that dtype, widened, unless the ranks summed
+    it: then it rounds once), and runs the two products of one card's
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.T, x2.T @ g
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in float32: the operands' products summed in float32 and
     not rounded to their dtype (on the card one GEMM with a float32
@@ -55,8 +90,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == w.dtype == torch.float32:
         return x @ w
     if x.device.type == "cuda" and x.dtype == w.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.to(torch.float32) @ w.to(torch.float32)
 
@@ -77,13 +111,16 @@ def reduce_partials(partial: torch.Tensor, group, seq_sharded: bool,
     """A row-parallel product's float32 partials (b, s, d) or (b, d)
     summed over the ranks in float32, onto the rank's run of the sequence
     (``seq_sharded``) or whole, then rounded to ``dtype``."""
-    out = group.reduce_scatter(partial, 1) if seq_sharded \
-        else group.all_reduce(partial)
+    out = scatter(partial, group, 1) if seq_sharded \
+        else reduce(partial, group)
     return out.to(dtype)
 
 
 def seq_run(x: torch.Tensor, group) -> torch.Tensor:
-    """The rank's run of x's sequence (dim 1)."""
+    """The rank's run of x's sequence (dim 1).  Under autograd a rank's
+    gradient of x covers its run only: its share of the whole, which the
+    ranks' reduce-scatter of the gathered input sums, or, for a
+    parameter, the train step (``ParamModule.grad_shares``)."""
     n = x.shape[1] // group.size
     return x.narrow(1, group.rank * n, n)
 
@@ -169,7 +206,9 @@ class Mlp(ParamModule):
         holds the rank's run of the sequence (and so does the output)."""
         grp = self.tp_group
         if grp is not None and seq_sharded:
-            x = grp.all_gather(x, 1)
+            x = gather(x, grp, 1)
+        elif self.split("w_down"):
+            x = replicate(x, grp)
         if self.activation == "swiglu":
             g = matmul(x, self.w_gate)
             u = matmul(x, self.w_up)
@@ -211,25 +250,69 @@ class Embedding(ParamModule):
         mine = (local >= 0) & (local < self.table.shape[0])
         out = F.embedding(torch.where(mine, local, 0), self.table)
         out = torch.where(mine[..., None], out, 0)
-        return g.reduce_scatter(out, 1) if seq_sharded else g.all_reduce(out)
+        return scatter(out, g, 1) if seq_sharded else reduce(out, g)
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
+    @property
+    def head_cut(self) -> bool:
+        """On a rank, the logits' head holds the rank's vocabulary
+        columns."""
+        return self.split("table" if self.tie else "head")
+
+    def rank_logits(self, h: torch.Tensor) -> torch.Tensor:
         """float32 logits, the head cast to float32 as in the reference
         (with TF32 off, PyTorch's default for matmuls, so the product stays
-        float32 on the card); on a rank, h is whole and so are the logits,
-        gathered over the vocabulary."""
+        float32 on the card); on a rank whose head is cut, its vocabulary
+        columns."""
         w = self.table.T if self.tie else self.head
-        out = h.to(torch.float32) @ w.to(torch.float32)
-        cut = self.split("table" if self.tie else "head")
-        return self.tp_group.all_gather(out, -1) if cut else out
+        return h.to(torch.float32) @ w.to(torch.float32)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """float32 logits (``rank_logits``); on a rank, h is whole and so
+        are the logits, gathered over the vocabulary."""
+        out = self.rank_logits(h)
+        return self.tp_group.all_gather(out, -1) if self.head_cut else out
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab_size: int, lo: int, group) -> torch.Tensor:
+    """``cross_entropy_loss`` over logits cut over the vocabulary: this
+    rank's columns [lo, lo + logits.shape[-1]).  The max (without a
+    gradient, as ``logsumexp`` takes it), the sum of exponentials and the
+    gold logit are reduced over the ranks, so every rank holds the loss,
+    and each its columns' gradient."""
+    logits = logits.to(torch.float32)
+    m = group.all_reduce(logits.detach().amax(-1), "max")
+    lse = torch.log(reduce(torch.exp(logits - m[..., None]).sum(-1),
+                           group)) + m
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = reduce(torch.where(inside, gold[..., 0], 0.0), group)
+    mask = ((labels >= 0) & (labels < vocab_size)).to(torch.float32)
+    loss = (lse - gold) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def chunked_ce_loss(embedding: Embedding, h: torch.Tensor,
-                    labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+                    labels: torch.Tensor, vocab_size: int,
+                    seq_sharded: bool = False) -> torch.Tensor:
     """Cross-entropy over sequence chunks (the reference's choice of 512,
     256, 128 or 64 tokens), each chunk's float32 logits recomputed in the
     backward rather than saved, so they never exist at full length; the
-    chunks' means summed in order and divided by their count."""
+    chunks' means summed in order and divided by their count.  On a rank
+    (whose h is its run of the sequence when ``seq_sharded``) h is
+    gathered whole, each chunk's logits are the rank's vocabulary columns
+    (``vocab_cross_entropy``), and the collectives of a chunk run again
+    in its recomputation, in the same order on every rank."""
+    g = embedding.tp_group
+    if g is not None:
+        if not embedding.head_cut:
+            raise NotImplementedError(
+                f"a vocabulary of {embedding.vocab} that {g.size} ranks do "
+                f"not divide {NOT_RUN}")
+        h = gather(h, g, 1) if seq_sharded else replicate(h, g)
+        lo = embedding.block("table" if embedding.tie else "head")[
+            0 if embedding.tie else 1].start
     s = h.shape[1]
     chunk = s
     for c in (512, 256, 128, 64):
@@ -239,7 +322,11 @@ def chunked_ce_loss(embedding: Embedding, h: torch.Tensor,
     nc = s // chunk
 
     def body(h_c, l_c):
-        return cross_entropy_loss(embedding.logits(h_c), l_c, vocab_size)
+        if g is None:
+            return cross_entropy_loss(embedding.logits(h_c), l_c,
+                                      vocab_size)
+        return vocab_cross_entropy(embedding.rank_logits(h_c), l_c,
+                                   vocab_size, lo, g)
 
     body = maybe_remat(body, True)
     total = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -21,10 +21,31 @@ Two implementations, and the caller always chooses one:
   barrier; each reads the others' tensors from shared slots and sums them
   in rank order, so every rank holds the same bits.  It serves the CPU
   tests and a host with fewer cards than ranks (``run_local``), as the
-  reference's own sharded test fakes its devices on the host.
+  reference's own sharded test fakes its devices on the host.  It serves
+  no backward on a card: autograd runs a card's backward on one thread
+  of its own, where the ranks' collectives would wait for each other
+  until the barrier's timeout; ranks that share a card train as gloo
+  processes (``spawn(..., devices=)``).
 
 Each group counts, per collective, its calls and the bytes of the tensors
-its rank handed in (``counts``).
+its rank handed in (``counts``), those of a backward pass too.
+
+Training differentiates through four collectives (``torch.autograd``
+functions over a group's), each with its conjugate as its backward, as
+Megatron-LM pairs them:
+
+* ``gather(x, group, dim)``: ``all_gather`` forward, ``reduce_scatter``
+  backward (a sequence-sharded residual entering a sublayer; k and v over
+  their head_dim);
+* ``scatter(x, group, dim)``: ``reduce_scatter`` forward, ``all_gather``
+  backward (a row-parallel product's partials onto the rank's run);
+* ``reduce(x, group)``: ``all_reduce`` forward, the gradient passed
+  through (a row-parallel product's partials summed, whole on every rank);
+* ``replicate(x, group)``: the identity forward, ``all_reduce`` backward (a
+  replicated activation entering cut weights: each rank's gradient of it
+  is a share of the whole).
+
+With ``group`` None each is the identity.
 """
 from __future__ import annotations
 
@@ -196,49 +217,133 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 class DistGroup(Group):
     """The default process group of ``torch.distributed`` (NCCL on the
-    cards, gloo on the CPU); ``device`` is the rank's."""
+    cards, gloo on the CPU or between processes that share a card);
+    ``device`` is the rank's.  Every collective writes a new tensor, never
+    the caller's (autograd may have saved it for the backward).  gloo
+    takes host tensors, so a card's tensor goes through the host there."""
 
     def __init__(self, device: torch.device) -> None:
         super().__init__()
         self.rank, self.size = dist.get_rank(), dist.get_world_size()
         self.device = torch.device(device)
+        self._host = dist.get_backend() == "gloo"
+
+    def _in(self, t: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+        """``t`` contiguous where the backend reads it; a copy where the
+        collective writes its input (``inplace``)."""
+        x = t.cpu() if self._host else t
+        if inplace and x is t:
+            return x.clone(memory_format=torch.contiguous_format)
+        return x.contiguous()
+
+    def _out(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return t.to(like.device) if self._host else t
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         _check_op(op)
         self._count("all_reduce", t)
-        t = t.contiguous()
-        dist.all_reduce(t, _OPS[op])
-        return t
+        x = self._in(t, inplace=True)
+        dist.all_reduce(x, _OPS[op])
+        return self._out(x, t)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         self._count("all_gather", t)
-        x = t.movedim(dim, 0).contiguous()
+        x = self._in(t.movedim(dim, 0))
         out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
         dist.all_gather_into_tensor(out, x)
-        return out.movedim(0, dim).contiguous()
+        return self._out(out.movedim(0, dim).contiguous(), t)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         self._count("reduce_scatter", t)
-        x = t.movedim(dim, 0).contiguous()
+        x = self._in(t.movedim(dim, 0))
         out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
         dist.reduce_scatter_tensor(out, x, dist.ReduceOp.SUM)
-        return out.movedim(0, dim).contiguous()
+        return self._out(out.movedim(0, dim).contiguous(), t)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         self._count("broadcast", t)
-        t = t.contiguous()
-        dist.broadcast(t, src)
-        return t
+        x = self._in(t, inplace=True)
+        dist.broadcast(x, src)
+        return self._out(x, t)
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd goes through
+# ---------------------------------------------------------------------------
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g), None
+
+
+def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``; the gradient
+    reduce-scattered back."""
+    return x if group is None else _Gather.apply(x, group, dim)
+
+
+def scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` summed, the rank's run of ``dim`` kept; the
+    gradient gathered back."""
+    return x if group is None else _Scatter.apply(x, group, dim)
+
+
+def reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` summed; the gradient passed to each as it is."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def replicate(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; the ranks' gradients of it summed."""
+    return x if group is None else _Replicate.apply(x, group)
 
 
 def _rank_main(fn, rank: int, size: int, backend: str, port: int,
-               timeout: float, queue, args: tuple) -> None:
+               timeout: float, queue, args: tuple, devices: tuple) -> None:
     """A spawned rank: join the group at the parent's store, run
     ``fn(group, *args)``, put ``(rank, result, error)`` on ``queue``."""
     try:
-        device = torch.device("cuda", rank) if backend == "nccl" \
-            else torch.device("cpu")
-        if backend == "nccl":
+        device = torch.device(devices[rank % len(devices)])
+        if device.type == "cuda":
+            if device.index is None:
+                device = torch.device("cuda", 0)
             torch.cuda.set_device(device)
         store = dist.TCPStore("127.0.0.1", port, is_master=False,
                               timeout=datetime.timedelta(seconds=timeout))
@@ -250,25 +355,33 @@ def _rank_main(fn, rank: int, size: int, backend: str, port: int,
         try:
             # plain pickle: the queue's pickler would pass a tensor as a
             # shared-memory handle, which dies with this process
-            queue.put((rank, pickle.dumps(fn(DistGroup(device), *args)),
-                       None))
-        finally:
-            dist.destroy_process_group()
+            got = (rank, pickle.dumps(fn(DistGroup(device), *args)), None)
+        except BaseException:             # reported to the parent at once:
+            got = (rank, None, traceback.format_exc())  # the others may
+        queue.put(got)                    # wait in a collective for it
+        dist.destroy_process_group()
     except BaseException:                 # reported to the parent
         queue.put((rank, None, traceback.format_exc()))
 
 
 def spawn(fn: Callable, size: int, backend: str = "gloo",
-          timeout: float = 600.0, args: tuple = ()) -> list:
+          timeout: float = 600.0, args: tuple = (),
+          devices: Sequence | None = None) -> list:
     """``fn(DistGroup(device), *args)`` in ``size`` new processes, one a rank
-    (with ``nccl`` rank r on card r, the kernels built here first, so the
-    processes never build them at once); the results in rank order.
-    ``fn`` and ``args`` must pickle (a module-level function), and so must
-    the results, on the host.  The
+    (with ``nccl`` rank r on card r; with ``gloo`` rank r on
+    ``devices[r % len(devices)]``, the CPU by default, so several ranks
+    may share a card), the kernels built here first when a rank is on a
+    card, so the processes never build them at once; the results in rank
+    order.  ``fn`` and ``args`` must pickle (a module-level function; a
+    card's tensor in ``args`` reaches the ranks as a CUDA IPC handle, so
+    it must outlive them), and the results must pickle on the host.  The
     rendezvous store listens on 127.0.0.1 at a port the OS picks.  Raises
     the first rank's error, or ``TimeoutError`` after ``timeout`` seconds;
     every process is joined, or killed, before this returns."""
     if backend == "nccl":
+        devices = [f"cuda:{r}" for r in range(size)]
+    devices = tuple(str(d) for d in (devices or ("cpu",)))
+    if any(torch.device(d).type == "cuda" for d in devices):
         build.build_all()
     store = dist.TCPStore("127.0.0.1", 0, is_master=True,
                           wait_for_workers=False,
@@ -277,7 +390,7 @@ def spawn(fn: Callable, size: int, backend: str = "gloo",
     queue = ctx.SimpleQueue()
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, size, backend, store.port, timeout,
-                               queue, args), daemon=True)
+                               queue, args, devices), daemon=True)
              for r in range(size)]
     results: list[Any] = [None] * size
     try:

@@ -42,6 +42,12 @@ over the ranks in float32 and rounded once (``dt_raw``, B and C whole on
 every rank, the output onto the rank's run of the sequence when the
 residual is sequence-sharded, whose input the block gathers first: the
 scan needs the whole sequence).  The caches are the rank's channels.
+Training runs the same blocks (``LM.loss``): the sequence gathered with
+its gradient reduce-scattered back (or, for a replicated residual, the
+input ``replicate``d), ``x_proj``'s partials summed and their gradient
+summed over the ranks in turn (every rank's channels read ``dt_raw``, B
+and C), and ``SSMScanFn``'s forward and backward kernels on the rank's
+``d_inner / tp`` channels.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch.models.common import (ONE_DEVICE, ParamDef, ParamModule,
                                        ParamStore)
 from repro_torch.models.layers import (matmul_f32, reduce_partials,
                                        whole_output)
+from repro_torch.models.parallel import gather, reduce, replicate
 
 SCAN_IMPLS = ("sequential", "associative")
 
@@ -87,14 +94,14 @@ class MambaBlock(ParamModule):
         store.add("D", ParamDef((di,), ("tp",), init="ones"))
         store.add("w_out", ParamDef((di, d), ("tp", self._fsdp)))
 
-    def block(self, path: str) -> tuple:
+    def block(self, path: str, rank: int | None = None) -> tuple:
         """As ``ParamModule.block``, but ``w_in``'s columns are the x and
         the z columns of the rank's channels (``conv_b``'s block): two
         runs, given as a list of indices."""
-        index = super().block(path)
+        index = super().block(path, rank)
         if path != "w_in":
             return index
-        ch, di = super().block("conv_b")[0], self.d_inner
+        ch, di = super().block("conv_b", rank)[0], self.d_inner
         if ch.stop - ch.start == di:        # the channels are not cut
             return index[:1] + (slice(0, 2 * di),)
         return index[:1] + (list(range(ch.start, ch.stop))
@@ -114,8 +121,9 @@ class MambaBlock(ParamModule):
         """x (b, s, di) post-conv post-silu -> (dt (b, s, di) float32, B, C
         (b, s, ds) float32)."""
         if self.split("w_x"):       # the rank's channels: partials
-            xdb = self.tp_group.all_reduce(
-                matmul_f32(x, self.w_x)).to(x.dtype)
+            g = self.tp_group       # summed; their gradient too (whole)
+            xdb = replicate(reduce(matmul_f32(x, self.w_x), g), g).to(
+                x.dtype)
         else:
             xdb = x @ self.w_x
         dt_raw, B, C = xdb.split([self.dt_rank, self.d_state, self.d_state],
@@ -145,7 +153,9 @@ class MambaBlock(ParamModule):
         and the output are the rank's run of the sequence when
         ``seq_sharded``, and the state and the tail its channels."""
         if self.tp_group is not None and seq_sharded:
-            h = self.tp_group.all_gather(h, 1)
+            h = gather(h, self.tp_group, 1)
+        elif self.split("w_x"):
+            h = replicate(h, self.tp_group)
         s = h.shape[1]
         x_pre, z = (h @ self.w_in).chunk(2, dim=-1)
         x = F.silu(self._conv(x_pre).to(torch.float32)).to(h.dtype)

@@ -11,9 +11,10 @@ Entry points:
   * ``loss(batch)``: training, ``(loss + 0.01 aux, {"loss", "aux_loss"})``
     for every family of this model (dense, moe with MoE and MLA, ssm,
     hybrid, vlm; a vlm's batch carries its ``image_embeds``), each layer
-    recomputed in the backward when ``cfg.remat`` and ``kind == "train"``;
-    a Mamba sublayer's scan runs backwards through the ``ssm_scan_bwd``
-    kernel;
+    recomputed in the backward when ``cfg.remat`` and ``kind == "train"``
+    (on a rank, its collectives too); a Mamba sublayer's scan runs
+    backwards through the ``ssm_scan_bwd`` kernel; over ranks for the
+    dense and ssm families (attention and MLP sublayers, Mamba ones);
   * ``prefill(batch)``: ``(last-token float32 logits, caches)``, the caches
     stacked over periods as in the reference; a vlm's batch carries its
     ``image_embeds`` (b, num_image_tokens, d), the memory of its
@@ -59,8 +60,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, MLAttention
 from repro_torch.models.common import (NOT_RUN, ONE_DEVICE, ParamDef,
-                                       ParamStore, Topo, init_param_,
-                                       maybe_remat)
+                                       ParamModule, ParamStore, Topo,
+                                       init_param_, maybe_remat)
 from repro_torch.models.layers import Embedding, Mlp, Norm, chunked_ce_loss
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MambaBlock
@@ -265,17 +266,38 @@ class ModelBase(nn.Module):
                 store.add(f"{mod_name}.{path}" if mod_name else path, d)
         return store
 
-    def blocks(self) -> dict[str, tuple[slice, ...]]:
+    def blocks(self, rank: int | None = None) -> dict[str, tuple]:
         """Every parameter's index into its whole tensor, by state-dict
-        name (the whole tensor off a rank)."""
+        name: rank ``rank``'s block (this rank's by default), or the whole
+        tensor off a rank."""
         out = {}
         for mod_name, mod in self.named_modules():
             for path, d in getattr(mod, "defs", {}).items():
                 name = f"{mod_name}.{path}" if mod_name else path
-                out[name] = mod.block(path) \
+                out[name] = mod.block(path, rank) \
                     if getattr(mod, "tp_group", None) is not None \
                     else tuple(slice(0, n) for n in d.shape)
         return out
+
+    def cut_params(self) -> list[str]:
+        """The parameters a rank holds a block of, not the whole tensor."""
+        defs = self.param_defs().defs
+        return [name for name, p in self.named_parameters()
+                if tuple(p.shape) != defs[name].shape]
+
+    def grad_shares(self, seq_len: int) -> list[str]:
+        """The parameters each rank holds whole whose gradient on a rank is
+        its share of the whole gradient over a length-``seq_len`` batch
+        (``ParamModule.grad_shares``: the norms' on the rank's run of the
+        sequence, or a bias that meets the rank's heads only); the train
+        step sums them over the ranks.  Off a rank, none."""
+        if self.group is None:
+            return []
+        seq = self.seq_sharded(seq_len)
+        return [f"{mod_name}.{path}" if mod_name else path
+                for mod_name, mod in self.named_modules()
+                if isinstance(mod, ParamModule)
+                for path in mod.grad_shares(seq)]
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator,
@@ -361,10 +383,12 @@ class LM(ModelBase):
         return h, kvs
 
     def _train_layer(self, layer: nn.ModuleDict, h: torch.Tensor,
-                     positions: torch.Tensor, memory=None):
+                     positions: torch.Tensor, memory=None,
+                     seq_sharded: bool = False):
         """One layer's sublayers over the residual stream (a vlm's cross
         sublayer over ``memory``, gated): (h, the layer's MoE
-        load-balancing loss, float32)."""
+        load-balancing loss, float32).  On a rank, h is its run of the
+        sequence when ``seq_sharded``."""
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for name, kind in self.period_kinds:
             sub = layer[name]
@@ -373,11 +397,11 @@ class LM(ModelBase):
                 out, aux_i = sub.core(x)
                 aux = aux + aux_i
             elif kind in ("attn", "mla"):
-                out = sub.core(x, positions)
+                out = sub.core(x, positions, seq_sharded=seq_sharded)
             elif kind == "cross":
                 out = sub.gate_out(sub.core(x, positions, memory=memory))
             elif kind in ("mamba", "mlp"):
-                out = sub.core(x)
+                out = sub.core(x, seq_sharded=seq_sharded)
             else:
                 raise ValueError(f"unknown sublayer kind {kind!r}")
             h = h + out
@@ -387,25 +411,41 @@ class LM(ModelBase):
         """batch {"tokens", "labels": (b, s)[, "image_embeds": (b, m, d)]}
         -> (loss + 0.01 aux, {"loss": the mean cross-entropy, "aux_loss":
         the MoE layers' summed load-balancing loss}), float32 scalars with
-        their graph."""
+        their graph.  On a rank (the dense and ssm families) every rank
+        holds the whole batch and the same loss, the mean over all its
+        tokens; the residual is cut over the sequence where tp divides
+        it (Megatron-SP), else replicated, and each rank's backward
+        gives its blocks' gradients (a parameter it holds whole: its
+        share where ``grad_shares`` names it)."""
         cfg = self.cfg
         if self.group is not None:
-            raise NotImplementedError(f"sharded training {NOT_RUN}")
+            self._trains()
         self._runs()
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        h = self.embed.embed(tokens)
+        seq = self.seq_sharded(tokens.shape[1])
+        h = self.embed.embed(tokens, seq)
         positions = torch.arange(tokens.shape[1], device=self.device)
         memory = self._memory(batch)
         layer_fn = maybe_remat(self._train_layer,
                                cfg.remat and self.kind == "train")
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            h, aux_i = layer_fn(layer, h, positions, memory)
+            h, aux_i = layer_fn(layer, h, positions, memory, seq)
             aux = aux + aux_i
         h = self.final_norm(h)
-        loss = chunked_ce_loss(self.embed, h, labels, cfg.vocab_size)
+        loss = chunked_ce_loss(self.embed, h, labels, cfg.vocab_size, seq)
         return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
+
+    def _trains(self) -> None:
+        """Raise ``NotImplementedError`` for a sublayer that does not train
+        over ranks yet: MoE, MLA and cross-attention."""
+        kinds = sorted({k for _, k in self.period_kinds}
+                       & {"moe", "mla", "cross"})
+        if kinds:
+            raise NotImplementedError(
+                f"{self.cfg.name}: sharded training of {', '.join(kinds)} "
+                f"sublayers {NOT_RUN}")
 
     @torch.no_grad()
     def prefill(self, batch: dict):
@@ -527,9 +567,10 @@ CACHE_AXES = {
 def rank_group(cfg: ModelConfig, topo: Topo, group):
     """The group a model of ``cfg`` runs its rank in: None on one device
     (a group of one rank included), else ``group``, checked against the
-    mesh.  Every family and MLA runs over ranks; a mesh with data > 1
-    raises ``NotImplementedError`` (``Topo.tp``), as do ``fsdp_sp``
-    attention (``Attention``) and sharded training (``loss``)."""
+    mesh.  Every family and MLA serves over ranks, and the dense and ssm
+    families train; a mesh with data > 1 raises ``NotImplementedError``
+    (``Topo.tp``), as do ``fsdp_sp`` attention (``Attention``) and the
+    training of MoE, MLA and cross sublayers (``loss``)."""
     if group is None:
         return None
     tp = topo.tp

@@ -36,20 +36,38 @@ def init_opt_state(params: dict[str, torch.Tensor],
     }
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum, leaf by leaf in the dict's order, of each leaf's
-    float32 sum of squares."""
+def _sum_of_squares(leaves) -> torch.Tensor | None:
     sq = None
-    for g in tree.values():
+    for g in leaves:
         s = torch.sum(torch.square(g.to(torch.float32)))
         sq = s if sq is None else sq + s
-    return torch.sqrt(sq)
+    return sq
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+def global_norm(tree: dict[str, torch.Tensor], group=None,
+                cut=()) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in the dict's order, of each leaf's
+    float32 sum of squares.  Over the ranks of a ``group``, whose leaves
+    named in ``cut`` are the rank's blocks and the others whole on every
+    rank: the blocks' sums summed over the ranks, each whole leaf counted
+    once, so every rank holds the norm of the whole tree."""
+    if group is None:
+        return torch.sqrt(_sum_of_squares(tree.values()))
+    cut = set(cut)
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=next(iter(tree.values())).device)
+    blocks = _sum_of_squares(g for k, g in tree.items() if k in cut)
+    whole = _sum_of_squares(g for k, g in tree.items() if k not in cut)
+    blocks = group.all_reduce((zero if blocks is None else blocks)[None])[0]
+    return torch.sqrt(blocks + (zero if whole is None else whole))
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
+                        group=None, cut=()):
     """(grads * min(1, max_norm / max(norm, 1e-9)), norm), the scale cast
-    to each gradient's dtype as in the reference."""
-    norm = global_norm(grads)
+    to each gradient's dtype as in the reference; over ranks, the norm of
+    the whole tree (``global_norm``)."""
+    norm = global_norm(grads, group, cut)
     one = torch.ones((), dtype=torch.float32, device=norm.device)
     scale = torch.minimum(one, torch.full_like(norm, max_norm) /
                           torch.clamp(norm, min=1e-9))

@@ -10,6 +10,14 @@ restored) that step, which the reference does (the same files; a train
 state of billions of parameters is tens of GB), and a ``checkpoint_dir``
 of ``None`` trains without checkpoints (no restore, no save), for a run
 whose state is too large to write.
+
+With a ``group`` (a rank of a (1, tp) mesh, ``models.parallel``) each
+rank builds its blocks of the model and trains them on the same batches
+(data = 1: every rank draws the whole batch of the step); rank 0 calls the
+telemetry hook and writes the checkpoints, which every rank gathers
+(``train.step.save_state``), and every rank restores its blocks from
+one.  A preemption must reach every rank (a signal to the process group
+does), or the others wait for the rank that stopped.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from repro_torch.ft.heartbeat import PreemptionHandler, StragglerMonitor
 from repro_torch.models.common import ONE_DEVICE, Topo
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train.step import (init_state, load_state, make_train_step,
-                                    state_tree)
+                                    save_state)
 
 
 @dataclass
@@ -42,18 +50,22 @@ class TrainResult:
 
 class Trainer:
     """``dtype`` overrides the parameters' dtype (the configs' bfloat16 by
-    default); the model is built on ``device`` (the card by default)."""
+    default); the model is built on ``device`` (the card by default); with
+    a ``group``, that rank's blocks of it under ``topo``."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  run_cfg: RunConfig, topo: Topo = ONE_DEVICE, data=None,
                  telemetry_hook: Callable[[int, float, dict], None]
                  | None = None,
                  preemption: PreemptionHandler | None = None, *,
-                 device="cuda", dtype: torch.dtype | None = None):
+                 device="cuda", dtype: torch.dtype | None = None,
+                 group=None):
         self.cfg, self.shape, self.run_cfg, self.topo = cfg, shape, run_cfg, topo
         self.device = resolve_device(device)
         self.model = build_model(cfg, topo, kind="train", device=self.device,
-                                 dtype=dtype)
+                                 dtype=dtype, group=group)
+        self.group = self.model.group
+        self.rank = 0 if self.group is None else self.group.rank
         self.step_fn = make_train_step(self.model, run_cfg, topo)
         self.data = data or SyntheticTokens(cfg, shape, seed=run_cfg.seed)
         self.telemetry_hook = telemetry_hook
@@ -66,15 +78,15 @@ class Trainer:
         directory = self.run_cfg.checkpoint_dir
         last = None if directory is None else ckpt.latest_step(directory)
         if last is not None:
-            tree, step = ckpt.restore(directory, last)
+            tree, step = ckpt.restore(directory, last, lazy=True)
             return load_state(self.model, tree, self.run_cfg), step, last
         return init_state(self.model, self.run_cfg, generator), 0, None
 
     def _save(self, state: dict, step: int, collect: bool = False) -> None:
         directory = self.run_cfg.checkpoint_dir
         if directory is not None:
-            ckpt.save(state_tree(state), directory, step)
-            if collect:
+            save_state(state, self.model, directory, step)
+            if collect and self.rank == 0:
                 ckpt.garbage_collect(directory)
 
     def run(self, num_steps: int | None = None,
@@ -102,8 +114,8 @@ class Trainer:
             result.steps_run += 1
             result.losses.append(loss)
             result.step_durations.append(dt)
-            self.straggler_monitor.record(0, step, dt)
-            if self.telemetry_hook:
+            self.straggler_monitor.record(self.rank, step, dt)
+            if self.telemetry_hook and self.rank == 0:
                 self.telemetry_hook(step, dt, {k: float(v)
                                                for k, v in metrics.items()})
             if self.preemption.preempted:

@@ -184,9 +184,9 @@ def test_shard_slices_tile_every_tensor_exactly(tp, kind):
 
 def test_shard_slices_refuse_a_mesh_with_data_and_a_bad_rank():
     topo = Topo(MeshConfig((4, 4), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         topo.shard_slices(("data", "model"), (8, 8), 0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         _ = topo.tp
     with pytest.raises(ValueError):
         Topo(MeshConfig((1, 2), ("data", "model"))).shard_slices(

@@ -10,8 +10,23 @@ are pinned.  Those phases count the same on the card; the numbers here
 are the prediction they are held to in ``PERF.md``.  whisper-medium's
 case is in ``test_torch_tp_counts_encdec.py``, so that ``--dist loadfile``
 puts the two files' minute of meta work on two workers.
+
+Training: rank 0's collectives in one train step of phase 27's check
+models (glm4-9b and falcon-mamba-7b at full width on 2 layers, 4 x 1024
+over a (1, 4) mesh), counted on meta by ``chip_smoke.tp_train_counts``,
+which phase 27 holds each rank's steps on the card to.  Per layer and
+step (remat: the forward, its recomputation and the backward): a dense
+layer gathers its two sublayers' inputs and attention's k and v over
+head_dim, reduce-scatters their outputs, and the backward runs each
+conjugate; a Mamba layer gathers and scatters once and sums ``x_proj``'s
+partials (and their gradient).  The loss gathers the residual and reduces
+each 512-token chunk's max, sum and gold logit, again in the chunk's
+recomputation; the step adds one all-reduce of the gradient shares and
+one of the norm.
 """
 import dataclasses
+import os
+import sys
 
 import pytest
 import torch
@@ -111,3 +126,29 @@ def check_case(case: tuple) -> None:
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_a_rank_exchanges_and_holds_what_the_chip_phases_predict(case):
     check_case(CASES[case])
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# arch -> a train step's {collective: [calls, bytes]} on rank 0
+TRAIN_CASES = {
+    "glm4-9b": {"all_reduce": [14, 217092],
+                "all_gather": [22, 155189248],
+                "reduce_scatter": [16, 612368384]},
+    "falcon-mamba-7b": {"all_reduce": [20, 28459012],
+                        "all_gather": [8, 83886080],
+                        "reduce_scatter": [6, 268435456]},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_CASES))
+def test_a_rank_exchanges_in_a_train_step_what_phase_27_predicts(arch):
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    cfg = dataclasses.replace(ARCHS[arch],
+                              num_layers=chip_smoke.TP_TRAIN_CHECK_LAYERS)
+    assert chip_smoke.TP_TRAIN_SHAPE == (4, 1024)
+    assert chip_smoke.tp_train_counts(cfg, TP) == TRAIN_CASES[arch]

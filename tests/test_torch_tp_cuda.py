@@ -4,19 +4,24 @@ card).  Imports neither JAX nor the reference package:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_tp_cuda.py
 
 The ranks are ``LocalGroup`` threads on the cards there are (every rank on
-card 0 of a one-card machine), each launching its own kernels.
+card 0 of a one-card machine), each launching its own kernels; training's
+ranks are processes (``parallel.spawn``: NCCL with a card each, else gloo
+processes sharing the cards), since threads cannot run backward passes on
+one card together.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import ARCHS
-from repro_torch.configs.base import MeshConfig
+from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
 from repro_torch.kernels import build
 from repro_torch.models.common import Topo
 from repro_torch.models.layers import matmul_f32
-from repro_torch.models.parallel import run_local
+from repro_torch.models.parallel import LocalGroup, run_local, spawn
 from repro_torch.serve import ServeEngine
+from repro_torch.train import Trainer
+from repro_torch.train.step import make_train_step
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=5e-2)}
@@ -40,6 +45,14 @@ def test_float32_partials_of_a_bf16_product(cuda):
     assert got.dtype == torch.float32 and got.shape == (3, 5, 64)
     want = (x.double() @ w.double()).float()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    # under autograd: the backward of the bf16 product (bf16 gradients)
+    dy = torch.randn(3, 5, 64, device=cuda, generator=g).bfloat16()
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(matmul_f32(xg, wg), (xg, wg), dy.float())
+    want = torch.autograd.grad(xg @ wg, (xg, wg), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -183,3 +196,52 @@ def test_tp_mla_and_cross_ranks_on_the_card_match_one_card(cuda, arch, tp,
         np.testing.assert_array_equal(ids, want)
         assert launches["flash_attention"] == flash
         assert launches["rmsnorm"] == norms * 5
+
+
+TRAIN_CFG = ARCHS["glm4-9b"].reduced(num_layers=2)
+
+
+def _train(group, device, dtype) -> dict:
+    """3 float32 or bf16 ``Trainer`` steps of the reduced glm4-9b on
+    ``device``, over the group's (1, tp) mesh (one card without one), 4 x
+    64 tokens, no checkpoints: the losses and the rank's launches."""
+    tp = 1 if group is None else group.size
+    trainer = Trainer(
+        TRAIN_CFG, ShapeConfig("t", 64, 4, "train"),
+        RunConfig(total_steps=3, warmup_steps=1, checkpoint_dir=None),
+        Topo(MeshConfig((1, tp), ("data", "model"))), device=device,
+        dtype=dtype, group=group)
+    build.reset_launches()
+    res = trainer.run()
+    return {"losses": res.losses, "launches": dict(build.LAUNCHES)}
+
+
+def train_rank(group, dtype) -> dict:
+    return _train(group, group.device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_training_on_the_card_matches_one_card(cuda, dtype):
+    """A reduced glm4-9b trained over 2 ranks (NCCL processes with 2 cards,
+    else gloo processes sharing the card): each step's loss within the
+    models' tolerance of one card's, every rank launching what one card
+    launches (2L flash, L backward, 4L + 1 rmsnorm and 2L + 1 backward a
+    step, its heads through the kernels); threads on a card are refused."""
+    one = _train(None, cuda, dtype)
+    n = torch.cuda.device_count()
+    ranks = spawn(train_rank, 2, "nccl" if n >= 2 else "gloo",
+                  timeout=600.0, args=(dtype,),
+                  devices=None if n >= 2 else [str(cuda)])
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"],
+                                   rtol=TOL[dtype]["rtol"])
+        assert r["launches"] == one["launches"]
+        assert r["losses"] == ranks[0]["losses"]
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(TRAIN_CFG, Topo(MeshConfig((1, 2), ("data",
+                                                           "model"))),
+                        "train", device="meta",
+                        group=LocalGroup.make(2, [cuda])[0])
+    with pytest.raises(ValueError, match="cannot train"):
+        make_train_step(model, RunConfig())

@@ -1,7 +1,8 @@
 """``DistGroup`` (gloo processes started by ``parallel.spawn``) against
 ``LocalGroup`` (threads): the same collectives and the same tp = 2
 serving of a reduced command-r-35b, jamba-1.5-large-398b, deepseek-v2-236b
-(MLA) and whisper-medium (an encoder and cross-attention).
+(MLA) and whisper-medium (an encoder and cross-attention), and the same
+bits of two tp = 2 train steps of a reduced glm4-9b.
 
 This file imports neither JAX nor the reference, so the spawned ranks,
 which import it to find their function, start in about three seconds.
@@ -14,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS
-from repro_torch.configs.base import MeshConfig
+from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
 from repro_torch.models.common import Topo
 from repro_torch.models.parallel import run_local, spawn
 from repro_torch.serve import ServeEngine
+from repro_torch.train import Trainer
 from test_torch_tp_cuda import away_from_zero
 
 CFG = ARCHS["command-r-35b"].reduced(num_layers=2)
@@ -202,3 +204,39 @@ def test_the_launcher_serves_over_threads_as_on_one_device(capsys,
     with pytest.raises(ValueError, match="do not fit"):
         serve.check_fits(CFG, torch.device("cpu"), 4,
                          ranks_per_device=10**9)
+
+
+GLM = ARCHS["glm4-9b"].reduced(num_layers=2)
+
+
+def train_run(group) -> dict:
+    """A float32 reduced glm4-9b (qkv biases) on this rank, the seeded
+    init: 2 ``Trainer`` steps at 4 x 16 tokens (the residual cut over the
+    sequence), no checkpoints; the losses, rank 0's grad norms and the
+    rank's parameter blocks."""
+    norms = []
+    trainer = Trainer(
+        GLM, ShapeConfig("smoke", 16, 4, "train"),
+        RunConfig(total_steps=2, warmup_steps=1, learning_rate=3e-3,
+                  checkpoint_dir=None),
+        Topo(MeshConfig((1, group.size), ("data", "model"))),
+        telemetry_hook=lambda step, dt, m: norms.append(m["grad_norm"]),
+        device="cpu", dtype=torch.float32, group=group)
+    res = trainer.run()
+    return {"losses": res.losses, "norms": norms,
+            "params": {n: p.detach().clone()
+                       for n, p in trainer.model.named_parameters()}}
+
+
+def test_dist_group_trains_as_the_threads_do():
+    """tp = 2 training over gloo processes and over threads: the same
+    losses, grad norms and parameter blocks, bit for bit."""
+    procs = spawn(train_run, 2, "gloo", timeout=120.0)
+    threads = run_local(train_run, 2)
+    assert procs[0]["norms"] == threads[0]["norms"] and \
+        len(threads[0]["norms"]) == 2
+    for p, t in zip(procs, threads):
+        assert p["losses"] == t["losses"] == threads[0]["losses"]
+        assert sorted(p["params"]) == sorted(t["params"])
+        for name, x in t["params"].items():
+            assert torch.equal(p["params"][name], x), name

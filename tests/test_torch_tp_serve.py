@@ -237,10 +237,12 @@ def test_widths_match_the_reference(widths):
 
 def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
     """A group must match the mesh; every family builds over several ranks
-    (MoE, MLA, SSM, hybrid, vlm and enc-dec models), while data > 1,
-    ``fsdp_sp`` attention (heads that tp does not divide) and sharded
-    training raise ``NotImplementedError``; a model laid out over ranks
-    but built without its group only describes the layout."""
+    (MoE, MLA, SSM, hybrid, vlm and enc-dec models), and the dense and
+    ssm families train over them, while data > 1, ``fsdp_sp`` attention
+    (heads that tp does not divide) and the training of MoE, MLA, cross
+    and enc-dec models raise ``NotImplementedError`` naming ROADMAP.md's
+    queue 1; a model laid out over ranks but built without its group only
+    describes the layout."""
     from repro_torch.models.model_zoo import build_model
     topo = Topo(MeshConfig((1, 2), ("data", "model")))
     g = LocalGroup.make(2)[0]
@@ -248,7 +250,7 @@ def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="a group of 2 ranks"):
         build_model(cfg, Topo(MeshConfig((1, 4), ("data", "model"))),
                     "prefill", device="cpu", group=g)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_model(cfg, Topo(MeshConfig((2, 2), ("data", "model"))),
                     "prefill", device="cpu", group=g)
     with pytest.raises(NotImplementedError, match="fsdp_sp over ranks"):
@@ -264,8 +266,21 @@ def test_groups_check_their_ranks_and_models_refuse_what_is_not_ported():
             model = build_model(ARCHS[arch].reduced(), topo, kind,
                                 device="meta", group=g)
             assert model.group is g
-        with pytest.raises(NotImplementedError, match="sharded training"):
+        if arch == "falcon-mamba-7b":
+            continue
+        with pytest.raises(NotImplementedError,
+                           match="sharded training.*ROADMAP.md queue 1"):
             model.loss(batch)
+    # the dense and ssm families train over the ranks: one loss on all
+    def trains(grp, arch):
+        model = build_model(ARCHS[arch].reduced(num_layers=1), topo,
+                            "train", device="cpu", group=grp)
+        model.init_params(torch.Generator().manual_seed(0))
+        return float(model.loss(batch)[0].detach())
+
+    for arch in ("command-r-35b", "falcon-mamba-7b"):
+        losses = run_local(lambda grp: trains(grp, arch), 2)
+        assert np.isfinite(losses[0]) and losses[0] == losses[1], arch
     whole = build_model(cfg, topo, "prefill", device="cpu")
     with pytest.raises(ValueError, match="group of one rank"):
         whole.prefill({"tokens": np.zeros((1, 4), np.int32)})
